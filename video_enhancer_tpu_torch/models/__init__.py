@@ -1,0 +1,1 @@
+"""Models of the port (counterparts of video_enhancer_tpu.models)."""
