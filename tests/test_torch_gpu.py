@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels against their plain versions,
 at small shapes that reach the kernels' edges (ragged chunks, strided rows,
-narrow heads, even conv kernels, every dtype).
+narrow heads, even conv kernels, ragged query and key lengths, strided
+views of a split projection, every dtype).
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -14,8 +15,11 @@ import pytest
 import torch
 
 from video_enhancer_tpu_torch import kernels
+from video_enhancer_tpu_torch.models import ditvr
 from video_enhancer_tpu_torch.nn.ssm import (bissd_apply, bissd_init,
                                              bissm_apply, bissm_init)
+from video_enhancer_tpu_torch.ops.attention import (attention, attention_ref,
+                                                    flash_attention)
 from video_enhancer_tpu_torch.ops.scan import (fused_bidir_ssm_kernel,
                                                fused_bidir_ssm_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
@@ -117,3 +121,111 @@ def test_kernel_rejects_bad_layout(cuda):
     Bm = torch.randn((1, 10, 4), device=cuda)
     with pytest.raises(ValueError, match="heads must be dense"):
         ssd_shared_kernel(x, dt, -torch.ones(2, device=cuda), Bm, Bm)
+
+
+# flash attention: max |kernel - attention_ref| / max |attention_ref|. In
+# half types both round the probabilities to the input type, the kernel
+# before it divides by the running sum and the plain form after, so they
+# differ by about that rounding; fp32 differs only in the order of sums.
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+def _qkv(cuda, dtype, B, H, Lq, Lk, Dh, layout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if layout == "dense":
+        return [torch.randn((B, H, n, Dh), generator=gen, device=cuda)
+                .to(dtype) for n in (Lq, Lk, Lk)]
+    # views of wider projections, as ditvr hands them over: (B, L, H, Dh)
+    # column slices seen as (B, H, L, Dh), head dim dense; "odd" shifts
+    # them by one element, off the 16-byte grid
+    off = 1 if layout == "odd" else 0
+    xq = torch.randn((B, Lq, H * Dh + 8 + off), generator=gen, device=cuda)
+    xkv = torch.randn((B, Lk, 2 * H * Dh + off), generator=gen, device=cuda)
+    xq, xkv = xq.to(dtype)[..., off:], xkv.to(dtype)[..., off:]
+
+    def mh(z, n):
+        return z.reshape(B, n, H, Dh).transpose(1, 2)
+
+    k, v = xkv.chunk(2, dim=-1)
+    return mh(xq[..., :H * Dh], Lq), mh(k, Lk), mh(v, Lk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("split", ["dense", "split", "odd"])
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [(2, 3, 300, 1000, 64),
+                                          (1, 2, 37, 53, 16),
+                                          (2, 3, 256, 256, 128),
+                                          (1, 1, 1, 70, 48),
+                                          (3, 2, 129, 65, 112)])
+def test_flash_kernel_matches_plain(cuda, dtype, split, B, H, Lq, Lk, Dh):
+    q, k, v = _qkv(cuda, dtype, B, H, Lq, Lk, Dh, split, seed=Lq + Lk)
+    before = kernels.launch_counts["flash_attention"]
+    got = flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert got.shape == (B, H, Lq, Dh) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_scale_and_large_logits(cuda, dtype):
+    """A given scale is used, and logits far from 0 stay finite."""
+    q, k, v = _qkv(cuda, dtype, 1, 2, 70, 130, 32, "dense", seed=9)
+    got = flash_attention(q * 30, k, v, scale=0.7)
+    ref = attention_ref(q * 30, k, v, scale=0.7)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= FLASH_TOL[dtype]
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((1, 1, 20, 40), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention(q, q, q)
+    x = torch.randn((1, 1, 64, 20), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="head dim must be dense"):
+        flash_attention(x, x, x)
+    with pytest.raises(TypeError):
+        flash_attention(x.contiguous(), x.contiguous().half(),
+                        x.contiguous())
+
+
+def test_attention_dispatch_on_the_card(cuda):
+    """The kernel for unbiased Lq, Lk >= 256; the plain form otherwise."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 2, 256, 300, 64, "split", seed=1)
+    kernels.reset_launch_counts()
+    attention(q, k, v)
+    assert kernels.launch_counts["flash_attention"] == 1
+    attention(q[:, :, :255], k, v)
+    attention(q, k, v, bias=torch.zeros((), device=cuda))
+    attention(q, k, v, use_kernel=False)
+    assert kernels.launch_counts["flash_attention"] == 1
+
+
+def test_ditvr_routes_through_flash(cuda):
+    """A narrow ditvr (256 tokens) launches the kernel once per block and
+    agrees with its plain path."""
+    gen = torch.Generator().manual_seed(0)
+    p = ditvr.init(gen, dim=64, depth=2, adapt_layers=1)
+    p16 = _to(p, cuda, torch.bfloat16)
+    clip = torch.rand((1, 8, 32, 32, 3), device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    y = ditvr.apply(p16, clip, degradation_type=2,
+                    degradation_scores=(0.1, 0.6, 0.2), heads=2)
+    assert kernels.launch_counts["flash_attention"] == 2
+    y_p = ditvr.apply(p16, clip, degradation_type=2,
+                      degradation_scores=(0.1, 0.6, 0.2), heads=2,
+                      kernels=False)
+    torch.cuda.synchronize()
+    assert (y.float() - y_p.float()).abs().max().item() <= 3e-2
+
+
+def _to(p, device, dtype):
+    if isinstance(p, dict):
+        return {k: _to(v, device, dtype) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_to(v, device, dtype) for v in p]
+    return p.to(device=device, dtype=dtype)

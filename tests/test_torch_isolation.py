@@ -1,6 +1,8 @@
-"""The port and chip_smoke.py import nothing of JAX, OpenCV or the JAX
-package: the card's machine has none of them. Checked in a fresh
-interpreter, which imports every module of the port and chip_smoke.py."""
+"""The port and chip_smoke.py import nothing of JAX, OpenCV, PyYAML or the
+JAX package: the card's machine has none of them (OpenCV only inside the
+port's file-IO functions). Checked in fresh interpreters: one imports every
+module of the port and chip_smoke.py; one, where those packages cannot be
+imported at all, drives the auto route on frames in memory."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+BAD = ("jax", "jaxlib", "cv2", "yaml", "video_enhancer_tpu")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -19,17 +22,46 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "cv2", "video_enhancer_tpu"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print(json.dumps({"modules": names, "bad": bad}))
-"""
+""" % (BAD,)
+
+# A module set to None in sys.modules cannot be imported.
+ROUTE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+from chip_smoke import dim_clip
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_frames
+out, stats = run_auto_frames(dim_clip(8, 16, 16), device="cpu")
+plan = stats["routing_plan"]
+print(json.dumps({"primary": plan["expert_routing"]["primary_model"],
+                  "fallback": "fallback" in plan or "fallback_from" in stats,
+                  "frames": len(out)}))
+""" % (BAD,)
+
+
+def _run(code: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                         capture_output=True, text=True, check=True,
+                         cwd=ROOT, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def test_port_imports_no_jax_cv2_or_jax_package():
-    out = subprocess.run([sys.executable, "-c", PROBE, str(ROOT)],
-                         capture_output=True, text=True, check=True,
-                         cwd=ROOT, timeout=300)
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "video_enhancer_tpu_torch.runtime.vsr_handler" in res["modules"]
-    assert "video_enhancer_tpu_torch.io.video" in res["modules"]
+    res = _run(PROBE)
+    for name in ("runtime.vsr_handler", "io.video", "config",
+                 "analysis.router", "ops.degradation", "ops.attention",
+                 "models.ditvr", "models.upscaler", "runtime.pipeline",
+                 "runtime.experts", "runtime.qualification",
+                 "runtime.registry", "runtime.upscaler_handler"):
+        assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
+
+
+def test_auto_route_runs_without_jax_cv2_or_yaml():
+    """Routing, preprocessing and ditvr run with those packages absent, and
+    nothing falls back (a failed import would show as a fallback)."""
+    res = _run(ROUTE)
+    assert res == {"primary": "ditvr", "fallback": False, "frames": 8}

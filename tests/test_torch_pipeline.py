@@ -1,0 +1,217 @@
+"""The port's auto pipeline, preprocessing experts and fallback handlers
+against the JAX package's, on the CPU.
+
+Tolerances: 1e-6 absolute for the preprocessing experts (fp32 stencils on
+both sides); 1e-5 for bicubic and 1e-4 for the CNN upscaler at fp32
+(convolutions and resize products summed in another order); 1 LSB for
+uint8 frames of one computation. End to end, both pipelines run ditvr in
+bf16 and encode with OpenCV; their outputs are held to a mean of 1 LSB and
+a max of 16 LSB (bf16 rounding through 8 blocks, then the codec).
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_enhancer_tpu.runtime import experts as jexperts
+from video_enhancer_tpu.runtime import pipeline as jpipeline
+from video_enhancer_tpu.runtime.upscaler_handler import \
+    CnnUpscalerHandler as JCnn
+from video_enhancer_tpu_torch.io.video import read_frames, write_frames
+from video_enhancer_tpu_torch.runtime import pipeline as tpipeline
+from video_enhancer_tpu_torch.runtime import registry
+from video_enhancer_tpu_torch.runtime.experts import preprocess_clip
+from video_enhancer_tpu_torch.runtime.upscaler_handler import \
+    CnnUpscalerHandler
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import dim_clip  # noqa: E402
+
+CNN_NPZ = registry.WEIGHTS_DIR / "cnn_upscaler_2x.npz"
+
+
+@pytest.mark.parametrize("flags", [(True, False, False), (False, True, False),
+                                   (False, False, True), (True, True, True)])
+def test_preprocess_clip_matches_jax(flags):
+    dn, ll, cc = flags
+    clip = np.random.default_rng(0).random((3, 17, 23, 3), dtype=np.float32)
+    want = np.asarray(jexperts.preprocess_clip(
+        jnp.asarray(clip), do_denoise=dn, do_lowlight=ll, do_compression=cc))
+    got = preprocess_clip(torch.from_numpy(clip), do_denoise=dn,
+                          do_lowlight=ll, do_compression=cc)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+def test_bicubic_handler_matches_jax():
+    frames = np.random.default_rng(1).random((3, 12, 20, 3), dtype=np.float32)
+    want = np.asarray(JCnn(scale=2, use_cnn=False).enhance_frames(
+        jnp.asarray(frames)))
+    h = CnnUpscalerHandler(scale=2, use_cnn=False, device="cpu")
+    got = h.process_frames(torch.from_numpy(frames)).numpy()
+    assert got.shape == (3, 24, 40, 3)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_cnn_upscaler_handler_matches_jax():
+    """The bundled cnn_upscaler_2x.npz (all 10 arrays) behind the
+    calibrated blend (s = 0.7), at fp32 on both sides."""
+    frames = np.random.default_rng(2).random((2, 16, 24, 3), dtype=np.float32)
+    jh = JCnn(scale=2, use_cnn=True, weights_path=str(CNN_NPZ),
+              compute_dtype=jnp.float32)
+    assert jh.meta.get("weights") == "loaded"
+    want = np.asarray(jh.enhance_frames(jnp.asarray(frames)))
+    th = CnnUpscalerHandler(scale=2, use_cnn=True, weights_path=CNN_NPZ,
+                            dtype=torch.float32, device="cpu")
+    got = th.process_frames(torch.from_numpy(frames)).numpy()
+    bicubic = CnnUpscalerHandler(scale=2, use_cnn=False, device="cpu")
+    base = bicubic.process_frames(torch.from_numpy(frames)).numpy()
+    assert np.abs(want - base).max() > 1e-2         # the CNN does something
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["cnn_upscaler", "bicubic"])
+def test_registry_fallback_handlers_stream(name):
+    """Batches of 8 with a padded tail: one frame out per frame in, equal
+    to the batch computation."""
+    h = registry.build_handler(name, device="cpu")
+    assert h.name == name and h.scale == 2 and h.device.type == "cpu"
+    assert h.dtype == (torch.bfloat16 if name == "cnn_upscaler"
+                       else torch.float32)
+    frames = [f for f in dim_clip(10, 16, 24, seed=4)]
+    out = list(h.enhance_frames(iter(frames)))
+    assert len(out) == 10
+    assert all(f.shape == (32, 48, 3) and f.dtype == np.uint8 for f in out)
+    clip = torch.from_numpy(np.stack(frames)).float() / 255.0
+    want = torch.clamp(torch.round(h.process_frames(clip) * 255), 0, 255)
+    diff = np.abs(np.stack(out).astype(np.int16)
+                  - want.numpy().astype(np.int16))
+    assert diff.max() <= 1
+
+
+def test_cnn_upscaler_loads_every_array():
+    from video_enhancer_tpu_torch.models import upscaler
+    from video_enhancer_tpu_torch.runtime.weights import (load_into,
+                                                          params_from_jax,
+                                                          read_npz)
+
+    template = upscaler.init(torch.Generator().manual_seed(0))
+    _, matched, skipped = load_into(template,
+                                    params_from_jax(read_npz(CNN_NPZ)))
+    assert len(matched) == 10 and not skipped
+
+
+def _clip_file(tmp_path, n=16, h=32, w=48):
+    path = tmp_path / "in.mp4"
+    write_frames(path, dim_clip(n, h, w, seed=5), (h, w), fps=24.0)
+    return path
+
+
+def _not_ported(path):
+    raise NotImplementedError("not ported")
+
+
+def test_run_auto_pipeline_matches_jax(monkeypatch, tmp_path):
+    """File to file on a clip the router sends to ditvr: the same plan, the
+    same stats, and close frames. The JAX pipeline's temporal smoothing
+    (OpenCV optical flow, not ported) is made to fail, so that both record
+    the stage as "not ported" and serve the same frames."""
+    src = _clip_file(tmp_path)
+    monkeypatch.setattr(jpipeline, "_apply_temporal_smoothing", _not_ported)
+    want = jpipeline.run_auto_pipeline(str(src), str(tmp_path / "jax.mp4"))
+    got = tpipeline.run_auto_pipeline(src, tmp_path / "port.mp4",
+                                      device="cpu")
+    plan, jplan = got["routing_plan"], want["routing_plan"]
+    assert plan["expert_routing"]["primary_model"] == "ditvr"
+    for key in ("expert_routing", "processing_order"):
+        assert plan[key] == jplan[key]
+    for k, v in jplan["degradations"].items():
+        assert plan["degradations"][k] == pytest.approx(v, abs=5e-5)
+    for k in ("model", "frames_processed", "input_resolution",
+              "output_resolution", "scale", "temporal_consistency_error"):
+        assert got[k] == want[k], k
+    assert "fallback_from" not in got and "fallback_from" not in want
+    assert got["context"]["degradation_type"] == 3
+    a = np.stack(list(read_frames(tmp_path / "port.mp4"))).astype(np.int16)
+    b = np.stack(list(read_frames(tmp_path / "jax.mp4"))).astype(np.int16)
+    assert a.shape == b.shape == (16, 32, 48, 3)
+    assert np.abs(a - b).mean() <= 1.0 and np.abs(a - b).max() <= 16
+
+
+def test_run_auto_pipeline_falls_back_to_bicubic(monkeypatch, tmp_path):
+    """A primary that fails serves bicubic and says so."""
+    src = _clip_file(tmp_path, n=6)
+    real = tpipeline.build_handler
+
+    def failing(name, device=None):
+        if name == "ditvr":
+            raise RuntimeError("primary failed on purpose")
+        return real(name, device=device)
+
+    monkeypatch.setattr(tpipeline, "build_handler", failing)
+    stats = tpipeline.run_auto_pipeline(src, tmp_path / "out.mp4",
+                                        device="cpu")
+    assert stats["fallback_from"] == "ditvr"
+    assert stats["fallback_error"] == "primary failed on purpose"
+    assert stats["model"] == "bicubic" and stats["scale"] == 2
+    assert stats["output_resolution"] == [64, 96]
+    assert len(list(read_frames(tmp_path / "out.mp4"))) == 6
+
+
+def test_run_auto_frames_routes_to_ditvr():
+    frames = dim_clip(16, 32, 32, seed=6)
+    out, stats = tpipeline.run_auto_frames(frames, device="cpu")
+    plan = stats["routing_plan"]
+    assert plan["expert_routing"]["primary_model"] == "ditvr"
+    assert stats["model"] == "ditvr" and "fallback_from" not in stats
+    assert len(out) == 16 and out[0].shape == (32, 32, 3)
+    assert stats["temporal_consistency_error"] == "not ported"
+    h = registry.build_handler("ditvr", device="cpu")
+    tpipeline.apply_degradation_context(h, plan)
+    assert stats["context"] == {k: v.tolist() for k, v in h.context.items()}
+    # the first window is the handler's output on the preprocessed frames
+    pre = tpipeline.preprocess_frames(frames[:8], plan["expert_routing"]
+                                      ["experts"], torch.device("cpu"))
+    clip = torch.from_numpy(np.stack(pre)).float() / 255.0
+    want = torch.clamp(torch.round(h.process_clip(clip) * 255), 0, 255)
+    assert np.abs(np.stack(out[:8]).astype(np.int16)
+                  - want.numpy().astype(np.int16)).max() <= 1
+
+
+@pytest.mark.parametrize("engine", ["bicubic", "cnn_upscaler"])
+def test_run_auto_frames_explicit_engine(engine):
+    frames = dim_clip(5, 16, 16, seed=7)
+    out, stats = tpipeline.run_auto_frames(frames, engine=engine,
+                                           device="cpu")
+    plan = stats["routing_plan"]
+    assert plan["expert_routing"]["primary_model"] == engine
+    assert plan["processing_order"] == ["preprocessing", f"sota_{engine}",
+                                        "temporal_consistency"]
+    assert stats["model"] == engine and len(out) == 5
+    assert out[0].shape == (32, 32, 3) and "context" not in stats
+
+
+def test_run_auto_frames_falls_back_to_bicubic(monkeypatch):
+    frames = dim_clip(5, 16, 16, seed=8)
+    real = tpipeline.build_handler
+    monkeypatch.setattr(tpipeline, "build_handler", lambda name, device=None:
+                        (_ for _ in ()).throw(RuntimeError("boom"))
+                        if name == "ditvr" else real(name, device=device))
+    out, stats = tpipeline.run_auto_frames(frames, device="cpu")
+    assert stats["fallback_from"] == "ditvr" and stats["model"] == "bicubic"
+    plan = stats["routing_plan"]
+    pre = tpipeline.preprocess_frames(frames, plan["expert_routing"]
+                                      ["experts"], torch.device("cpu"))
+    want = list(registry.build_handler("bicubic", device="cpu")
+                .enhance_frames(iter(pre)))
+    np.testing.assert_array_equal(np.stack(out), np.stack(want))
+
+
+def test_run_auto_frames_needs_frames():
+    with pytest.raises(ValueError, match="no frames"):
+        tpipeline.run_auto_frames([], device="cpu")

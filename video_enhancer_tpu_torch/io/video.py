@@ -14,7 +14,7 @@ from typing import Iterable, Iterator
 import numpy as np
 
 __all__ = ["VideoMetadata", "get_video_metadata", "read_frames",
-           "write_frames"]
+           "write_frames", "sample_indices", "sample_frames"]
 
 
 @dataclass(frozen=True)
@@ -83,3 +83,31 @@ def write_frames(path, frames: Iterable[np.ndarray], size_hw: tuple[int, int],
     finally:
         vw.release()
     return n
+
+
+def sample_indices(frame_count: int, num_samples: int = 12) -> np.ndarray:
+    """Indices of ``num_samples`` frames spread uniformly over the video,
+    the router's sample (video_enhancer_tpu/io/video.py:87-92)."""
+    n = max(frame_count, 1)
+    return np.unique(np.linspace(0, n - 1, num_samples).astype(int))
+
+
+def sample_frames(path, num_samples: int = 12) -> np.ndarray:
+    """The frames at ``sample_indices`` of a file, ``(T, H, W, 3)`` RGB
+    uint8."""
+    import cv2
+
+    meta = get_video_metadata(path)
+    cap = _open(path)
+    try:
+        out = []
+        for i in sample_indices(meta.frame_count, num_samples):
+            cap.set(cv2.CAP_PROP_POS_FRAMES, int(i))
+            ok, bgr = cap.read()
+            if ok:
+                out.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+        if not out:
+            raise IOError(f"no frames sampled from {path}")
+        return np.stack(out)
+    finally:
+        cap.release()

@@ -1,16 +1,17 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources in ``csrc/`` are CUDA C++ with a plain ``extern "C"`` interface
-and include no PyTorch header. They are compiled by one ``nvcc`` call into a
-shared library for Hopper (``sm_90a``) at first use and loaded with
+and include no PyTorch header. At first use each is compiled for Hopper
+(``sm_90a``) by its own ``nvcc`` process, all started together, and one
+more ``nvcc`` call links the objects into a shared library loaded with
 ``ctypes``; that takes seconds, where a build through PyTorch's extension
 headers takes minutes. The library is named by a hash of the sources and
 flags, built in a fresh temporary directory and moved into place, so a
 half-built file or a library of other sources is never loaded.
 
 Each kernel's wrapper lives beside its plain PyTorch version (ops/ssd.py,
-ops/scan.py) and adds one to its entry of ``launch_counts`` where it
-launches the kernel, and nowhere else.
+ops/scan.py, ops/attention.py) and adds one to its entry of
+``launch_counts`` where it launches the kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -26,24 +27,26 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "launch_counts",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "launch_counts",
            "reset_launch_counts", "build", "library", "dtype_code", "check",
            "stream_of", "row_stride"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # dtype codes of the C interface (csrc/common.cuh vetk::DType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0}
+launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0,
+                                 "flash_attention": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     # dtype, x, dt, A, B, C, y, states, decay, b, L, H, P, N, ldx, ldb, ldc,
     # reverse, stream
@@ -52,6 +55,10 @@ _SIGNATURES = {
     # B, L, D, N, K, dt_rank, ldu, ldg, blocks, stream
     "vetk_fused_bissm": [_I] + [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I, _P],
     "vetk_ssd_chunk": [],
+    # dtype, q, k, v, o, B, H, Lq, Lk, Dh, scale, (batch, head, row) strides
+    # of q, k, v and o, vec, stream
+    "vetk_flash_attention": [_I] + [_P] * 4 + [_I] * 5 + [_F] + [_L] * 12
+    + [_I, _P],
 }
 
 
@@ -76,15 +83,30 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
+    """Wait for every ``nvcc`` process; raise with the output of the first
+    that failed."""
+    logs, failed = [], None
+    for what, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc ({what}) exited {proc.returncode}:\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build(ptxas_verbose: bool = False) -> tuple[Path, str]:
-    """Compile every ``csrc/*.cu`` in one ``nvcc`` call. Returns the
+    """Compile every ``csrc/*.cu``, each by its own ``nvcc`` process, all
+    started together, and link them into one library. Returns the
     library's path and the compiler's output (with ``ptxas_verbose``, the
     registers, shared memory and spills of each kernel). An up-to-date
     library is reused unless ``ptxas_verbose`` asks for the compiler's
@@ -94,15 +116,23 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, str]:
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_DIR))
+    nvcc = _nvcc()
     try:
+        objs, procs = [], []
+        for src in _sources():
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS,
+                   *(["-Xptxas", "-v"] if ptxas_verbose else []),
+                   "-c", "-o", str(obj), str(src)]
+            procs.append((src.name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(str(obj))
+        log = _run(procs)
         out = tmp / "lib.so"
-        cmd = [_nvcc(), *NVCC_FLAGS,
-               *(["-Xptxas", "-v"] if ptxas_verbose else []),
-               "-o", str(out), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc exited {proc.returncode}:\n{log}")
+        log += _run([("link", subprocess.Popen(
+            [nvcc, *LINK_FLAGS, "-o", str(out), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
         os.replace(out, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -13,10 +13,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv3d
+from ..ops.conv import conv2d, conv3d
 
-__all__ = ["dense_init", "dense_apply", "conv3d_init", "conv3d_apply",
-           "layer_norm_init", "layer_norm_apply", "mlp_init", "mlp_apply"]
+__all__ = ["dense_init", "dense_apply", "conv2d_init", "conv2d_apply",
+           "conv3d_init", "conv3d_apply", "layer_norm_init",
+           "layer_norm_apply", "mlp_init", "mlp_apply",
+           "sinusoidal_embedding"]
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -24,12 +26,18 @@ def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
 
 
 def dense_init(gen: torch.Generator, din: int, dout: int,
-               bias: bool = True) -> dict:
-    """Torch's default Linear init (kaiming uniform, a = sqrt(5))."""
+               bias: bool = True, scale: float | None = None) -> dict:
+    """Torch's default Linear init (kaiming uniform, a = sqrt(5)); with
+    ``scale``, normal weights times ``scale``, and ``scale=0`` a true zero
+    layer (nn/core.py:36-50)."""
     bound = 1.0 / math.sqrt(din)
-    p = {"w": _uniform(gen, (dout, din), bound)}
+    if scale is None:
+        p = {"w": _uniform(gen, (dout, din), bound)}
+    else:
+        p = {"w": torch.randn((dout, din), generator=gen) * scale}
     if bias:
-        p["b"] = _uniform(gen, (dout,), bound)
+        p["b"] = (torch.zeros(dout) if scale == 0.0
+                  else _uniform(gen, (dout,), bound))
     return p
 
 
@@ -39,6 +47,19 @@ def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     b = p.get("b")
     return F.linear(x, p["w"].to(x.dtype),
                     None if b is None else b.to(x.dtype))
+
+
+def conv2d_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
+                zero: bool = False) -> dict:
+    bound = 1.0 / math.sqrt(kh * kw * cin)
+    shape = (cout, cin, kh, kw)
+    if zero:
+        return {"w": torch.zeros(shape), "b": torch.zeros(cout)}
+    return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (cout,), bound)}
+
+
+def conv2d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return conv2d(x, p["w"], p.get("b"))
 
 
 def conv3d_init(gen: torch.Generator, kt: int, kh: int, kw: int, cin: int,
@@ -65,9 +86,10 @@ def layer_norm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(x.dtype)
 
 
-def mlp_init(gen: torch.Generator, din: int, hidden: int) -> dict:
+def mlp_init(gen: torch.Generator, din: int, hidden: int,
+             dout: int | None = None) -> dict:
     return {"fc1": dense_init(gen, din, hidden),
-            "fc2": dense_init(gen, hidden, din)}
+            "fc2": dense_init(gen, hidden, dout or din)}
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -75,3 +97,17 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     (nn/core.py:161)."""
     return dense_apply(p["fc2"],
                        F.gelu(dense_apply(p["fc1"], x), approximate="tanh"))
+
+
+def sinusoidal_embedding(t: torch.Tensor, dim: int,
+                         max_period: float = 10000.0) -> torch.Tensor:
+    """Position embedding, cos before sin, in fp32 (nn/core.py:165-173)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[..., None] * freqs
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb

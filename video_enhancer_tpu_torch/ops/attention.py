@@ -1,8 +1,23 @@
-"""Per-site short-sequence multi-head attention.
+"""Attention: the plain form, the flash kernel's wrapper, the dispatcher,
+and per-site short-sequence attention.
 
-Counterpart of video_enhancer_tpu/ops/attention.py ``site_attention``
-(the broadcast form; the JAX package has no kernel for it): ``q (N, T, C)``,
-``k/v (N, Tg, C)`` -> ``(N, T, C)``, heads of ``C // heads`` channels.
+Counterpart of video_enhancer_tpu/ops/attention.py:
+
+- ``attention_ref``: logits and softmax in fp32, the probabilities cast to
+  ``q``'s dtype, the product with V accumulated in fp32 (:33-46). It is the
+  flash kernel's plain version.
+- ``flash_attention``: the wrapper of the hand-written CUDA kernel
+  (csrc/flash_attn.cu), which replaces the TPU's ``_flash_kernel``. It
+  launches the kernel for a CUDA tensor and takes ``attention_ref`` only for
+  a tensor on the CPU. No bias, no causal mask.
+- ``attention``: the dispatcher (:185-192). It takes the kernel for an
+  unbiased CUDA tensor with Lq, Lk >= 256, where the JAX package takes the
+  Pallas kernel on the TPU, and ``attention_ref`` otherwise.
+- ``site_attention``: the broadcast form of the JAX package's
+  ``site_attention`` (it has no kernel): ``q (N, T, C)``, ``k/v (N, Tg,
+  C)`` -> ``(N, T, C)``, heads of ``C // heads`` channels.
+
+Layout of the first three: ``q (B, H, Lq, Dh)``, ``k/v (B, H, Lk, Dh)``.
 """
 
 from __future__ import annotations
@@ -11,7 +26,88 @@ import math
 
 import torch
 
-__all__ = ["site_attention"]
+from .. import kernels
+
+__all__ = ["attention", "attention_ref", "flash_attention", "site_attention"]
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor | None = None,
+                  scale: float | None = None) -> torch.Tensor:
+    """Plain attention; ``bias`` broadcastable to ``(B, H, Lq, Lk)``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def _flash_cuda(q, k, v, scale: float) -> torch.Tensor:
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    if k.shape != (B, H, Lk, Dh) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must share one dtype")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if Dh % 16 or not 16 <= Dh <= 128:
+        raise ValueError(f"kernel takes a head dim that is a multiple of 16 "
+                         f"up to 128, got {Dh}")
+    if Lq < 1 or Lk < 1 or B * H > 65535:
+        raise ValueError(f"kernel takes Lq, Lk >= 1 and B*H <= 65535, got "
+                         f"{(B, H, Lq, Lk)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the head dim must be dense, got "
+                             f"strides {t.stride()}")
+    # (B, Lq, H, Dh) storage: the caller's transpose back to tokens is free
+    o = torch.empty((B, Lq, H, Dh), dtype=q.dtype,
+                    device=q.device).permute(0, 2, 1, 3)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    # 16-byte tile loads need aligned operands and strides of 8 elements
+    vec = all(t.data_ptr() % 16 == 0
+              and all(st % 8 == 0 for st in t.stride()[:3]) for t in (q, k, v))
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        err = lib.vetk_flash_attention(
+            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, H, Lq, Lk, Dh, float(scale), *strides, int(vec),
+            kernels.stream_of(q))
+        kernels.launch_counts["flash_attention"] += 1
+    kernels.check(err, "flash_attention")
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None) -> torch.Tensor:
+    """Blockwise attention with an online softmax: the CUDA kernel for a
+    CUDA tensor (any strides with a dense head dim), ``attention_ref`` for
+    a CPU tensor. ``scale`` defaults to ``Dh ** -0.5``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _flash_cuda(q, k, v, scale)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale=scale)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: torch.Tensor | None = None, scale: float | None = None,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """Dispatch: the flash kernel when unbiased and long, else the plain
+    form. ``use_kernel=None`` means "on the card"; ``False`` always takes
+    the plain form (the reference the kernel is held against)."""
+    if use_kernel is None:
+        use_kernel = q.device.type == "cuda"
+    long_seq = q.shape[2] >= 256 and k.shape[2] >= 256
+    if bias is None and long_seq and use_kernel:
+        return flash_attention(q, k, v, scale=scale)
+    return attention_ref(q, k, v, bias=bias, scale=scale)
 
 
 def site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

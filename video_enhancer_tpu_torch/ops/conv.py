@@ -1,10 +1,10 @@
 """Convolutions in the JAX package's channels-last layouts.
 
 Counterpart of the plain parts of video_enhancer_tpu/ops/conv.py. Layouts
-at the public functions stay those of the JAX package: clips
-``(B, T, H, W, C)``, sequences ``(B, L, C)``. Weights are in PyTorch's
-layout (runtime/weights.py converts the bundled checkpoints). Padding is
-XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``.
+at the public functions stay those of the JAX package: frames ``(B, H, W,
+C)``, clips ``(B, T, H, W, C)``, sequences ``(B, L, C)``. Weights are in
+PyTorch's layout (runtime/weights.py converts the bundled checkpoints).
+Padding is XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``.
 """
 
 from __future__ import annotations
@@ -12,12 +12,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv3d", "depthwise_conv1d"]
+__all__ = ["conv2d", "conv3d", "depthwise_conv1d"]
 
 
 def _same(k: int) -> tuple[int, int]:
     lo = (k - 1) // 2
     return lo, k - 1 - lo
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x (B, H, W, Cin)``, ``w (Cout, Cin, kh, kw)`` -> ``(B, H, W,
+    Cout)``, SAME padding, stride 1."""
+    return conv3d(x[:, None], w[:, :, None], b)[:, 0]
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor,

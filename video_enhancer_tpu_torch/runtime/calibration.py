@@ -1,9 +1,11 @@
-"""Calibrated output strength: ``out = s * model(x) + (1 - s) * bicubic(x)``.
+"""Calibrated output strength: ``out = s * model(x) + (1 - s) * base(x)``,
+where the base is the bicubic upscale for the VSR models and the input
+itself for the 1x restorers.
 
-Counterpart of video_enhancer_tpu/runtime/calibration.py:61-96 for the VSR
-models. The table is a copy of the JAX package's ``CALIBRATED_STRENGTH``
-(its 6-seed measured operating points); ``VETPU_STRENGTH_<NAME>``
-overrides a model's entry at wrap time.
+Counterpart of video_enhancer_tpu/runtime/calibration.py:61-113. The table
+is a copy of the JAX package's ``CALIBRATED_STRENGTH`` (its 6-seed
+measured operating points); ``VETPU_STRENGTH_<NAME>`` overrides a model's
+entry at wrap time.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from ..ops.resize import resize
 
-__all__ = ["CALIBRATED_STRENGTH", "strength_for", "calibrate_vsr"]
+__all__ = ["CALIBRATED_STRENGTH", "strength_for", "calibrate_vsr",
+           "calibrate_restore"]
 
 CALIBRATED_STRENGTH: dict[str, float] = {
     "fast_mamba_vsr": 0.6,
@@ -47,5 +50,19 @@ def calibrate_vsr(name: str, apply_fn):
         base = resize(x, (out.shape[-3], out.shape[-2]))
         base = torch.clamp(base, 0.0, 1.0).to(out.dtype)
         return torch.clamp(s * out + (1.0 - s) * base, 0.0, 1.0)
+
+    return fn
+
+
+def calibrate_restore(name: str, apply_fn):
+    """Wrap a 1x restoration apply with the calibrated blend toward the
+    input itself. Identity when s >= 1."""
+    s = strength_for(name)
+    if s >= 1.0:
+        return apply_fn
+
+    def fn(p, x, *a, **kw):
+        out = apply_fn(p, x, *a, **kw)
+        return torch.clamp(s * out + (1.0 - s) * x.to(out.dtype), 0.0, 1.0)
 
     return fn

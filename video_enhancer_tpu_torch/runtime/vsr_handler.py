@@ -2,7 +2,7 @@
 model ``(B, T, H, W, 3) -> (B, T, sH, sW, 3)``.
 
 Counterpart of video_enhancer_tpu/runtime/vsr_handler.py:35-247 without its
-mesh and quality-gate options (neither is used by the x4 models):
+mesh and quality-gate options (no served model of the port uses them):
 
 - windows of ``chunk`` frames overlapping by ``overlap``; overlap frames are
   written from the later window (its fresh temporal context) and a padded
@@ -10,7 +10,11 @@ mesh and quality-gate options (neither is used by the x4 models):
 - frames larger than ``tile`` are cut into overlapping tiles, run in groups
   of 4 (the last group padded by repeating its last tile) and blended back
   with ramp weights (ops/blend.py);
-- parameters are cast to the compute dtype (bf16 by default) once.
+- parameters are cast to the compute dtype (bf16 by default) once;
+- ``context`` holds per-video conditioning (ditvr's degradation scores and
+  type) as tensors on the handler's device, passed to the model as keyword
+  arguments on every forward, tiles included; ``update_context`` changes
+  it between videos.
 """
 
 from __future__ import annotations
@@ -25,16 +29,17 @@ from ..device import resolve_device
 from ..io.pipeline import iter_windows
 from ..ops.blend import overlap_add_blend
 
-__all__ = ["VSRHandler"]
+__all__ = ["VSRHandler", "cast_params"]
 
 _TILE_GROUP = 4
 
 
-def _cast(params, dtype, device):
+def cast_params(params, dtype, device):
+    """Floating-point leaves to ``dtype`` on ``device``; others moved."""
     if isinstance(params, dict):
-        return {k: _cast(v, dtype, device) for k, v in params.items()}
+        return {k: cast_params(v, dtype, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
-        return [_cast(v, dtype, device) for v in params]
+        return [cast_params(v, dtype, device) for v in params]
     if params.is_floating_point():
         return params.to(device=device, dtype=dtype)
     return params.to(device)
@@ -46,7 +51,8 @@ class VSRHandler:
     def __init__(self, name: str, apply_fn: Callable, params, scale: int = 4,
                  chunk: int = 8, overlap: int = 2, tile: int = 512,
                  tile_overlap: int = 32, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 context: dict | None = None):
         self.name = name
         self.apply_fn = apply_fn
         self.scale = scale
@@ -56,11 +62,23 @@ class VSRHandler:
         self.tile_overlap = tile_overlap
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.params = _cast(params, dtype, self.device)
+        self.params = cast_params(params, dtype, self.device)
+        self.context = {k: torch.as_tensor(v).to(self.device)
+                        for k, v in (context or {}).items()}
+
+    def update_context(self, **kw) -> None:
+        """Set context entries the handler has, keeping each one's dtype
+        and shape."""
+        for k, v in kw.items():
+            if k in self.context:
+                old = self.context[k]
+                self.context[k] = torch.as_tensor(
+                    v, dtype=old.dtype).to(self.device).reshape(old.shape)
 
     @torch.inference_mode()
     def _fwd(self, clips: torch.Tensor) -> torch.Tensor:
-        return self.apply_fn(self.params, clips.to(self.dtype)).float()
+        return self.apply_fn(self.params, clips.to(self.dtype),
+                             **self.context).float()
 
     def process_clip(self, clip: torch.Tensor) -> torch.Tensor:
         """``(T, H, W, 3)`` float32 on the handler's device -> ``(T, sH, sW,

@@ -3,7 +3,8 @@
 The JAX package stores parameters as flat dotted keys in ``.npz`` files
 (``blocks.0.spatial_ssm.in_proj.w``, video_enhancer_tpu/runtime/weights.py
 :24-34) in its own layouts: dense ``w (in, out)``, conv ``w (kt, kh, kw,
-Cin, Cout)``, depthwise ``conv_w (K, 1, C)``. ``params_from_jax`` turns
+Cin, Cout)`` or ``(kh, kw, Cin, Cout)``, depthwise ``conv_w (K, 1, C)``;
+other arrays (embeddings, prototypes, norms, biases) as they are. ``params_from_jax`` turns
 such a flat dict into the port's nested parameters in PyTorch's layouts,
 and ``load_into`` fills a template leniently, by path and shape, as the JAX
 package's ``unflatten_into`` does (:37-63): what matches is taken,
@@ -32,6 +33,8 @@ def convert_array(key: str, arr: np.ndarray) -> torch.Tensor:
         return t.permute(2, 1, 0).contiguous()
     if leaf == "w" and t.ndim == 5:           # (kt,kh,kw,Cin,Cout) -> Conv3d
         return t.permute(4, 3, 0, 1, 2).contiguous()
+    if leaf == "w" and t.ndim == 4:           # (kh,kw,Cin,Cout) -> Conv2d
+        return t.permute(3, 2, 0, 1).contiguous()
     if leaf == "w" and t.ndim == 2:           # (in, out) -> Linear (out, in)
         return t.t().contiguous()
     return t
