@@ -11,8 +11,9 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    (ptxas's register/shared-memory/spill report on earlier lines);
 3. kernels against their plain PyTorch versions at the main paths' shapes,
    in fp32 (TF32 off) and bf16, each with its tolerance; the flash kernel
-   also at ragged lengths; time of each, and of the PyTorch library call
-   that computes the same function where there is one;
+   also at ragged lengths, the fused SSM also at fast_mamba_vsr's shape;
+   time of each, and of the PyTorch library call that computes the same
+   function where there is one;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -24,7 +25,19 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    name ditvr with no fallback, that the router's degradation context
    reached the handler, that the flash kernel ran 8 times a window (and the
    SSM kernels never), the frames, and window 0 against the plain versions;
-   frames/s.
+   frames/s;
+6. the rvrt path: ``run_auto_frames`` with ``engine="rvrt"`` on the seeded
+   16-frame 180x320 clip of phase 4 (window 7, stride 3, calibrated blend
+   s = 0.25); checks that rvrt served it with no fallback, that the window
+   kernel ran 4 times a window (and no other kernel), window 0 against the
+   plain versions and the frames; frames/s; then that
+   ``ModelFallbackManager().load_model_with_fallbacks("rvrt")`` serves rvrt
+   on the card;
+7. the strict-latency route: ``run_auto_frames`` with
+   ``latency_class="strict"`` on a seeded 30-frame 180x320 clip; checks that
+   the router itself picked fast_mamba_vsr, with no fallback, that the fused
+   SSM kernel ran 8 times a window (windows of 16 overlapping by 2; no other
+   kernel), window 0 against the plain versions and the frames; frames/s.
 
 The line before the card's name and power limit holds the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. The script
@@ -47,18 +60,22 @@ import torch
 from video_enhancer_tpu_torch import kernels
 from video_enhancer_tpu_torch.config import MODELS
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
-from video_enhancer_tpu_torch.models import ditvr, vsrm
+from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt, vsrm
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,
-                                                    flash_attention)
+                                                    flash_attention,
+                                                    window_attention,
+                                                    window_attention_plain)
 from video_enhancer_tpu_torch.ops.scan import (fused_bidir_ssm_kernel,
                                                fused_bidir_ssm_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
                                                           calibrate_vsr)
+from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
-from video_enhancer_tpu_torch.runtime.registry import build_handler
+from video_enhancer_tpu_torch.runtime.registry import (build_handler,
+                                                      bundled_weights)
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -68,18 +85,25 @@ H100_FP32_FLOPS = 67e12          # CUDA-core rate
 # main-path shapes at 180x320, window 7 (vsrm: dim 64 -> inner 128)
 SSD_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=16)
 BISSM_SHAPE = dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4, K=5)
+# fast_mamba_vsr at 180x320, chunk 16: dim 48 -> inner 96, N 8, rank 3
+BISSM_FMV_SHAPE = dict(B=180 * 320, L=16, D=96, N=8, dt_rank=3, K=5)
 # ditvr at 180x320, window 8: two 180x224 tiles in one batch, heads 3,
 # 4 x 45 x 56 = 10080 tokens of patch (2, 4, 4)
 FLASH_SHAPE = dict(B=2, H=3, L=10080, Dh=128)
 FLASH_RAGGED = [dict(B=2, H=3, Lq=300, Lk=1000, Dh=64),
                 dict(B=2, H=3, Lq=300, Lk=1000, Dh=128)]
+# rvrt at 180x320, window 7: padded to 8x184x320, windows of 2x8x8 tokens,
+# dim 64, heads 4
+WINDOW_SHAPE = dict(nW=4 * 23 * 40, H=4, N=128, Dh=16)
 
 # tolerances: max |kernel - plain| / max |plain|
 TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
        ("fused_bidir_ssm", "float32"): 1e-4,
        ("fused_bidir_ssm", "bfloat16"): 1e-2,
        ("flash_attention", "float32"): 1e-4,
-       ("flash_attention", "bfloat16"): 2e-2}
+       ("flash_attention", "bfloat16"): 2e-2,
+       ("window_attention", "float32"): 1e-4,
+       ("window_attention", "bfloat16"): 2e-2}
 # one served window, kernels vs plain versions (both bf16), on [0, 1]
 WINDOW_MAX_ABS, WINDOW_MEAN_ABS = 0.05, 0.005
 
@@ -189,8 +213,7 @@ def _ssd_cost(dtype, Q: int) -> tuple[float, float]:
     return nbytes, flops
 
 
-def _bissm_inputs(dtype, gen):
-    s = BISSM_SHAPE
+def _bissm_inputs(dtype, gen, s=BISSM_SHAPE):
     B, L, D, N, r, K = (s["B"], s["L"], s["D"], s["N"], s["dt_rank"],
                         s["K"])
 
@@ -210,8 +233,7 @@ def _bissm_inputs(dtype, gen):
             w["dtbf"], w["dtbb"], w["Af"], w["Ab"], w["Df"], w["Db"], r)
 
 
-def _bissm_cost(dtype) -> tuple[float, float]:
-    s = BISSM_SHAPE
+def _bissm_cost(dtype, s=BISSM_SHAPE) -> tuple[float, float]:
     B, L, D, N, r, K = (s["B"], s["L"], s["D"], s["N"], s["dt_rank"],
                         s["K"])
     item = torch.finfo(dtype).bits // 8
@@ -287,6 +309,78 @@ def flash_vs_plain() -> dict:
     return rec
 
 
+def _window_inputs(dtype, gen, nW, H, N, Dh):
+    """q, k, v as rvrt hands them over: (nW, H, N, Dh) views of the column
+    slices of one (nW, N, 3 H Dh) projection; the (H, N, N) fp32 bias."""
+    qkv = torch.randn((nW, N, 3 * H * Dh), generator=gen, device="cuda")
+    q, k, v = (t.reshape(nW, N, H, Dh).transpose(1, 2)
+               for t in qkv.to(dtype).chunk(3, dim=-1))
+    # of the logits' own scale (q k^T Dh^-0.5 has a std of about 1), so
+    # that a bias that is dropped or read at the wrong place moves o far
+    # beyond the tolerance; rvrt's trained tables are smaller (std ~0.05)
+    bias = torch.randn((H, N, N), generator=gen, device="cuda")
+    return q, k, v, bias
+
+
+# what a kernel that drops the bias, reads another head's or transposes its
+# (N, N) block would compute; each must read at least CONTROL_MARGIN x the
+# tolerance away from the kernel, so the check above would have failed it
+WINDOW_CONTROLS = {"no bias": lambda b: torch.zeros_like(b),
+                   "next head's bias": lambda b: b.roll(1, dims=0),
+                   "transposed bias": lambda b: b.transpose(1, 2)}
+CONTROL_MARGIN = 5.0
+
+
+def _window_cost(dtype, nW, H, N, Dh) -> tuple[float, float]:
+    item = torch.finfo(dtype).bits // 8
+    return 4 * nW * H * N * Dh * item + H * N * N * 4, 4.0 * nW * H * N * N * Dh
+
+
+def window_vs_plain() -> dict:
+    """The window kernel against its plain version at rvrt's shape; its
+    time beside the plain version's and SDPA's with the bias as a mask."""
+    rec = {}
+    s = WINDOW_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        q, k, v, bias = _window_inputs(dtype, gen, **s)
+        got = window_attention(q, k, v, bias)
+        ref = window_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              "window_attention: non-finite")
+        err, rel = rel_err(got, ref)
+        tol = TOL[("window_attention", str(dtype).split(".")[1])]
+        ms = time_ms(lambda: window_attention(q, k, v, bias))
+        plain_ms = time_ms(lambda: window_attention_plain(q, k, v, bias),
+                           warmup=1, iters=3)
+        mask = bias[None].expand(s["nW"], -1, -1, -1).to(dtype)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+        nbytes, flops = _window_cost(dtype, **s)
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+        bound = max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3
+        print(f"window_attention {s} {dtype}: max_abs_err {err:.3e} rel "
+              f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, scaled_dot_product_attention with the "
+              f"bias mask {lib_ms:.4f} ms, bound {bound:.4f} ms")
+        check(rel <= tol, f"window_attention {dtype}: rel {rel} > {tol}")
+        for what, wrong in WINDOW_CONTROLS.items():
+            _, c_rel = rel_err(got, window_attention_plain(q, k, v,
+                                                           wrong(bias)))
+            print(f"  control, plain with the {what}: rel {c_rel:.3e} (must "
+                  f"be >= {CONTROL_MARGIN * tol:g})")
+            check(c_rel >= CONTROL_MARGIN * tol,
+                  f"window_attention {dtype}: the check cannot tell the "
+                  f"kernel from one with the {what} (rel {c_rel})")
+        if dtype == torch.bfloat16:
+            rec["window_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=nbytes, flops=flops, peak=peak)
+        del got, ref, q, k, v, bias, mask
+    return rec
+
+
 @phase("3 kernels vs plain")
 def kernels_vs_plain() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -320,30 +414,36 @@ def kernels_vs_plain() -> dict:
                         bytes=nbytes, flops=flops, peak=H100_BF16_FLOPS)
                 del got, ref
             del args
-        # --- kernel 2: fused_bidir_ssm -------------------------------------
-        for dtype in (torch.float32, torch.bfloat16):
-            gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-            args = _bissm_inputs(dtype, gen)
-            got = fused_bidir_ssm_kernel(*args)
-            ref = fused_bidir_ssm_plain(*args)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), "fused_bidir_ssm: non-finite")
-            err, rel = rel_err(got, ref)
-            tol = TOL[("fused_bidir_ssm", str(dtype).split(".")[1])]
-            ms = time_ms(lambda: fused_bidir_ssm_kernel(*args))
-            print(f"fused_bidir_ssm {dtype}: max_abs_err {err:.3e} rel "
-                  f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms")
-            check(rel <= tol, f"fused_bidir_ssm {dtype}: rel {rel} > {tol}")
-            if dtype == torch.bfloat16:
-                plain_ms = time_ms(lambda: fused_bidir_ssm_plain(*args),
-                                   warmup=1, iters=3)
-                nbytes, flops = _bissm_cost(dtype)
-                rec["fused_bidir_ssm"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                    flops=flops, peak=H100_FP32_FLOPS)
-            del got, ref, args
+        # --- kernel 2: fused_bidir_ssm, at vsrm's and fast_mamba_vsr's shape
+        for key, shape in (("fused_bidir_ssm", BISSM_SHAPE),
+                           ("fused_bidir_ssm:fast_mamba_vsr", BISSM_FMV_SHAPE)):
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+                args = _bissm_inputs(dtype, gen, shape)
+                got = fused_bidir_ssm_kernel(*args)
+                ref = fused_bidir_ssm_plain(*args)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"{key}: non-finite")
+                err, rel = rel_err(got, ref)
+                tol = TOL[("fused_bidir_ssm", str(dtype).split(".")[1])]
+                ms = time_ms(lambda: fused_bidir_ssm_kernel(*args))
+                print(f"{key} {shape} {dtype}: max_abs_err {err:.3e} rel "
+                      f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms")
+                check(rel <= tol, f"{key} {dtype}: rel {rel} > {tol}")
+                if dtype == torch.bfloat16:
+                    plain_ms = time_ms(lambda: fused_bidir_ssm_plain(*args),
+                                       warmup=1, iters=3)
+                    nbytes, flops = _bissm_cost(dtype, shape)
+                    print(f"{key} bf16: plain {plain_ms:.3f} ms")
+                    rec[key] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bytes=nbytes, flops=flops, peak=H100_FP32_FLOPS)
+                del got, ref, args
         # --- kernel 3: flash_attention ---------------------------------------
         rec.update(flash_vs_plain())
+        # --- kernel 4: window_attention --------------------------------------
+        rec.update(window_vs_plain())
     torch.cuda.empty_cache()
     return rec
 
@@ -391,7 +491,8 @@ def main_path(device_line: str) -> dict:
               f"bad frame {f.shape} {f.dtype}")
     blocks = len(handler.params["blocks"])
     want = {"ssd_shared": 2 * blocks * windows,
-            "fused_bidir_ssm": blocks * windows, "flash_attention": 0}
+            "fused_bidir_ssm": blocks * windows, "flash_attention": 0,
+            "window_attention": 0}
     print(f"windows {windows}; launches {counts}; expected {want}")
     check(counts == want, f"launch counts {counts} != {want}")
     fps = n / secs
@@ -467,7 +568,8 @@ def auto_route(device_line: str) -> dict:
     entry = MODELS["ditvr"]
     windows = sum(1 for _ in iter_windows(frames, entry.window, entry.stride))
     want = {"ssd_shared": 0, "fused_bidir_ssm": 0,
-            "flash_attention": entry.extra["depth"] * windows}
+            "flash_attention": entry.extra["depth"] * windows,
+            "window_attention": 0}
     print(f"windows {windows}; launches {counts}; expected {want}")
     check(counts == want, f"launch counts {counts} != {want}")
     check(len(out) == n, f"{len(out)} frames out of {n}")
@@ -521,6 +623,126 @@ def auto_route(device_line: str) -> dict:
     return {"counts": counts, "fps": n / secs}
 
 
+def _window_check(frames, plan, handler, plain_apply) -> torch.Tensor:
+    """Window 0 of a served run through the kernels against the plain
+    versions (both bf16, on the card); returns the kernels' output."""
+    routing = plan["expert_routing"]
+    first = frames[:handler.chunk]
+    if "preprocessing" in plan["processing_order"]:
+        first = preprocess_frames(first, routing["experts"], handler.device)
+    clip = torch.from_numpy(np.stack(first)).cuda().float() / 255.0
+    plain = copy.copy(handler)
+    plain.apply_fn = plain_apply
+    with torch.inference_mode():
+        y_k = handler.process_clip(clip)
+        y_p = plain.process_clip(clip)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y_k).all()), "window output not finite")
+    diff = (y_k - y_p).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    print(f"window 0, kernels vs plain (bf16): max_abs {mx:.4e} (tol "
+          f"{WINDOW_MAX_ABS}), mean_abs {mean:.4e} (tol {WINDOW_MEAN_ABS})")
+    check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
+          "window output differs from the plain versions")
+    return y_k
+
+
+def _served_run(frames, kw: dict, name: str, per_window: dict,
+                chunk: int, stride: int, device_line: str) -> tuple:
+    """One warm-up and one counted ``run_auto_frames`` call; checks the
+    plan, the stats, the launches and the frames. Returns the frames out,
+    the stats and the counts."""
+    check(bundled_weights(name) is not None,
+          f"{name}: no bundled checkpoint; the run would serve random init")
+    run_auto_frames(frames, **kw)                     # warm-up, not counted
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, stats = run_auto_frames(frames, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+
+    plan = stats["routing_plan"]
+    routing = plan["expert_routing"]
+    print(f"plan: primary {routing['primary_model']}, order "
+          f"{plan['processing_order']}, experts "
+          f"{sorted(k for k, v in routing['experts'].items() if v)}")
+    check(routing["primary_model"] == name and "fallback" not in plan,
+          f"the plan's primary is {routing['primary_model']}, not {name}")
+    check("fallback_from" not in stats and stats["model"] == name,
+          f"the pipeline fell back: {stats.get('fallback_error')}")
+    windows = sum(1 for _ in iter_windows(frames, chunk, stride))
+    want = {k: per_window.get(k, 0) * windows for k in kernels.launch_counts}
+    print(f"windows {windows}; launches {counts}; expected {want}")
+    check(counts == want, f"launch counts {counts} != {want}")
+    h, w = frames[0].shape[:2]
+    check(len(out) == len(frames), f"{len(out)} frames out of {len(frames)}")
+    for f in out:
+        check(f.shape == (4 * h, 4 * w, 3) and f.dtype == np.uint8,
+              f"bad frame {f.shape} {f.dtype}")
+    enh = stats["processing_time_sec"]
+    n = len(frames)
+    print(f"{name} x4 {h}x{w} -> {4 * h}x{4 * w}: {n} frames in {secs:.3f} s "
+          f"end to end = {n / secs:.2f} frames/s (routing "
+          f"{plan['analysis_time_sec']:.3f} s); enhance {enh:.3f} s = "
+          f"{stats['fps']:.2f} frames/s, {1000 * enh / windows:.1f} ms/window"
+          f" ({device_line})")
+    return out, stats, counts
+
+
+def _lsb_check(out, y_k, chunk: int) -> None:
+    """The streamed frames of window 0 against its output."""
+    u8 = torch.clamp(torch.round(y_k * 255.0), 0, 255).to(torch.uint8)
+    lsb = np.abs(np.stack(out[:chunk]).astype(np.int16)
+                 - u8.cpu().numpy().astype(np.int16)).max()
+    print(f"streamed frames 0..{chunk - 1} vs window 0: max {lsb} LSB")
+    check(lsb <= 1, "streamed frames differ from the window's output")
+
+
+@phase("6 rvrt path")
+def rvrt_path(device_line: str) -> dict:
+    frames = synthetic_clip(16, 180, 320)
+    entry = MODELS["rvrt"]
+    depth = 4                                          # rvrt.init's default
+    out, stats, counts = _served_run(
+        frames, {"engine": "rvrt"}, "rvrt", {"window_attention": depth},
+        entry.window, entry.stride, device_line)
+    handler = build_handler("rvrt")
+    check(len(handler.params["blocks"]) == depth, "rvrt depth changed")
+    y_k = _window_check(frames, stats["routing_plan"], handler,
+                        calibrate_vsr("rvrt", lambda p, x: rvrt.apply(
+                            p, x, scale=entry.scale, kernels=False)))
+    _lsb_check(out, y_k, handler.chunk)
+    manager = ModelFallbackManager()
+    fb, used = manager.load_model_with_fallbacks("rvrt")
+    print(f"fallback manager for rvrt: {used} on {fb.device}; history "
+          f"{[(h['used'], h['ok']) for h in manager.get_history()]}")
+    check(used == "rvrt" and fb.name == "rvrt" and fb.device.type == "cuda",
+          f"the fallback manager served {used} on {fb.device}")
+    return {"counts": counts, "fps": stats["fps"]}
+
+
+@phase("7 strict route to fast_mamba_vsr")
+def strict_route(device_line: str) -> dict:
+    frames = synthetic_clip(30, 180, 320)
+    entry = MODELS["fast_mamba_vsr"]
+    layers = entry.extra["num_layers"]
+    out, stats, counts = _served_run(
+        frames, {"latency_class": "strict"}, "fast_mamba_vsr",
+        {"fused_bidir_ssm": layers}, entry.chunk,
+        entry.chunk - entry.overlap, device_line)
+    handler = build_handler("fast_mamba_vsr")
+    check(len(handler.params["layers"]) == layers, "depth changed")
+    y_k = _window_check(frames, stats["routing_plan"], handler,
+                        calibrate_vsr("fast_mamba_vsr",
+                                      lambda p, x: fast_mamba_vsr.apply(
+                                          p, x, scale=entry.scale,
+                                          kernels=False)))
+    _lsb_check(out, y_k, handler.chunk)
+    return {"counts": counts, "fps": stats["fps"]}
+
+
 def kernel_record(rec: dict, counts: dict) -> list[dict]:
     meta = {
         "ssd_shared": ("video_enhancer_tpu_torch/csrc/ssd_shared.cu",
@@ -529,6 +751,11 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
                             "video_enhancer_tpu/ops/scan.py:941"),
         "flash_attention": ("video_enhancer_tpu_torch/csrc/flash_attn.cu",
                             "video_enhancer_tpu/ops/attention.py:118"),
+        "window_attention": ("video_enhancer_tpu_torch/csrc/window_attn.cu",
+                             "video_enhancer_tpu/ops/attention.py:232"),
+        "fused_bidir_ssm:fast_mamba_vsr": (
+            "video_enhancer_tpu_torch/csrc/fused_bissm.cu",
+            "video_enhancer_tpu/ops/scan.py:941"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -556,10 +783,16 @@ def main() -> int:
     rec = kernels_vs_plain()
     path = main_path(f"{env['kind']}, {env['smi']}")
     route = auto_route(f"{env['kind']}, {env['smi']}")
+    rv = rvrt_path(f"{env['kind']}, {env['smi']}")
+    strict = strict_route(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
+    # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
               "fused_bidir_ssm": path["counts"]["fused_bidir_ssm"],
-              "flash_attention": route["counts"]["flash_attention"]}
+              "flash_attention": route["counts"]["flash_attention"],
+              "window_attention": rv["counts"]["window_attention"],
+              "fused_bidir_ssm:fast_mamba_vsr":
+                  strict["counts"]["fused_bidir_ssm"]}
     print(json.dumps({"kernels": kernel_record(rec, counts)}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,13 @@ import pytest
 import torch
 
 from video_enhancer_tpu_torch import kernels
-from video_enhancer_tpu_torch.models import ditvr
+from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt
 from video_enhancer_tpu_torch.nn.ssm import (bissd_apply, bissd_init,
                                              bissm_apply, bissm_init)
 from video_enhancer_tpu_torch.ops.attention import (attention, attention_ref,
-                                                    flash_attention)
+                                                    flash_attention,
+                                                    window_attention,
+                                                    window_attention_plain)
 from video_enhancer_tpu_torch.ops.scan import (fused_bidir_ssm_kernel,
                                                fused_bidir_ssm_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
@@ -229,3 +231,101 @@ def _to(p, device, dtype):
     if isinstance(p, list):
         return [_to(v, device, dtype) for v in p]
     return p.to(device=device, dtype=dtype)
+
+
+# window attention: the kernel keeps the probabilities in fp32, the plain
+# form rounds them to the input type before the product with V.
+WINDOW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+def _window_inputs(cuda, dtype, nW, H, N, Dh, layout, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    bias = torch.randn((H, N, N), generator=gen, device=cuda) * 0.5
+    if layout == "dense":
+        q, k, v = (torch.randn((nW, H, N, Dh), generator=gen, device=cuda)
+                   .to(dtype) for _ in range(3))
+        return q, k, v, bias
+    # rvrt's layout: (nW, H, N, Dh) views of one (nW, N, 3 H Dh) projection;
+    # "odd" shifts them by one element, off the 16-byte grid
+    off = 1 if layout == "odd" else 0
+    qkv = torch.randn((nW, N, 3 * H * Dh + off), generator=gen, device=cuda)
+    q, k, v = (t.reshape(nW, N, H, Dh).transpose(1, 2)
+               for t in qkv.to(dtype)[..., off:].chunk(3, dim=-1))
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", ["dense", "split", "odd"])
+@pytest.mark.parametrize("nW,H,N,Dh", [(37, 4, 128, 16), (5, 3, 100, 24),
+                                       (3, 2, 37, 64), (2, 1, 1, 8),
+                                       (4, 2, 77, 12), (700, 4, 128, 16)])
+def test_window_kernel_matches_plain(cuda, dtype, layout, nW, H, N, Dh):
+    q, k, v, bias = _window_inputs(cuda, dtype, nW, H, N, Dh, layout,
+                                   seed=nW + N)
+    before = kernels.launch_counts["window_attention"]
+    got = window_attention(q, k, v, bias)
+    ref = window_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["window_attention"] == before + 1
+    assert got.shape == (nW, H, N, Dh) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= WINDOW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_kernel_scale_bf16_bias_and_large_logits(cuda, dtype):
+    """A given scale is used, a bf16 bias is read as fp32, and logits far
+    from 0 stay finite."""
+    q, k, v, bias = _window_inputs(cuda, dtype, 6, 4, 128, 16, "dense", 3)
+    bias = (bias * 20).bfloat16()
+    got = window_attention(q * 30, k, v, bias, scale=0.7)
+    ref = window_attention_plain(q * 30, k, v, bias, scale=0.7)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= WINDOW_TOL[dtype]
+
+
+def test_window_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((2, 2, 129, 16), device=cuda)
+    with pytest.raises(ValueError, match="N <= 128"):
+        window_attention(q, q, q, torch.zeros((2, 129, 129), device=cuda))
+    q = torch.randn((2, 2, 8, 80), device=cuda)
+    with pytest.raises(ValueError, match="Dh <= 64"):
+        window_attention(q, q, q, torch.zeros((2, 8, 8), device=cuda))
+    q = torch.randn((2, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="bias must be"):
+        window_attention(q, q, q, torch.zeros((8, 8), device=cuda))
+    with pytest.raises(TypeError):
+        window_attention(q, q.half(), q, torch.zeros((2, 8, 8), device=cuda))
+
+
+def test_rvrt_routes_through_window_kernel(cuda):
+    """A narrow rvrt (dim 32, 2 blocks) launches the kernel once per block
+    and agrees with its plain path; a shifted block's windows wrap."""
+    gen = torch.Generator().manual_seed(0)
+    p16 = _to(rvrt.init(gen, dim=32, depth=2, heads=4), cuda, torch.bfloat16)
+    clip = torch.rand((1, 3, 20, 28, 3), device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    y = rvrt.apply(p16, clip)
+    assert kernels.launch_counts["window_attention"] == 2
+    y_p = rvrt.apply(p16, clip, kernels=False)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 3, 80, 112, 3)
+    assert (y.float() - y_p.float()).abs().max().item() <= 3e-2
+
+
+def test_fast_mamba_vsr_routes_through_fused_ssm(cuda):
+    """A narrow fast_mamba_vsr (dim 16, 2 layers) launches the fused SSM
+    once per layer and agrees with its plain path."""
+    gen = torch.Generator().manual_seed(0)
+    p16 = _to(fast_mamba_vsr.init(gen, dim=16, num_layers=2), cuda,
+              torch.bfloat16)
+    clip = torch.rand((1, 16, 12, 20, 3), device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    y = fast_mamba_vsr.apply(p16, clip)
+    assert kernels.launch_counts["fused_bidir_ssm"] == 2
+    y_p = fast_mamba_vsr.apply(p16, clip, kernels=False)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 16, 48, 80, 3)
+    assert (y.float() - y_p.float()).abs().max().item() <= 3e-2

@@ -18,10 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from video_enhancer_tpu.config import load_policy as j_load_policy
 from video_enhancer_tpu.io import pipeline as jpipeline
 from video_enhancer_tpu.models import vsrm as jvsrm
 from video_enhancer_tpu.runtime import calibration as jcal
+from video_enhancer_tpu.runtime import registry as jregistry
 from video_enhancer_tpu.runtime import vsr_handler as jvh
+from video_enhancer_tpu.runtime.weights import (
+    convert_torch_state_dict as j_convert_sd)
 from video_enhancer_tpu.runtime.weights import flatten_params, unflatten_into
 from video_enhancer_tpu_torch.device import resolve_device
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
@@ -29,7 +33,8 @@ from video_enhancer_tpu_torch.models import vsrm as tvsrm
 from video_enhancer_tpu_torch.runtime import calibration as tcal
 from video_enhancer_tpu_torch.runtime import registry
 from video_enhancer_tpu_torch.runtime.vsr_handler import VSRHandler
-from video_enhancer_tpu_torch.runtime.weights import params_from_jax
+from video_enhancer_tpu_torch.runtime.weights import (convert_torch_state_dict,
+                                                      params_from_jax)
 
 H, W = 12, 16
 
@@ -181,3 +186,65 @@ def test_card_is_the_default_device(monkeypatch):
     with pytest.raises(RuntimeError):
         registry.build_handler("vsrm")
     assert resolve_device("cpu").type == "cpu"
+
+
+def _bundled_head_b():
+    npz = registry.read_npz(registry.bundled_weights("vsrm"))
+    return npz["head.b"]
+
+
+def _jax_weights_used(name="vsrm"):
+    """The file the JAX package's weight chain loads for vsrm under the
+    current environment (a fresh policy reads the variable)."""
+    entry = j_load_policy().models[name]
+    _, meta = jregistry._load_or_init(name, entry, jvsrm.init, dim=64,
+                                      num_blocks=6, scale=4)
+    return meta.get("weights")
+
+
+def test_empty_weights_dir_serves_bundled_vsrm(monkeypatch, tmp_path):
+    """``$VSRM_DIR`` naming a directory with no checkpoint: the chain moves
+    on to the bundled file, as the JAX package's does (the port raised
+    FileNotFoundError, and the pipeline served bicubic x2)."""
+    monkeypatch.setenv("VSRM_DIR", str(tmp_path))
+    assert _jax_weights_used().endswith("vsrm_4x.npz")
+    h = registry.build_handler("vsrm", device="cpu")
+    assert h.name == "vsrm" and h.scale == 4
+    np.testing.assert_array_equal(
+        h.params["head"]["b"].float().numpy(),
+        _bundled_head_b().astype(jnp.bfloat16).astype(np.float32))
+
+
+def test_checkpoint_matching_no_key_falls_through(monkeypatch, tmp_path):
+    """A checkpoint none of whose keys matches is passed over for the
+    bundled file (the port kept random init)."""
+    np.savez(tmp_path / "other.npz", **{"not.a.key": np.zeros(3, np.float32)})
+    monkeypatch.setenv("VSRM_DIR", str(tmp_path / "other.npz"))
+    assert _jax_weights_used().endswith("vsrm_4x.npz")
+    params = registry.load_params("vsrm")
+    np.testing.assert_array_equal(params["head"]["b"].numpy(),
+                                  _bundled_head_b())
+
+
+def test_torch_state_dict_is_read(monkeypatch, tmp_path):
+    """A ``.pt`` state dict in ``$VSRM_DIR`` is converted as the JAX
+    package converts it and loaded leniently: its leaves are taken, the
+    others keep their initialisation, as in the JAX chain."""
+    g = torch.Generator().manual_seed(0)
+    sd = {"embed.weight": torch.randn((64, 3, 1, 3, 3), generator=g),
+          "embed.bias": torch.full((64,), 0.5),
+          "x.weight": torch.randn((5, 4), generator=g),
+          "y.weight": torch.randn((6, 2, 3), generator=g),
+          "z.weight": torch.randn((2, 3, 4, 5), generator=g),
+          "n.weight": torch.ones(7), "n.running_mean": torch.zeros(7)}
+    want, got = j_convert_sd(sd), convert_torch_state_dict(sd)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    torch.save(sd, tmp_path / "vsrm.pt")
+    monkeypatch.setenv("VSRM_DIR", str(tmp_path))
+    assert _jax_weights_used() == str(tmp_path)     # the directory loaded
+    params = registry.load_params("vsrm")
+    assert params["embed"]["b"].eq(0.5).all()
+    np.testing.assert_array_equal(params["embed"]["w"].numpy(),
+                                  sd["embed.weight"].numpy())

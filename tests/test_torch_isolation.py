@@ -2,7 +2,9 @@
 JAX package: the card's machine has none of them (OpenCV only inside the
 port's file-IO functions). Checked in fresh interpreters: one imports every
 module of the port and chip_smoke.py; one, where those packages cannot be
-imported at all, drives the auto route on frames in memory."""
+imported at all, drives the auto route on frames in memory; one, likewise,
+drives rvrt (an explicit engine and the fallback manager) and the
+strict-latency route to fast_mamba_vsr."""
 
 from __future__ import annotations
 
@@ -42,6 +44,25 @@ print(json.dumps({"primary": plan["expert_routing"]["primary_model"],
 """ % (BAD,)
 
 
+SLICE3 = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+from chip_smoke import dim_clip
+from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_frames
+res = {}
+for key, kw in (("rvrt", {"engine": "rvrt"}),
+                ("strict", {"latency_class": "strict"})):
+    out, stats = run_auto_frames(dim_clip(6, 16, 16), device="cpu", **kw)
+    res[key] = [stats["model"], "fallback_from" in stats, len(out)]
+_, res["manager"] = ModelFallbackManager(
+    device="cpu").load_model_with_fallbacks("rvrt")
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, check=True,
@@ -55,7 +76,9 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "analysis.router", "ops.degradation", "ops.attention",
                  "models.ditvr", "models.upscaler", "runtime.pipeline",
                  "runtime.experts", "runtime.qualification",
-                 "runtime.registry", "runtime.upscaler_handler"):
+                 "runtime.registry", "runtime.upscaler_handler",
+                 "models.rvrt", "models.fast_mamba_vsr", "runtime.fallback",
+                 "runtime.weights"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -65,3 +88,13 @@ def test_auto_route_runs_without_jax_cv2_or_yaml():
     nothing falls back (a failed import would show as a fallback)."""
     res = _run(ROUTE)
     assert res == {"primary": "ditvr", "fallback": False, "frames": 8}
+
+
+def test_rvrt_and_strict_routes_run_without_jax_cv2_or_yaml():
+    """rvrt (an explicit engine, and the first choice of its hierarchy) and
+    the strict route to fast_mamba_vsr run with those packages absent,
+    with no fallback."""
+    res = _run(SLICE3)
+    assert res == {"rvrt": ["rvrt", False, 6],
+                   "strict": ["fast_mamba_vsr", False, 6],
+                   "manager": "rvrt"}

@@ -11,6 +11,7 @@ a max of 16 LSB (bf16 rounding through 8 blocks, then the codec).
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -19,8 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from video_enhancer_tpu.config import default_policy as j_default_policy
 from video_enhancer_tpu.runtime import experts as jexperts
 from video_enhancer_tpu.runtime import pipeline as jpipeline
+from video_enhancer_tpu.runtime import registry as jregistry
+from video_enhancer_tpu_torch import config as tconfig
 from video_enhancer_tpu.runtime.upscaler_handler import \
     CnnUpscalerHandler as JCnn
 from video_enhancer_tpu_torch.io.video import read_frames, write_frames
@@ -148,10 +152,10 @@ def test_run_auto_pipeline_falls_back_to_bicubic(monkeypatch, tmp_path):
     src = _clip_file(tmp_path, n=6)
     real = tpipeline.build_handler
 
-    def failing(name, device=None):
+    def failing(name, policy=None, device=None):
         if name == "ditvr":
             raise RuntimeError("primary failed on purpose")
-        return real(name, device=device)
+        return real(name, policy, device=device)
 
     monkeypatch.setattr(tpipeline, "build_handler", failing)
     stats = tpipeline.run_auto_pipeline(src, tmp_path / "out.mp4",
@@ -199,9 +203,11 @@ def test_run_auto_frames_explicit_engine(engine):
 def test_run_auto_frames_falls_back_to_bicubic(monkeypatch):
     frames = dim_clip(5, 16, 16, seed=8)
     real = tpipeline.build_handler
-    monkeypatch.setattr(tpipeline, "build_handler", lambda name, device=None:
+    monkeypatch.setattr(tpipeline, "build_handler",
+                        lambda name, policy=None, device=None:
                         (_ for _ in ()).throw(RuntimeError("boom"))
-                        if name == "ditvr" else real(name, device=device))
+                        if name == "ditvr" else real(name, policy,
+                                                     device=device))
     out, stats = tpipeline.run_auto_frames(frames, device="cpu")
     assert stats["fallback_from"] == "ditvr" and stats["model"] == "bicubic"
     plan = stats["routing_plan"]
@@ -215,3 +221,72 @@ def test_run_auto_frames_falls_back_to_bicubic(monkeypatch):
 def test_run_auto_frames_needs_frames():
     with pytest.raises(ValueError, match="no frames"):
         tpipeline.run_auto_frames([], device="cpu")
+
+
+def test_policy_entry_reaches_the_handler(monkeypatch):
+    """A policy whose vsrm entry has another window changes the handler
+    that ``run_auto_frames`` builds, as the JAX package's ``_build`` reads
+    ``policy.models`` (the port read its own defaults)."""
+    tdef = tconfig.default_policy()
+    tpol = dataclasses.replace(tdef, models={**tdef.models, "vsrm":
+                                             dataclasses.replace(
+                                                 tdef.models["vsrm"],
+                                                 window=5, stride=4)})
+    jdef = j_default_policy()
+    jpol = dataclasses.replace(jdef, models={**jdef.models, "vsrm":
+                                             dataclasses.replace(
+                                                 jdef.models["vsrm"],
+                                                 window=5, stride=4)})
+    built = []
+    real = tpipeline.build_handler
+
+    def spy(name, *a, **kw):
+        built.append(real(name, *a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(tpipeline, "build_handler", spy)
+    out, stats = tpipeline.run_auto_frames(dim_clip(6, 16, 16, seed=9),
+                                           engine="vsrm", policy=tpol,
+                                           device="cpu")
+    jh = jregistry._build("vsrm", jpol, 0)
+    assert stats["model"] == "vsrm" and "fallback_from" not in stats
+    assert (built[0].chunk, built[0].overlap) == (jh.chunk, jh.overlap) \
+        == (5, 1)
+    assert len(out) == 6 and out[0].shape == (64, 64, 3)
+
+
+def test_run_auto_pipeline_takes_the_cli_keywords(tmp_path):
+    """The call the JAX package's CLI makes (cli.py:74-75: ``engine=``,
+    ``scale=``) and ``enable_temporal_smoothing``: accepted, and, as in the
+    JAX pipeline, the output scale is the primary's."""
+    src = _clip_file(tmp_path, n=4, h=16, w=16)
+    stats = tpipeline.run_auto_pipeline(
+        src, tmp_path / "out.mp4", engine="fast_mamba_vsr", scale=2,
+        enable_temporal_smoothing=True, device="cpu")
+    assert stats["model"] == "fast_mamba_vsr" and stats["scale"] == 4
+    assert "fallback_from" not in stats
+    assert stats["output_resolution"] == [64, 64]
+    assert len(list(read_frames(tmp_path / "out.mp4"))) == 4
+
+
+def test_run_auto_pipeline_rvrt_matches_jax(monkeypatch, tmp_path):
+    """``engine="rvrt"`` file to file in both pipelines: the same plan and
+    stats, no fallback, and close frames (both bf16 through 4 blocks, then
+    the codec; the limits of the ditvr comparison above)."""
+    src = _clip_file(tmp_path, n=10, h=16, w=24)
+    monkeypatch.setattr(jpipeline, "_apply_temporal_smoothing", _not_ported)
+    want = jpipeline.run_auto_pipeline(str(src), str(tmp_path / "jax.mp4"),
+                                       engine="rvrt")
+    got = tpipeline.run_auto_pipeline(src, tmp_path / "port.mp4",
+                                      engine="rvrt", device="cpu")
+    plan, jplan = got["routing_plan"], want["routing_plan"]
+    assert plan["expert_routing"]["primary_model"] == "rvrt"
+    assert plan["processing_order"] == jplan["processing_order"]
+    for k in ("model", "frames_processed", "input_resolution",
+              "output_resolution", "scale", "chunk", "overlap"):
+        assert got[k] == want[k], k
+    assert "fallback_from" not in got and "fallback_from" not in want
+    a = np.stack(list(read_frames(tmp_path / "port.mp4"))).astype(np.int16)
+    b = np.stack(list(read_frames(tmp_path / "jax.mp4"))).astype(np.int16)
+    assert a.shape == b.shape == (10, 64, 96, 3)
+    assert np.abs(a - b).mean() <= 1.0 and np.abs(a - b).max() <= 16

@@ -171,8 +171,8 @@ def test_policy_copy_matches_jax():
     assert dict(tpol.enabled) == {n: m.enabled for n, m in
                                   jpol.models.items()}
     assert tpol.enabled_models() == jpol.enabled_models()
-    fields = ("weights_env", "scale", "window", "stride", "tile",
-              "tile_overlap")
+    fields = ("weights_path", "weights_env", "scale", "window", "stride",
+              "chunk", "overlap", "tile", "tile_overlap")
     for name, entry in tpol.models.items():
         jentry = jpol.models[name]
         assert entry.name == name

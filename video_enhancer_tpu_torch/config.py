@@ -5,16 +5,21 @@ The card's machine has no PyYAML, so the port reads no YAML: the values
 below are copied from the policy file and held against the JAX package's
 ``default_policy()`` by the tests. They are the degradation thresholds
 (:7-14), the latency budgets (:16-19), the pipeline defaults (:27-36), the
-entries of the models the port serves (vsrm :44-53, ditvr :89-101,
-cnn_upscaler :126-130, bicubic :131-134) and the ``enabled`` flag of every
-model of the policy. ``LatencyClass`` is video_enhancer_tpu/config/
-types.py:19-23.
+entries of the models the port serves (vsrm :44-53, fast_mamba_vsr :54-63,
+ditvr :89-101, rvrt :102-108, cnn_upscaler :126-130, bicubic :131-134) and
+the ``enabled`` flag of every model of the policy. ``LatencyClass`` is
+video_enhancer_tpu/config/types.py:19-23.
+
+As in the JAX package's ``load_policy`` (config/__init__.py:50-61), a set
+``weights_env`` variable becomes the entry's ``weights_path`` when a policy
+is made (``default_policy()`` or ``Policy()``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 from typing import Any, Mapping
 
 __all__ = ["LatencyClass", "DegradationThresholds", "LatencyBudget",
@@ -62,13 +67,18 @@ class PipelineDefaults:
 @dataclasses.dataclass(frozen=True)
 class ModelEntry:
     """One served model: the fields (and defaults) of the JAX package's
-    ``ModelEntry`` that the port reads; ``enabled`` lives in ``ENABLED``."""
+    ``ModelEntry`` that the port reads; ``enabled`` lives in ``ENABLED``.
+    Window and stride drive vsrm, ditvr and rvrt; chunk and overlap drive
+    fast_mamba_vsr."""
 
     name: str
+    weights_path: str | None = None
     weights_env: str | None = None
     scale: int = 4
     window: int = 7
     stride: int = 3
+    chunk: int = 16
+    overlap: int = 2
     tile: int = 512
     tile_overlap: int = 32
     extra: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -88,10 +98,16 @@ MODELS: dict[str, ModelEntry] = {
     "vsrm": ModelEntry(
         "vsrm", weights_env="VSRM_DIR", scale=4, window=7, stride=3,
         tile=512, tile_overlap=32, extra={"dim": 64, "num_blocks": 6}),
+    "fast_mamba_vsr": ModelEntry(
+        "fast_mamba_vsr", weights_env="FAST_MAMBA_VSR_DIR", scale=4,
+        chunk=16, overlap=2, tile=512, tile_overlap=32,
+        extra={"dim": 48, "num_layers": 8}),
     "ditvr": ModelEntry(
         "ditvr", weights_env="DITVR_DIR", scale=1, window=8, stride=6,
         tile=224, tile_overlap=16,
         extra={"dim": 384, "depth": 8, "heads": 3, "patch": (2, 4, 4)}),
+    "rvrt": ModelEntry("rvrt", scale=4, window=7, stride=3,
+                       extra={"dim": 64}),
     "cnn_upscaler": ModelEntry("cnn_upscaler", scale=2,
                                extra={"features": 32}),
     "bicubic": ModelEntry("bicubic", scale=2),
@@ -106,6 +122,17 @@ ENABLED: dict[str, bool] = {
 }
 
 
+def _models_from_env() -> dict[str, ModelEntry]:
+    """``MODELS`` with each set ``weights_env`` variable as the entry's
+    ``weights_path``: the variable wins over the policy's path."""
+    out = {}
+    for name, entry in MODELS.items():
+        env = entry.weights_env and os.environ.get(entry.weights_env)
+        out[name] = (dataclasses.replace(entry, weights_path=env) if env
+                     else entry)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """The parts of the JAX package's ``Policy`` that the auto route reads."""
@@ -115,7 +142,7 @@ class Policy:
         default_factory=lambda: dict(LATENCY_BUDGETS))
     defaults: PipelineDefaults = DEFAULTS
     models: Mapping[str, ModelEntry] = dataclasses.field(
-        default_factory=lambda: dict(MODELS))
+        default_factory=_models_from_env)
     enabled: Mapping[str, bool] = dataclasses.field(
         default_factory=lambda: dict(ENABLED))
 

@@ -41,7 +41,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0, "window_attention": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -59,6 +59,10 @@ _SIGNATURES = {
     # of q, k, v and o, vec, stream
     "vetk_flash_attention": [_I] + [_P] * 4 + [_I] * 5 + [_F] + [_L] * 12
     + [_I, _P],
+    # dtype, q, k, v, bias, o, nW, H, N, Dh, scale, (window, head, row)
+    # strides of q, k, v and o, windows a block, vec, stream
+    "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12
+    + [_I, _I, _P],
 }
 
 

@@ -63,16 +63,16 @@ def conv2d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv3d_init(gen: torch.Generator, kt: int, kh: int, kw: int, cin: int,
-                cout: int, zero: bool = False) -> dict:
-    bound = 1.0 / math.sqrt(kt * kh * kw * cin)
-    shape = (cout, cin, kt, kh, kw)
+                cout: int, zero: bool = False, groups: int = 1) -> dict:
+    bound = 1.0 / math.sqrt(kt * kh * kw * cin // groups)
+    shape = (cout, cin // groups, kt, kh, kw)
     if zero:
         return {"w": torch.zeros(shape), "b": torch.zeros(cout)}
     return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (cout,), bound)}
 
 
-def conv3d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return conv3d(x, p["w"], p.get("b"))
+def conv3d_apply(p: dict, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    return conv3d(x, p["w"], p.get("b"), groups=groups)
 
 
 def layer_norm_init(dim: int) -> dict:

@@ -13,6 +13,12 @@ Counterpart of video_enhancer_tpu/ops/attention.py:
 - ``attention``: the dispatcher (:185-192). It takes the kernel for an
   unbiased CUDA tensor with Lq, Lk >= 256, where the JAX package takes the
   Pallas kernel on the TPU, and ``attention_ref`` otherwise.
+- ``window_attention``: the wrapper of the hand-written CUDA kernel
+  (csrc/window_attn.cu) that replaces the TPU's ``_window_kernel``
+  (:200-303): many short windows ``(nW, H, N, Dh)`` with a per-head bias
+  ``(H, N, N)`` shared by every window. ``window_attention_plain`` is its
+  plain version, ``attention_ref(..., bias=bias[None])``, the form rvrt
+  runs off the TPU (models/rvrt.py:135).
 - ``site_attention``: the broadcast form of the JAX package's
   ``site_attention`` (it has no kernel): ``q (N, T, C)``, ``k/v (N, Tg,
   C)`` -> ``(N, T, C)``, heads of ``C // heads`` channels.
@@ -28,7 +34,8 @@ import torch
 
 from .. import kernels
 
-__all__ = ["attention", "attention_ref", "flash_attention", "site_attention"]
+__all__ = ["attention", "attention_ref", "flash_attention", "site_attention",
+           "window_attention", "window_attention_plain"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,6 +115,77 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is None and long_seq and use_kernel:
         return flash_attention(q, k, v, scale=scale)
     return attention_ref(q, k, v, bias=bias, scale=scale)
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor,
+                           scale: float | None = None) -> torch.Tensor:
+    """Plain windowed attention: ``q/k/v (nW, H, N, Dh)``, ``bias (H, N,
+    N)`` added to every window's logits."""
+    return attention_ref(q, k, v, bias=bias[None], scale=scale)
+
+
+def _window_blocks(device: torch.device, nW: int, H: int) -> int:
+    """Windows a block of the tensor-core kernel (half types), which stages
+    its head's bias once a block: one wave of 2 blocks an SM (56 windows a
+    block at rvrt's shape, the fastest of those tried, PERF.md). The fp32
+    kernel takes one window a block and ignores it."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, -(-nW * H // (2 * sms)))
+
+
+def _window_cuda(q, k, v, bias, scale: float) -> torch.Tensor:
+    nW, H, N, Dh = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if tuple(bias.shape) != (H, N, N):
+        raise ValueError(f"bias must be (H, N, N) = {(H, N, N)}, got "
+                         f"{tuple(bias.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k and v must share one dtype")
+    if any(t.device != q.device for t in (k, v, bias)):
+        raise ValueError("q, k, v and bias must be on one device")
+    if not (1 <= N <= 128 and 1 <= Dh <= 64 and nW >= 1 and H <= 65535):
+        raise ValueError(f"kernel takes N <= 128, Dh <= 64 and H <= 65535, "
+                         f"got (nW, H, N, Dh) = {(nW, H, N, Dh)}")
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    b32 = bias.float().contiguous()
+    # (nW, N, H, Dh) storage: the caller's transpose back to tokens is free
+    o = torch.empty((nW, N, H, Dh), dtype=q.dtype,
+                    device=q.device).permute(0, 2, 1, 3)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    # 16-byte tile loads need aligned operands, strides of 8 elements and
+    # whole chunks of 8 in the head dim
+    vec = Dh % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+        for t in (q, k, v))
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        err = lib.vetk_window_attention(
+            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            b32.data_ptr(), o.data_ptr(), nW, H, N, Dh, float(scale),
+            *strides, _window_blocks(q.device, nW, H), int(vec),
+            kernels.stream_of(q))
+        kernels.launch_counts["window_attention"] += 1
+    kernels.check(err, "window_attention")
+    return o
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """Attention over many short windows with a per-head bias shared by all
+    of them: the CUDA kernel for a CUDA tensor (strided views with a dense
+    head dim are read in place), the plain version for a CPU tensor.
+    ``scale`` defaults to ``Dh ** -0.5``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        return _window_cuda(q, k, v, bias, scale)
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, scale=scale)
+    raise ValueError(f"window_attention: no kernel for device {q.device}")
 
 
 def site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,9 @@ Counterpart of video_enhancer_tpu/runtime/pipeline.py, with two entries:
   context (ditvr) and streams the frames through it. It needs no OpenCV.
 - ``run_auto_pipeline(input_path, output_path, ...) -> stats``: the same
   flow file to file through OpenCV, with the preprocessed video written to
-  an intermediate file, as the JAX pipeline does.
+  an intermediate file, as the JAX pipeline does. It takes the JAX
+  pipeline's keywords; ``scale`` and ``enable_temporal_smoothing`` change
+  nothing there, and nothing here.
 
 A failure of the primary falls back to the bicubic handler and says so in
 ``stats["fallback_from"]`` and ``stats["fallback_error"]``; a conditioned
@@ -126,7 +128,7 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
         frames = preprocess_frames(frames, experts, dev)
 
     try:
-        handler = build_handler(primary, device=dev)
+        handler = build_handler(primary, policy, device=dev)
         if handler.context:
             apply_degradation_context(handler, plan)
         t1 = time.time()
@@ -134,7 +136,7 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
     except Exception as e:  # the primary's failure serves bicubic
         log.warning("primary model %s failed (%s); bicubic fallback",
                     primary, e, exc_info=True)
-        handler = build_handler("bicubic", device=dev)
+        handler = build_handler("bicubic", policy, device=dev)
         t1 = time.time()
         out = list(handler.enhance_frames(iter(frames)))
         fallback = {"fallback_from": primary, "fallback_error": str(e)}
@@ -154,13 +156,18 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
 
 
 def run_auto_pipeline(input_path, output_path, engine: str = "auto",
+                      scale: int | None = None,
                       latency_class: str = "standard",
                       enable_face_expert: bool | None = None,
                       enable_hfr: bool | None = None,
+                      enable_temporal_smoothing: bool | None = None,
                       policy: Policy | None = None,
                       device: str | torch.device | None = None) -> dict:
     """File to file: route the file's sampled frames, preprocess into an
-    intermediate file, enhance it with the primary (bicubic on failure)."""
+    intermediate file, enhance it with the primary (bicubic on failure).
+    ``scale`` and ``enable_temporal_smoothing`` are accepted as the JAX
+    pipeline accepts them (video_enhancer_tpu/runtime/pipeline.py:26-36),
+    where neither changes the result: the scale is the primary's."""
     policy = policy or default_policy()
     dev = resolve_device(device)
     t0 = time.time()
@@ -178,14 +185,14 @@ def run_auto_pipeline(input_path, output_path, engine: str = "auto",
             work_input = _preprocess_video(work_input, experts, dev,
                                            tmp_files)
         try:
-            handler = build_handler(primary, device=dev)
+            handler = build_handler(primary, policy, device=dev)
             if handler.context:
                 apply_degradation_context(handler, plan)
             stats = handler.enhance_video(work_input, output_path)
         except Exception as e:  # the primary's failure serves bicubic
             log.warning("primary model %s failed (%s); bicubic fallback",
                         primary, e, exc_info=True)
-            handler = build_handler("bicubic", device=dev)
+            handler = build_handler("bicubic", policy, device=dev)
             stats = handler.enhance_video(work_input, output_path)
             stats["fallback_from"] = primary
             stats["fallback_error"] = str(e)

@@ -24,7 +24,7 @@ from ..io.pipeline import iter_windows
 from ..models import upscaler
 from .calibration import calibrate_vsr
 from .vsr_handler import cast_params
-from .weights import load_into, params_from_jax, read_npz
+from .weights import try_load_params
 
 __all__ = ["CnnUpscalerHandler"]
 
@@ -42,9 +42,8 @@ class CnnUpscalerHandler:
         if use_cnn:
             params = upscaler.init(torch.Generator().manual_seed(0),
                                    scale=scale)
-            if weights_path:
-                params, _, _ = load_into(
-                    params, params_from_jax(read_npz(weights_path)))
+            if weights_path:   # a checkpoint that does not load keeps init
+                params = try_load_params(weights_path, params) or params
             self.dtype = dtype
             self.params = cast_params(params, dtype, self.device)
             self._apply = calibrate_vsr(

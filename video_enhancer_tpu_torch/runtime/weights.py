@@ -8,7 +8,11 @@ other arrays (embeddings, prototypes, norms, biases) as they are. ``params_from_
 such a flat dict into the port's nested parameters in PyTorch's layouts,
 and ``load_into`` fills a template leniently, by path and shape, as the JAX
 package's ``unflatten_into`` does (:37-63): what matches is taken,
-everything else keeps its initialisation.
+everything else keeps its initialisation. ``try_load_params`` is one link
+of the JAX package's weight-resolution chain (:108-132): a ``.npz`` or a
+PyTorch ``.pt``/``.pth`` state dict (``convert_torch_state_dict``, :87-105),
+or a directory holding one, loaded into a template, or None when the file
+is missing, unreadable or matches no key.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 log = logging.getLogger(__name__)
 
 __all__ = ["convert_array", "params_from_jax", "flatten_params",
-           "load_into", "read_npz"]
+           "load_into", "read_npz", "convert_torch_state_dict",
+           "try_load_params"]
 
 
 def convert_array(key: str, arr: np.ndarray) -> torch.Tensor:
@@ -119,3 +124,65 @@ def read_npz(path: str | Path) -> dict[str, np.ndarray]:
         p = npzs[0]
     with np.load(p, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+def convert_torch_state_dict(state_dict) -> dict[str, np.ndarray]:
+    """A PyTorch state dict -> the JAX package's flat keys and layouts:
+    Linear ``weight (out, in)`` -> ``w (in, out)``, ConvNd ``weight (out, in,
+    *k)`` -> ``w (*k, in, out)``; ``bias`` under both ``b`` and ``bias``, a
+    1-D ``weight`` under both ``scale`` and ``w`` (the lenient load matches
+    by key and shape)."""
+    flat = {}
+    for name, t in state_dict.items():
+        arr = np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach")
+                         else t)
+        base, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            if arr.ndim == 2:
+                flat[f"{base}.w"] = arr.T
+            elif arr.ndim == 3:
+                flat[f"{base}.w"] = arr.transpose(2, 1, 0)
+            elif arr.ndim == 4:
+                flat[f"{base}.w"] = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 5:
+                flat[f"{base}.w"] = arr.transpose(2, 3, 4, 1, 0)
+            elif arr.ndim == 1:
+                flat[f"{base}.scale"] = arr
+                flat[f"{base}.w"] = arr
+            else:
+                flat[f"{base}.w"] = arr
+        elif leaf == "bias":
+            flat[f"{base}.b"] = arr
+            flat[f"{base}.bias"] = arr
+        else:
+            flat[name] = arr
+    return flat
+
+
+def try_load_params(path, template):
+    """``template`` filled from the checkpoint at ``path`` (a ``.npz``, a
+    ``.pt``/``.pth`` state dict, or a directory: its first ``.npz``, else its
+    first ``.pt``/``.pth``); None when there is no such file, it cannot be
+    read, or none of its keys matches."""
+    p = Path(path)
+    try:
+        if p.is_dir():
+            npzs = sorted(p.glob("*.npz"))
+            pts = sorted(list(p.glob("*.pt")) + list(p.glob("*.pth")))
+            p = npzs[0] if npzs else (pts[0] if pts else p)
+        if not p.is_file():
+            return None
+        if p.suffix == ".npz":
+            flat = read_npz(p)
+        elif p.suffix in (".pt", ".pth"):
+            sd = torch.load(str(p), map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and "state_dict" in sd:
+                sd = sd["state_dict"]
+            flat = convert_torch_state_dict(sd)
+        else:
+            return None
+        out, matched, _ = load_into(template, params_from_jax(flat))
+        return out if matched else None
+    except Exception as e:  # an unreadable file is a missing link
+        log.warning("weight load failed for %s: %s", path, e)
+        return None
