@@ -11,9 +11,11 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    (ptxas's register/shared-memory/spill report on earlier lines);
 3. kernels against their plain PyTorch versions at the main paths' shapes,
    in fp32 (TF32 off) and bf16, each with its tolerance; the flash kernel
-   also at ragged lengths, the fused SSM also at fast_mamba_vsr's shape;
-   time of each, and of the PyTorch library call that computes the same
-   function where there is one;
+   also at ragged lengths, the fused SSM also at fast_mamba_vsr's shape,
+   the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
+   a nonzero h0, and a control: run with h0 = 0 it must read far from the
+   plain version); time of each, and of the PyTorch library call that
+   computes the same function where there is one;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -37,7 +39,20 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    ``latency_class="strict"`` on a seeded 30-frame 180x320 clip; checks that
    the router itself picked fast_mamba_vsr, with no fallback, that the fused
    SSM kernel ran 8 times a window (windows of 16 overlapping by 2; no other
-   kernel), window 0 against the plain versions and the frames; frames/s.
+   kernel), window 0 against the plain versions and the frames; frames/s;
+8. the exact time-sharded path on a one-rank NCCL group (``make_mesh``, a
+   ``file://`` store in a temporary directory): ``make_exact_sharded_fmv``
+   on phase 7's first 16 frames and ``make_exact_sharded_vsrm`` on phase 4's
+   first 7, bundled weights in bf16; checks that each launched the short
+   scan with state (32 and 24 times) and no other Mamba-1 scan or fused SSM
+   kernel (vsrm: the SSD kernel 12 times), and that the output lies within
+   the window tolerances of the single-device ``apply`` (which runs the
+   fused SSM kernel); frames/s of both;
+9. the layers: ``bimamba_apply`` per pixel (one bidirectional scan launch)
+   and over 7 rasters (two long-scan launches), ``bissm_apply(impl=
+   "composed")`` on vsrm's block-0 temporal input from phase 4's clip (one
+   bidirectional scan launch; also against the fused kernel), ``ssm_apply``
+   per pixel (one stateless short-scan launch), each against its plain form.
 
 The line before the card's name and power limit holds the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. The script
@@ -61,21 +76,31 @@ from video_enhancer_tpu_torch import kernels
 from video_enhancer_tpu_torch.config import MODELS
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt, vsrm
+from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
+                                             bissm_apply, ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
-from video_enhancer_tpu_torch.ops.scan import (fused_bidir_ssm_kernel,
-                                               fused_bidir_ssm_plain)
+from video_enhancer_tpu_torch.ops.scan import (
+    fused_bidir_ssm_kernel, fused_bidir_ssm_plain, scan_flops,
+    selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
+    selective_scan_bidir_shared, selective_scan_pallas,
+    selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
                                                           calibrate_vsr)
+from video_enhancer_tpu_torch.parallel.inference import (
+    make_exact_sharded_fmv, make_exact_sharded_vsrm)
+from video_enhancer_tpu_torch.parallel.mesh import make_mesh
 from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
 from video_enhancer_tpu_torch.runtime.registry import (build_handler,
-                                                      bundled_weights)
+                                                      bundled_weights,
+                                                      load_params)
+from video_enhancer_tpu_torch.runtime.vsr_handler import cast_params
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -95,6 +120,15 @@ FLASH_RAGGED = [dict(B=2, H=3, Lq=300, Lk=1000, Dh=64),
 # rvrt at 180x320, window 7: padded to 8x184x320, windows of 2x8x8 tokens,
 # dim 64, heads 4
 WINDOW_SHAPE = dict(nW=4 * 23 * 40, H=4, N=128, Dh=16)
+# the Mamba-1 scans (TPU kernel rows 6-9) at 180x320: row 6 at vsrm's
+# temporal bissm (composed), row 7 at fast_mamba_vsr's exact-sharded scans
+# (16 frames), rows 8 and 9 at bimamba_init(dim=64)'s inner 128, N 16 per
+# pixel (7 frames) and over one window's 7 rasters
+SCAN_SHAPES = {"selective_scan_bidir": dict(B=180 * 320, L=7, D=128, N=4),
+               "selective_scan_short": dict(B=180 * 320, L=16, D=96, N=8),
+               "selective_scan_short_nostate": dict(B=180 * 320, L=7, D=128,
+                                                    N=16),
+               "selective_scan_long": dict(B=7, L=180 * 320, D=128, N=16)}
 
 # tolerances: max |kernel - plain| / max |plain|
 TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
@@ -103,7 +137,9 @@ TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
        ("flash_attention", "float32"): 1e-4,
        ("flash_attention", "bfloat16"): 2e-2,
        ("window_attention", "float32"): 1e-4,
-       ("window_attention", "bfloat16"): 2e-2}
+       ("window_attention", "bfloat16"): 2e-2,
+       **{(k, "float32"): 1e-4 for k in SCAN_SHAPES},
+       **{(k, "bfloat16"): 1e-2 for k in SCAN_SHAPES}}
 # one served window, kernels vs plain versions (both bf16), on [0, 1]
 WINDOW_MAX_ABS, WINDOW_MEAN_ABS = 0.05, 0.005
 
@@ -381,6 +417,121 @@ def window_vs_plain() -> dict:
     return rec
 
 
+def _scan_inputs(dtype, gen, B, L, D, N, dt_rank=4):
+    """x, dt, A, B, C, D as the layers hand them to the scans: B and C
+    column slices of one x_proj output; dt a softplus (~0.05-0.4); A the
+    S4D-real -(1..N) per channel, scaled; D of the skip's scale."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = rnd(B, L, D).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, L, D, scale=0.5) - 2.0).to(dtype)
+    proj = rnd(B, L, dt_rank + 2 * N).to(dtype)
+    Bm, Cm = proj[..., dt_rank:dt_rank + N], proj[..., dt_rank + N:]
+    A = -torch.arange(1, N + 1, device="cuda").float() * torch.exp(
+        rnd(D, 1, scale=0.3))
+    return x, dt, A, Bm, Cm, rnd(D, scale=0.5)
+
+
+def _nbytes(*ts) -> int:
+    """Bytes of the distinct tensors (an operand passed twice counts once)."""
+    seen = {(t.data_ptr(), tuple(t.shape), t.stride()): t for t in ts}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def scans_vs_plain() -> dict:
+    """The four Mamba-1 scan kernels against their plain versions at the
+    paths' shapes, in fp32 and bf16, with their times and bounds. The
+    stateful short scan run with h0 = 0 must read at least CONTROL_MARGIN x
+    the tolerance away from the plain version with the real h0."""
+    rec = {}
+    for key, s in SCAN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+            x, dt, A, Bm, Cm, Dv = _scan_inputs(dtype, gen, **s)
+            tol = TOL[(key, str(dtype).split(".")[1])]
+            state = key in ("selective_scan_short", "selective_scan_long")
+            h0 = (torch.randn((s["B"], s["D"], s["N"]), generator=gen,
+                              device="cuda") if state else None)
+            if key == "selective_scan_bidir":
+                # vsrm's composed bissm: u, B and C shared by both streams
+                dtb = torch.nn.functional.softplus(
+                    torch.randn(x.shape, generator=gen, device="cuda") * 0.5
+                    - 2.0).to(dtype)
+                Ab, Db = A.flip(1), Dv.flip(0)
+                args = (x, dt, A, Bm, Cm, Dv, x, dtb, Ab, Bm, Cm, Db)
+                shared = selective_scan_bidir_shared(x, dt, dtb, A, Ab, Bm,
+                                                     Cm, Dv, Db)
+                run = lambda: selective_scan_bidir(*args)        # noqa: E731
+                plain = lambda: selective_scan_bidir_plain(*args)  # noqa: E731
+                nbytes = _nbytes(*args) + 2 * x.numel() * x.element_size()
+                flops = scan_flops(**s, streams=2)
+            else:
+                args = (x, dt, A, Bm, Cm, Dv)
+                if key == "selective_scan_long":
+                    run = lambda: selective_scan_pallas(*args, h0=h0)  # noqa: E731
+                    plain = lambda: selective_scan_assoc(*args, h0=h0)  # noqa: E731
+                elif state:
+                    run = lambda: selective_scan_pallas_short(  # noqa: E731
+                        *args, h0=h0)
+                    plain = lambda: selective_scan_plain(  # noqa: E731
+                        *args, h0=h0)
+                else:
+                    run = lambda: selective_scan_pallas_short(  # noqa: E731
+                        *args, need_state=False)
+                    plain = lambda: selective_scan_plain(*args)  # noqa: E731
+                nbytes = (_nbytes(*args) + x.numel() * x.element_size()
+                          + (2 * h0.numel() * 4 if state else 0))
+                flops = scan_flops(**s)
+            got = run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ref = plain()
+            torch.cuda.synchronize()
+            print(f"{key} {dtype}: the plain version's peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            errs = []
+            for name, g, r in zip(("yf", "yb") if key.endswith("bidir")
+                                  else ("y", "h_last"), got, ref):
+                if g is None:
+                    continue
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"{key} {name}: non-finite")
+                err, rel = rel_err(g, r)
+                errs.append(err)
+                print(f"{key} {s} {dtype} {name}: max_abs_err {err:.3e} rel "
+                      f"{rel:.3e} (tol {tol:g})")
+                check(rel <= tol, f"{key} {name} {dtype}: rel {rel} > {tol}")
+            if key.endswith("bidir"):
+                _, rel = rel_err(shared, ref[0] + ref[1])
+                print(f"  selective_scan_bidir_shared(impl='bidir'): rel "
+                      f"{rel:.3e}")
+                check(rel <= tol, f"bidir_shared {dtype}: rel {rel} > {tol}")
+            if key == "selective_scan_short":
+                y_zero, _ = selective_scan_pallas_short(
+                    *args, h0=torch.zeros_like(h0))
+                _, c_rel = rel_err(y_zero, ref[0])
+                print(f"  control, the kernel with h0 = 0: rel {c_rel:.3e} "
+                      f"(must be >= {CONTROL_MARGIN * tol:g})")
+                check(c_rel >= CONTROL_MARGIN * tol,
+                      f"{key} {dtype}: the check cannot tell a kernel that "
+                      f"ignores h0 (rel {c_rel})")
+            ms = time_ms(run)
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        flops / H100_FP32_FLOPS) * 1e3
+            print(f"{key} {dtype}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            if dtype == torch.bfloat16:
+                plain_ms = time_ms(plain, warmup=1, iters=3)
+                print(f"{key} {dtype}: plain {plain_ms:.3f} ms")
+                rec[key] = dict(max_abs_err=max(errs), ms=ms,
+                                plain_ms=plain_ms, bytes=nbytes, flops=flops,
+                                peak=H100_FP32_FLOPS, library_ms=None)
+            del got, ref, args, run, plain, x, dt, Bm, Cm, h0
+            torch.cuda.empty_cache()
+    return rec
+
+
 @phase("3 kernels vs plain")
 def kernels_vs_plain() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -444,6 +595,8 @@ def kernels_vs_plain() -> dict:
         rec.update(flash_vs_plain())
         # --- kernel 4: window_attention --------------------------------------
         rec.update(window_vs_plain())
+        # --- the Mamba-1 scans (TPU kernel rows 6-9) -------------------------
+        rec.update(scans_vs_plain())
     torch.cuda.empty_cache()
     return rec
 
@@ -490,9 +643,9 @@ def main_path(device_line: str) -> dict:
         check(f.shape == (4 * h, 4 * w, 3) and f.dtype == np.uint8,
               f"bad frame {f.shape} {f.dtype}")
     blocks = len(handler.params["blocks"])
-    want = {"ssd_shared": 2 * blocks * windows,
-            "fused_bidir_ssm": blocks * windows, "flash_attention": 0,
-            "window_attention": 0}
+    want = dict.fromkeys(kernels.launch_counts, 0)
+    want.update(ssd_shared=2 * blocks * windows,
+                fused_bidir_ssm=blocks * windows)
     print(f"windows {windows}; launches {counts}; expected {want}")
     check(counts == want, f"launch counts {counts} != {want}")
     fps = n / secs
@@ -567,9 +720,8 @@ def auto_route(device_line: str) -> dict:
 
     entry = MODELS["ditvr"]
     windows = sum(1 for _ in iter_windows(frames, entry.window, entry.stride))
-    want = {"ssd_shared": 0, "fused_bidir_ssm": 0,
-            "flash_attention": entry.extra["depth"] * windows,
-            "window_attention": 0}
+    want = dict.fromkeys(kernels.launch_counts, 0)
+    want["flash_attention"] = entry.extra["depth"] * windows
     print(f"windows {windows}; launches {counts}; expected {want}")
     check(counts == want, f"launch counts {counts} != {want}")
     check(len(out) == n, f"{len(out)} frames out of {n}")
@@ -743,6 +895,159 @@ def strict_route(device_line: str) -> dict:
     return {"counts": counts, "fps": stats["fps"]}
 
 
+def _counted(fn, *args) -> tuple:
+    """``fn(*args)`` with the launch counts set to 0 just before and read
+    just after; returns the output, the counts and the seconds."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(kernels.launch_counts), time.perf_counter() - t0
+
+
+def _only(**nonzero) -> dict:
+    want = dict.fromkeys(kernels.launch_counts, 0)
+    want.update(nonzero)
+    return want
+
+
+@phase("8 exact time-sharded path")
+def sharded_path(device_line: str) -> dict:
+    """Both exact T-sharded factories on a one-rank NCCL group against the
+    single-device model on the same clip."""
+    frames = synthetic_clip(16, 180, 320)
+    clip16 = (torch.from_numpy(np.stack(frames)).cuda().float() / 255.0)
+    cases = [("fast_mamba_vsr", clip16, make_exact_sharded_fmv,
+              fast_mamba_vsr.apply),
+             ("vsrm", clip16[:7], make_exact_sharded_vsrm, vsrm.apply)]
+    axis = make_mesh(time=1)
+    counts = {}
+    try:
+        check(axis.size == 1 and axis.index == 0 and axis.device.type == "cuda",
+              f"time axis {axis.size}/{axis.index} on {axis.device}")
+        for name, frames_t, make, apply in cases:
+            check(bundled_weights(name) is not None, f"{name}: no weights")
+            raw = load_params(name)
+            depth = len(raw["blocks" if name == "vsrm" else "layers"])
+            params = cast_params(raw, torch.bfloat16, axis.device)
+            clip = frames_t[None].to(torch.bfloat16)
+            fn = make(axis, scale=4)
+            with torch.inference_mode():
+                fn(params, clip)                      # warm-up, not counted
+                y_s, c_s, t_s = _counted(fn, params, clip)
+                y_1, c_1, t_1 = _counted(lambda p, c: apply(p, c, scale=4),
+                                         params, clip)
+            ssd = 2 * depth if name == "vsrm" else 0
+            want_s = _only(selective_scan_short=4 * depth, ssd_shared=ssd)
+            want_1 = _only(fused_bidir_ssm=depth, ssd_shared=ssd)
+            print(f"{name}: sharded launches {c_s} (expected {want_s}); "
+                  f"single-device {c_1}")
+            check(c_s == want_s, f"{name} sharded launches {c_s} != {want_s}")
+            check(c_1 == want_1, f"{name} single launches {c_1} != {want_1}")
+            check(tuple(y_s.shape) == tuple(y_1.shape)
+                  and bool(torch.isfinite(y_s.float()).all()),
+                  f"{name}: sharded output {tuple(y_s.shape)} not finite or "
+                  f"not {tuple(y_1.shape)}")
+            diff = (y_s.float() - y_1.float()).abs()
+            mx, mean = diff.max().item(), diff.mean().item()
+            n = clip.shape[1]
+            print(f"{name} x4 {n} frames: sharded (one rank, short-scan "
+                  f"kernel) vs single-device (fused kernel), bf16: max_abs "
+                  f"{mx:.4e} (tol {WINDOW_MAX_ABS}), mean_abs {mean:.4e} (tol "
+                  f"{WINDOW_MEAN_ABS}); sharded {t_s:.3f} s = {n / t_s:.2f} "
+                  f"frames/s, single {t_1:.3f} s = {n / t_1:.2f} frames/s "
+                  f"({device_line})")
+            check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
+                  f"{name}: the sharded output differs from the single-device "
+                  f"model")
+            counts[name] = c_s
+            del raw, params, y_s, y_1
+            torch.cuda.empty_cache()
+    finally:
+        axis.destroy()
+    return counts
+
+
+def _block0_temporal_input(params, clip) -> torch.Tensor:
+    """The input vsrm's block 0 hands its temporal SSM, caught in a run of
+    ``vsrm.apply``."""
+    caught = []
+    real = vsrm.bissm_apply
+
+    def catch(p, x, impl="fused"):
+        caught.append(x)
+        return real(p, x, impl=impl)
+
+    vsrm.bissm_apply = catch
+    try:
+        vsrm.apply(params, clip, scale=4)
+    finally:
+        vsrm.bissm_apply = real
+    return caught[0]
+
+
+def _window_tol(name: str, got, ref) -> None:
+    diff = (got.float() - ref.float()).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    print(f"{name}: max_abs {mx:.4e} (tol {WINDOW_MAX_ABS}), mean_abs "
+          f"{mean:.4e} (tol {WINDOW_MEAN_ABS})")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: not finite")
+    check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
+          f"{name}: differs from its plain form")
+
+
+@phase("9 layers")
+def layers() -> dict:
+    """Each Mamba-1 layer once at the phase-3 shapes, its launches and its
+    output against its plain form (bf16 on the card)."""
+    gen = torch.Generator().manual_seed(SEED)
+    pb = cast_params(bimamba_init(gen, 64), torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    pixels = torch.randn((180 * 320, 7, 64), generator=g,
+                         device="cuda").bfloat16()
+    rasters = torch.randn((7, 180 * 320, 64), generator=g,
+                          device="cuda").bfloat16()
+    vp = cast_params(load_params("vsrm"), torch.bfloat16, "cuda")
+    clip = (torch.from_numpy(np.stack(synthetic_clip(7, 180, 320))).cuda()
+            .float()[None] / 255.0).bfloat16()
+    counts = {}
+    with torch.inference_mode():
+        seq = _block0_temporal_input(vp, clip)
+        tp = vp["blocks"][0]["temporal_ssm"]
+        cases = [
+            ("bimamba_apply per pixel", lambda: bimamba_apply(pb, pixels),
+             lambda: bimamba_apply(pb, pixels, impl="ref"),
+             dict(selective_scan_bidir=1)),
+            ("bissm_apply(impl='composed') on vsrm's block 0",
+             lambda: bissm_apply(tp, seq, impl="composed"),
+             lambda: bissm_apply(tp, seq, impl="plain"),
+             dict(selective_scan_bidir=1)),
+            ("ssm_apply per pixel", lambda: ssm_apply(pb["fwd"], pixels),
+             lambda: ssm_apply(pb["fwd"], pixels, impl="ref"),
+             dict(selective_scan_short_nostate=1)),
+            ("bimamba_apply over 7 rasters", lambda: bimamba_apply(pb, rasters),
+             lambda: bimamba_apply(pb, rasters, impl="assoc"),
+             dict(selective_scan_long=2)),
+        ]
+        for name, run, plain, want in cases:
+            got, c, secs = _counted(run)
+            print(f"{name}: launches {c}, {1000 * secs:.2f} ms")
+            check(c == _only(**want), f"{name}: launches {c} != {want}")
+            for k, v in want.items():
+                counts[k] = counts.get(k, 0) + v
+            _window_tol(f"  {name} vs plain", got, plain())
+            if "composed" in name:
+                _window_tol("  ... vs the fused kernel",
+                            got, bissm_apply(tp, seq, impl="fused"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
+
+
+SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
+
+
 def kernel_record(rec: dict, counts: dict) -> list[dict]:
     meta = {
         "ssd_shared": ("video_enhancer_tpu_torch/csrc/ssd_shared.cu",
@@ -756,6 +1061,11 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
         "fused_bidir_ssm:fast_mamba_vsr": (
             "video_enhancer_tpu_torch/csrc/fused_bissm.cu",
             "video_enhancer_tpu/ops/scan.py:941"),
+        "selective_scan_bidir": (SCAN_CU, "video_enhancer_tpu/ops/scan.py:460"),
+        "selective_scan_short": (SCAN_CU, "video_enhancer_tpu/ops/scan.py:241"),
+        "selective_scan_short_nostate": (
+            SCAN_CU, "video_enhancer_tpu/ops/scan.py:362"),
+        "selective_scan_long": (SCAN_CU, "video_enhancer_tpu/ops/scan.py:556"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -785,6 +1095,8 @@ def main() -> int:
     route = auto_route(f"{env['kind']}, {env['smi']}")
     rv = rvrt_path(f"{env['kind']}, {env['smi']}")
     strict = strict_route(f"{env['kind']}, {env['smi']}")
+    sharded = sharded_path(f"{env['kind']}, {env['smi']}")
+    layer_counts = layers()
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -792,7 +1104,13 @@ def main() -> int:
               "flash_attention": route["counts"]["flash_attention"],
               "window_attention": rv["counts"]["window_attention"],
               "fused_bidir_ssm:fast_mamba_vsr":
-                  strict["counts"]["fused_bidir_ssm"]}
+                  strict["counts"]["fused_bidir_ssm"],
+              # row 7: both sharded calls of phase 8; rows 6, 8, 9: phase 9
+              "selective_scan_short": sum(
+                  c["selective_scan_short"] for c in sharded.values()),
+              **{k: layer_counts[k] for k in (
+                  "selective_scan_bidir", "selective_scan_short_nostate",
+                  "selective_scan_long")}}
     print(json.dumps({"kernels": kernel_record(rec, counts)}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

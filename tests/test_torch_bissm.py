@@ -81,7 +81,7 @@ def test_selective_scan_matches_reference(reverse):
                                          for v in (x, dt)), jnp.asarray(A),
                                        *(jnp.asarray(flip(v))
                                          for v in (Bm, Cm)), jnp.asarray(Dv))
-    got = tscan.selective_scan_plain(
+    got, _ = tscan.selective_scan_plain(
         *(torch.from_numpy(v) for v in (x, dt, A, Bm, Cm, Dv)),
         reverse=reverse)
     np.testing.assert_allclose(got.numpy(), flip(np.asarray(want)), atol=TOL,

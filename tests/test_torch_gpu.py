@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels against their plain versions,
 at small shapes that reach the kernels' edges (ragged chunks, strided rows,
 narrow heads, even conv kernels, ragged query and key lengths, strided
-views of a split projection, every dtype).
+views of a split projection, every dtype), and the Mamba-1 scans also at
+the shapes the served paths give them; the exact time-sharded
+fast_mamba_vsr on a one-rank NCCL group.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -16,14 +18,19 @@ import torch
 
 from video_enhancer_tpu_torch import kernels
 from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt
-from video_enhancer_tpu_torch.nn.ssm import (bissd_apply, bissd_init,
-                                             bissm_apply, bissm_init)
+from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
+                                             bissd_apply, bissd_init,
+                                             bissm_apply, bissm_init,
+                                             ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (attention, attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
-from video_enhancer_tpu_torch.ops.scan import (fused_bidir_ssm_kernel,
-                                               fused_bidir_ssm_plain)
+from video_enhancer_tpu_torch.ops.scan import (
+    fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
+    selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
+    selective_scan_bidir_shared, selective_scan_pallas,
+    selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
                                               ssd_shared_plain)
 
@@ -113,7 +120,7 @@ def test_layers_route_through_kernels(cuda):
     s = torch.randn((300, 7, 64), device=cuda).bfloat16()
     z = bissm_apply(pm, s)
     assert kernels.launch_counts["fused_bidir_ssm"] == 1
-    assert _rel(z, bissm_apply(pm, s, use_kernel=False)) <= 2e-2
+    assert _rel(z, bissm_apply(pm, s, impl="plain")) <= 2e-2
 
 
 def test_kernel_rejects_bad_layout(cuda):
@@ -329,3 +336,194 @@ def test_fast_mamba_vsr_routes_through_fused_ssm(cuda):
     torch.cuda.synchronize()
     assert y.shape == (1, 16, 48, 80, 3)
     assert (y.float() - y_p.float()).abs().max().item() <= 3e-2
+
+
+# Mamba-1 scans: max |kernel - plain| / max |plain|; both compute in fp32
+# from the same stored inputs, the kernel's y rounds once to x's dtype.
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+def _scan_inputs(cuda, dtype, B, L, D, N, seed, strided=True):
+    """x, dt, A, B, C, D; with ``strided`` x is a column slice of a wider
+    tensor and B, C column slices of one projection, as the layers pass
+    them."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    extra = 3 if strided else 0
+    x = rnd(B, L, D + extra).to(dtype)[..., extra:]
+    dt = torch.nn.functional.softplus(rnd(B, L, D, scale=0.5) - 2).to(dtype)
+    proj = rnd(B, L, 2 * N + extra).to(dtype)
+    Bm, Cm = proj[..., extra:extra + N], proj[..., extra + N:]
+    A = -torch.arange(1, N + 1, device=cuda).float() * torch.exp(
+        rnd(D, 1, scale=0.3))
+    return x, dt, A, Bm, Cm, rnd(D, scale=0.5)
+
+
+SCAN_SMALL = [(300, 8, 16, 4), (1100, 5, 96, 8), (17, 32, 130, 16),
+              (3, 1, 8, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("state", [True, False])
+@pytest.mark.parametrize("B,L,D,N", SCAN_SMALL + [(57600, 16, 96, 8)])
+def test_scan_short_kernel_matches_plain(cuda, dtype, state, B, L, D, N):
+    """Rows 7 (with a nonzero h0: y and h_last) and 8 (no state)."""
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, dtype, B, L, D, N, seed=B + L)
+    h0 = torch.randn((B, D, N), device=cuda) if state else None
+    key = "selective_scan_short" if state else "selective_scan_short_nostate"
+    before = kernels.launch_counts[key]
+    y, h = selective_scan_pallas_short(x, dt, A, Bm, Cm, Dv, h0=h0,
+                                       need_state=state)
+    y_p, h_p = selective_scan_plain(x, dt, A, Bm, Cm, Dv, h0=h0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[key] == before + 1
+    assert y.dtype == dtype and y.shape == (B, L, D)
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+    if state:
+        assert h.dtype == torch.float32 and h.shape == (B, D, N)
+        assert _rel(h, h_p) <= SCAN_TOL[dtype]
+        # a kernel that ignored h0 would fail the checks above
+        y0, _ = selective_scan_plain(x, dt, A, Bm, Cm, Dv)
+        assert _rel(y0, y_p) > 5 * SCAN_TOL[dtype]
+    else:
+        assert h is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("B,L,D,N", SCAN_SMALL + [(57600, 7, 128, 4)])
+def test_scan_bidir_kernel_matches_plain(cuda, dtype, shared, B, L, D, N):
+    """Row 6: separate streams, and u / B / C shared by both (the pointers
+    alias), as selective_scan_bidir_shared passes them."""
+    f = _scan_inputs(cuda, dtype, B, L, D, N, seed=L)
+    b = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + 1)
+    if shared:
+        b = (f[0], b[1], b[2], f[3], f[4], b[5])
+    before = kernels.launch_counts["selective_scan_bidir"]
+    got = selective_scan_bidir(*f, *b)
+    ref = selective_scan_bidir_plain(*f, *b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_bidir"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        assert _rel(g, r) <= SCAN_TOL[dtype]
+    if shared:
+        y = selective_scan_bidir_shared(f[0], f[1], b[1], f[2], b[2], f[3],
+                                        f[4], f[5], b[5])
+        assert _rel(y, ref[0] + ref[1]) <= SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("state", [True, False])
+@pytest.mark.parametrize("B,L,D,N", [(2, 100, 16, 4), (3, 257, 130, 16),
+                                     (1, 33, 8, 1), (2, 4099, 64, 16),
+                                     (7, 57600, 128, 16)])
+def test_scan_long_kernel_matches_plain(cuda, dtype, state, B, L, D, N):
+    """Row 9: chunked over L (ragged last chunk), h0 in, h_last out."""
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, dtype, B, L, D, N, seed=L)
+    h0 = torch.randn((B, D, N), device=cuda) if state else None
+    before = kernels.launch_counts["selective_scan_long"]
+    y, h = selective_scan_pallas(x, dt, A, Bm, Cm, Dv, h0=h0)
+    y_p, h_p = selective_scan_assoc(x, dt, A, Bm, Cm, Dv, h0=h0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_long"] == before + 1
+    assert y.dtype == dtype and h.shape == (B, D, N)
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+    assert _rel(h, h_p) <= SCAN_TOL[dtype]
+
+
+def test_scan_kernels_reject_what_they_do_not_take(cuda):
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, torch.float32, 4, 5, 8, 4, 0)
+    with pytest.raises(TypeError, match="share one dtype"):
+        selective_scan_pallas_short(x, dt.half(), A, Bm, Cm, Dv)
+    x17, dt17, A17, B17, C17, D17 = _scan_inputs(cuda, torch.float32, 4, 5,
+                                                 8, 17, 0)
+    with pytest.raises(ValueError, match="N <= 16"):
+        selective_scan_pallas(x17, dt17, A17, B17, C17, D17)
+    with pytest.raises(ValueError, match="h0 must be"):
+        selective_scan_pallas_short(x, dt, A, Bm, Cm, Dv,
+                                    h0=torch.zeros((4, 8, 4)))
+    with pytest.raises(ValueError, match="dense last dim"):
+        selective_scan_bidir(x, dt, A, Bm, Cm, Dv, x.transpose(1, 2)
+                             .contiguous().transpose(1, 2), dt, A, Bm, Cm, Dv)
+
+
+def test_selective_scan_dispatch_on_the_card(cuda):
+    """JAX's rule: the short kernel for L <= 32 and B >= 1024 (stateless
+    with need_state=False), the plain scan for B < 1024, the long kernel
+    for L > 32."""
+    kernels.reset_launch_counts()
+    selective_scan(*_scan_inputs(cuda, torch.bfloat16, 1024, 32, 8, 4, 1))
+    selective_scan(*_scan_inputs(cuda, torch.bfloat16, 1024, 8, 8, 4, 1),
+                   need_state=False)
+    selective_scan(*_scan_inputs(cuda, torch.bfloat16, 1023, 8, 8, 4, 1))
+    selective_scan(*_scan_inputs(cuda, torch.bfloat16, 2, 33, 8, 4, 1))
+    c = kernels.launch_counts
+    assert (c["selective_scan_short"], c["selective_scan_short_nostate"],
+            c["selective_scan_long"], c["selective_scan_bidir"]) == (1, 1, 1, 0)
+
+
+def test_mamba1_layers_route_through_the_scan_kernels(cuda):
+    """bimamba per pixel: one bidirectional launch; over long rasters: two
+    long-scan launches; ssm_apply per pixel: one stateless launch; bissm
+    composed: one bidirectional launch; each against its plain form."""
+    gen = torch.Generator().manual_seed(0)
+    pb = _to(bimamba_init(gen, 32), cuda, torch.bfloat16)
+    pq = _to(bissm_init(gen, 32), cuda, torch.bfloat16)
+    pix = torch.randn((1500, 7, 32), device=cuda).bfloat16()
+    ras = torch.randn((2, 300, 32), device=cuda).bfloat16()
+    cases = [(lambda: bimamba_apply(pb, pix),
+              lambda: bimamba_apply(pb, pix, impl="ref"),
+              "selective_scan_bidir", 1),
+             (lambda: bimamba_apply(pb, ras),
+              lambda: bimamba_apply(pb, ras, impl="assoc"),
+              "selective_scan_long", 2),
+             (lambda: ssm_apply(pb["fwd"], pix),
+              lambda: ssm_apply(pb["fwd"], pix, impl="ref"),
+              "selective_scan_short_nostate", 1),
+             (lambda: bissm_apply(pq, pix, impl="composed"),
+              lambda: bissm_apply(pq, pix, impl="plain"),
+              "selective_scan_bidir", 1)]
+    for run, plain, key, n in cases:
+        kernels.reset_launch_counts()
+        y = run()
+        assert kernels.launch_counts[key] == n
+        assert sum(kernels.launch_counts.values()) == n
+        assert _rel(y, plain()) <= 3e-2
+
+
+def test_exact_sharded_fmv_on_one_nccl_rank(cuda):
+    """make_exact_sharded_fmv on a one-rank NCCL group: four short-scan
+    launches a layer (two directions, two passes each) and no fused SSM,
+    within bf16 rounding of the single-device model (fused kernel)."""
+    from video_enhancer_tpu_torch.parallel.inference import \
+        make_exact_sharded_fmv
+    from video_enhancer_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator().manual_seed(0)
+    p = fast_mamba_vsr.init(gen, dim=16, num_layers=2)
+    p["head"]["w"] = torch.randn(p["head"]["w"].shape, generator=gen) * 0.05
+    p["temporal"]["w"] = torch.randn(p["temporal"]["w"].shape,
+                                     generator=gen) * 0.05
+    p16 = _to(p, cuda, torch.bfloat16)
+    clip = torch.rand((1, 8, 32, 40, 3), device=cuda).bfloat16()
+    axis = make_mesh(time=1)
+    try:
+        fn = make_exact_sharded_fmv(axis)
+        kernels.reset_launch_counts()
+        y = fn(p16, clip)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["selective_scan_short"] == 8
+        assert sum(kernels.launch_counts.values()) == 8
+    finally:
+        axis.destroy()
+    y1 = fast_mamba_vsr.apply(p16, clip)
+    torch.cuda.synchronize()
+    assert y.shape == y1.shape == (1, 8, 128, 160, 3)
+    assert (y.float() - y1.float()).abs().max().item() <= 3e-2

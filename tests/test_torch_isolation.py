@@ -78,7 +78,8 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.experts", "runtime.qualification",
                  "runtime.registry", "runtime.upscaler_handler",
                  "models.rvrt", "models.fast_mamba_vsr", "runtime.fallback",
-                 "runtime.weights"):
+                 "runtime.weights", "parallel.mesh", "parallel.temporal",
+                 "parallel.inference"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

@@ -1,0 +1,446 @@
+// The Mamba-1 selective scans (diagonal state, per-channel decay) for Hopper
+// (sm_90a):
+//
+//   h_t = exp(dt_t * A[d]) o h_{t-1} + dt_t * x_t * B_t      (N states per channel)
+//   y_t = C_t . h_t + D[d] * x_t
+//
+// Replaces four TPU kernels of video_enhancer_tpu/ops/scan.py:
+//   row 6  _selective_scan_bidir_impl -> _scan_bidir_kernel (pallas_call :460):
+//          a forward and a backward stateless scan in one loop;
+//   row 7  _selective_scan_pallas_short_impl -> _scan_short_kernel (:241):
+//          h0 in, h_last out;
+//   row 8  _selective_scan_pallas_short_nostate_impl -> _scan_short_kernel_nostate
+//          (:362): zero state in, none out;
+//   row 9  _selective_scan_pallas_impl -> _scan_kernel (:556): long sequences,
+//          h0 in, h_last out.
+//
+// What bounds them on an H100. Rows 6-8 serve the video models' temporal
+// axis: B = B*H*W per-pixel sequences (57600 at 180x320), L a handful of
+// frames, D 96-128, N 4-16. Each step of a channel costs N exps and ~4N
+// FMAs; in bf16 a step reads x and dt and writes y (6 bytes) plus B and C
+// shared by the channels of a sequence. At fast_mamba_vsr's shape with a
+// state (row 7: L 16, D 96, N 8) the streams are 0.56 GB and h0/h_last 0.35
+// GB: 0.27 ms at 3.35 TB/s against 0.10 ms of fp32 operations, so bytes
+// bound it; the exps (0.7 G, on the special-function units) come close.
+// Row 9 at one window's rasters (B 7, L 57600, D 128, N 16) reads 0.34 GB
+// and does 7.5 GFLOP: about even.
+//
+// Design. The TPU kernels held a (BB, N, D) state block in VMEM and walked
+// a sequential grid; here:
+// - rows 6-8: one block a sequence (several for D > 256), one thread a
+//   channel with its N states and its row of A in registers, walking the L
+//   steps. x, dt and y are read and written along d, so a warp's accesses
+//   are contiguous. B_t and C_t are the same for every channel of the
+//   sequence: the block stages them, 32 steps at a time, in shared memory
+//   as fp32, and each thread reads them back as 16-byte broadcasts. h0 and
+//   h_last are read and written in place in their (B, D, N) layout, 16
+//   bytes a load. exp(dt A) is one ex2 on A pre-scaled by log2 e. 57600
+//   blocks at the served shapes fill the card. Row 6 walks the forward
+//   stream up, then the backward stream down, from separate operand
+//   pointers that may alias (selective_scan_bidir_shared passes u, B and C
+//   twice).
+// - row 9: B*D channels (896 at the served shape) are too few for one
+//   thread each over L = 57600, so the scan is chunked (CHUNK steps) in
+//   three launches on one stream, as csrc/ssd_shared.cu does:
+//     1. chunk_state: each (sequence, chunk, channel) scans its chunk from
+//        zero state, writing the chunk's end state and sum of dt;
+//     2. state_pass: one thread per (sequence, channel, state) walks the
+//        chunks in order from h0, turning each chunk's end state into the
+//        state entering it (decay exp(A * sum dt)), and writes h_last;
+//     3. chunk_output: each chunk scans again from its entering state and
+//        writes y.
+//   The price is the inputs read twice and the chunk states (B, K, D, N)
+//   fp32 round-tripping device memory.
+// All arithmetic is fp32 on CUDA cores; storage is fp32, bf16 or fp16, y in
+// x's dtype, states fp32. Nothing is padded: ragged B and L are bounds.
+//
+// Layouts: x, dt, B, C are (B, L, width) with a dense last dim and their
+// own batch and step strides (column slices of a wider projection and step
+// slices of a longer sequence qualify); A (D, N) and Dv (D,) fp32; h0,
+// h_last (B, D, N) fp32 contiguous; y (B, L, D) contiguous. Scratch of row
+// 9: states (B, K, D, N) and sumdt (B, K, D) fp32, K = ceil(L / CHUNK).
+
+#include "common.cuh"
+
+namespace {
+
+using namespace vetk;
+
+constexpr int MAX_N = 16;
+constexpr int MAX_THREADS = 256;  // channels a block, all of one sequence
+constexpr int STAGE = 32;         // steps of B and C staged in shared memory
+constexpr int CHUNK = 128;        // row 9: steps a chunk
+constexpr int PASS_THREADS = 128;
+constexpr int PASS_UNROLL = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One direction's operands.
+struct Operands {
+  const void* x;
+  const void* dt;
+  const float* A;
+  const void* B;
+  const void* C;
+  const float* D;
+  long sbx, slx, sbdt, sldt, sbb, slb, sbc, slc;  // batch and step strides
+};
+
+// `dst` = src[0..N), zero beyond; 16-byte loads when N and src allow.
+__device__ __forceinline__ void load_row(const float* __restrict__ src, int N,
+                                         float* dst) {
+  if ((N & 3) == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < MAX_N / 4; ++q) {
+      const float4 v = 4 * q < N ? reinterpret_cast<const float4*>(src)[q]
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      dst[4 * q] = v.x, dst[4 * q + 1] = v.y, dst[4 * q + 2] = v.z, dst[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < MAX_N; ++n) dst[n] = n < N ? src[n] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_row(const float* src, int N,
+                                          float* __restrict__ dst) {
+  if ((N & 3) == 0 && (reinterpret_cast<size_t>(dst) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < MAX_N / 4; ++q)
+      if (4 * q < N)
+        reinterpret_cast<float4*>(dst)[q] =
+            make_float4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int n = 0; n < MAX_N; ++n)
+      if (n < N) dst[n] = src[n];
+  }
+}
+
+// A's row d times log2 e, so that exp(dt A) = exp2(dt a2) (one ex2 a state).
+__device__ __forceinline__ void load_a(const float* __restrict__ A, int d, int N,
+                                       float* a2) {
+#pragma unroll
+  for (int n = 0; n < MAX_N; ++n) a2[n] = n < N ? A[(size_t)d * N + n] * LOG2E : 0.0f;
+}
+
+// Walks steps [t_begin, t_end) of sequence b for channel d (back to front
+// when `reverse`), advancing the N states h from and into registers, and
+// writes y unless it is null; returns the sum of dt over the steps. Every
+// thread of the block calls it (B_t and C_t of the block's sequence are
+// staged in shared memory `bc`, 2 * MAX_N floats a step: B, then C); `live`
+// says whether this thread's channel exists.
+template <typename T>
+__device__ __forceinline__ float walk(const Operands& o, long b, int d, bool live,
+                                      int t_begin, int t_end, int L, int D, int N,
+                                      bool reverse, const float* a2, float dd,
+                                      float* h, T* __restrict__ y, float* bc) {
+  const T* __restrict__ x = static_cast<const T*>(o.x) + b * o.sbx + d;
+  const T* __restrict__ dt = static_cast<const T*>(o.dt) + b * o.sbdt + d;
+  const T* __restrict__ Bm = static_cast<const T*>(o.B) + b * o.sbb;
+  const T* __restrict__ Cm = static_cast<const T*>(o.C) + b * o.sbc;
+  float dsum = 0.0f;
+  for (int c0 = 0; c0 < t_end - t_begin; c0 += STAGE) {
+    const int steps = min(STAGE, t_end - t_begin - c0);
+    const int s0 = reverse ? t_end - c0 - steps : t_begin + c0;
+    __syncthreads();  // the previous stage has been read
+    for (int i = threadIdx.x; i < steps * 2 * MAX_N; i += blockDim.x) {
+      const int s = i / (2 * MAX_N), j = i - s * (2 * MAX_N);
+      const int n = j < MAX_N ? j : j - MAX_N;
+      float v = 0.0f;
+      if (n < N) {
+        const long t = s0 + s;
+        v = to_f32(j < MAX_N ? Bm[t * o.slb + n] : Cm[t * o.slc + n]);
+      }
+      bc[i] = v;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int u = 0; u < steps; ++u) {
+      const int s = reverse ? steps - 1 - u : u;
+      const long t = s0 + s;
+      const float xv = to_f32(x[t * o.slx]);
+      const float dtv = to_f32(dt[t * o.sldt]);
+      const float drive = dtv * xv;
+      const float4* bq = reinterpret_cast<const float4*>(bc + s * 2 * MAX_N);
+      float yv = dd * xv;
+#pragma unroll
+      for (int q = 0; q < MAX_N / 4; ++q) {
+        if (4 * q < N) {
+          const float4 b4 = bq[q], c4 = bq[MAX_N / 4 + q];
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int n = 4 * q + k;
+            h[n] = exp2f(dtv * a2[n]) * h[n] + drive * bv[k];
+            yv += h[n] * cv[k];
+          }
+        }
+      }
+      if (y) y[((size_t)b * L + t) * D + d] = from_f32<T>(yv);
+      dsum += dtv;
+    }
+  }
+  return dsum;
+}
+
+// Rows 7 (kState) and 8. Grid (B, ceil(D / blockDim)).
+template <typename T, bool kState>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_short_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
+                  float* __restrict__ hlast, int L, int D, int N) {
+  __shared__ __align__(16) float bc[STAGE * 2 * MAX_N];
+  const long b = blockIdx.x;
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = d < D;
+  float a2[MAX_N], h[MAX_N];
+#pragma unroll
+  for (int n = 0; n < MAX_N; ++n) h[n] = 0.0f;
+  float dd = 0.0f;
+  if (live) {
+    load_a(o.A, d, N, a2);
+    if (kState) load_row(h0 + ((size_t)b * D + d) * N, N, h);
+    dd = o.D[d];
+  }
+  walk<T>(o, b, d, live, 0, L, L, D, N, false, a2, dd, h, y, bc);
+  if (kState && live) store_row(h, N, hlast + ((size_t)b * D + d) * N);
+}
+
+// One stateless direction of row 6, from zero state.
+template <typename T>
+__device__ __forceinline__ void scan_stream(const Operands& o, long b, int d, bool live,
+                                            int L, int D, int N, bool reverse,
+                                            T* __restrict__ y, float* bc) {
+  float a2[MAX_N], h[MAX_N];
+#pragma unroll
+  for (int n = 0; n < MAX_N; ++n) h[n] = 0.0f;
+  float dd = 0.0f;
+  if (live) {
+    load_a(o.A, d, N, a2);
+    dd = o.D[d];
+  }
+  walk<T>(o, b, d, live, 0, L, L, D, N, reverse, a2, dd, h, y, bc);
+}
+
+// Row 6: the forward stream walks l up, then the backward stream walks l
+// down (one direction's states live at a time). Grid (B, ceil(D / blockDim)).
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_bidir_kernel(Operands fo, Operands bo, T* __restrict__ yf,
+                  T* __restrict__ yb, int L, int D, int N) {
+  __shared__ __align__(16) float bc[STAGE * 2 * MAX_N];
+  const long b = blockIdx.x;
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = d < D;
+  scan_stream<T>(fo, b, d, live, L, D, N, false, yf, bc);
+  scan_stream<T>(bo, b, d, live, L, D, N, true, yb, bc);
+}
+
+// Row 9, phase 1 (kOutput false): chunk end states from zero state and the
+// chunk's sum of dt. Phase 3 (kOutput true): y from the entering states.
+// Grid (B, K, ceil(D / blockDim)).
+template <typename T, bool kOutput>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_chunk_kernel(Operands o, float* __restrict__ states, float* __restrict__ sumdt,
+                  T* __restrict__ y, int L, int D, int N, int K) {
+  __shared__ __align__(16) float bc[STAGE * 2 * MAX_N];
+  const long b = blockIdx.x;
+  const int k = blockIdx.y;
+  const int d = blockIdx.z * blockDim.x + threadIdx.x;
+  const bool live = d < D;
+  float a2[MAX_N], h[MAX_N];
+#pragma unroll
+  for (int n = 0; n < MAX_N; ++n) h[n] = 0.0f;
+  float dd = 0.0f;
+  float* st = states + (((size_t)b * K + k) * D + d) * N;
+  if (live) {
+    load_a(o.A, d, N, a2);
+    if (kOutput) load_row(st, N, h);
+    dd = o.D[d];
+  }
+  const int t0 = k * CHUNK, t1 = min(t0 + CHUNK, L);
+  const float dsum = walk<T>(o, b, d, live, t0, t1, L, D, N, false, a2, dd, h,
+                             kOutput ? y : nullptr, bc);
+  if (!kOutput && live) {
+    store_row(h, N, st);
+    sumdt[((size_t)b * K + k) * D + d] = dsum;
+  }
+}
+
+// Row 9, phase 2: states[b, k, d, n] := the state entering chunk k; h_last.
+// One thread per (b, d, n).
+__global__ void __launch_bounds__(PASS_THREADS)
+scan_state_pass_kernel(float* __restrict__ states, const float* __restrict__ sumdt,
+                       const float* __restrict__ A, const float* __restrict__ h0,
+                       float* __restrict__ hlast, int Bsz, int D, int N, int K) {
+  const long e = (long)blockIdx.x * PASS_THREADS + threadIdx.x;
+  const long DN = (long)D * N;
+  if (e >= (long)Bsz * DN) return;
+  const int b = (int)(e / DN);
+  const int dn = (int)(e - (long)b * DN);
+  const int d = dn / N;
+  const float a = A[dn];
+  float run = h0 ? h0[e] : 0.0f;
+  float* s = states + (size_t)b * K * DN + dn;
+  const float* sd = sumdt + (size_t)b * K * D + d;
+  for (int k0 = 0; k0 < K; k0 += PASS_UNROLL) {
+    float v[PASS_UNROLL], g[PASS_UNROLL];
+#pragma unroll
+    for (int u = 0; u < PASS_UNROLL; ++u) {
+      const int k = k0 + u;
+      if (k < K) {
+        v[u] = s[(size_t)k * DN];
+        g[u] = sd[(size_t)k * D];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PASS_UNROLL; ++u) {
+      const int k = k0 + u;
+      if (k < K) {
+        s[(size_t)k * DN] = run;
+        run = expf(a * g[u]) * run + v[u];
+      }
+    }
+  }
+  hlast[e] = run;
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+template <typename F>
+int by_dtype(int dtype, F&& f) {
+  switch (dtype) {
+    case kFloat32:
+      return f(Tag<float>{});
+    case kBFloat16:
+      return f(Tag<__nv_bfloat16>{});
+    case kFloat16:
+      return f(Tag<__half>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+inline int blocks_for(long threads, int per_block) {
+  return (int)((threads + per_block - 1) / per_block);
+}
+
+// Threads a block: the channels of one sequence, in whole warps, at most
+// MAX_THREADS (wider D takes several blocks a sequence).
+inline int threads_for(int D) {
+  const int warps = (D + 31) / 32 * 32;
+  return warps < MAX_THREADS ? warps : MAX_THREADS;
+}
+
+inline bool bad_shape(int B, int L, int D, int N) {
+  return B < 1 || L < 1 || D < 1 || N < 1 || N > MAX_N;
+}
+
+// strides: the batch and step strides of x, dt, B and C, in that order.
+inline Operands operands(const void* x, const void* dt, const void* A,
+                         const void* Bm, const void* Cm, const void* Dv,
+                         const long* strides) {
+  return Operands{x,          dt,         static_cast<const float*>(A),
+                  Bm,         Cm,         static_cast<const float*>(Dv),
+                  strides[0], strides[1], strides[2],
+                  strides[3], strides[4], strides[5],
+                  strides[6], strides[7]};
+}
+
+}  // namespace
+
+extern "C" {
+
+// Chunk length of the long scan (row 9); the wrapper sizes its scratch.
+int vetk_selective_scan_chunk() { return CHUNK; }
+
+// Rows 7 and 8. h0 and hlast both given: row 7; both null: row 8.
+// strides (8 values, host memory): the batch and step strides, in elements,
+// of x, dt, B and C. Returns a cudaError_t (0 on success). Requires N <= 16.
+int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
+                              const void* A, const void* Bm, const void* Cm,
+                              const void* Dv, const void* h0, void* y, void* hlast,
+                              int B, int L, int D, int N, const long* strides,
+                              void* stream) {
+  if (bad_shape(B, L, D, N) || (h0 == nullptr) != (hlast == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Operands o = operands(x, dt, A, Bm, Cm, Dv, strides);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int threads = threads_for(D);
+  const dim3 grid(B, blocks_for(D, threads));
+  auto h0f = static_cast<const float*>(h0);
+  auto hlf = static_cast<float*>(hlast);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if (h0)
+      scan_short_kernel<T, true><<<grid, threads, 0, st>>>(
+          o, h0f, static_cast<T*>(y), hlf, L, D, N);
+    else
+      scan_short_kernel<T, false><<<grid, threads, 0, st>>>(
+          o, h0f, static_cast<T*>(y), hlf, L, D, N);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Row 6, with the strides of each stream as in the short scan. Returns a
+// cudaError_t (0 on success). Requires N <= 16.
+int vetk_selective_scan_bidir(int dtype, const void* xf, const void* dtf,
+                              const void* Af, const void* Bf, const void* Cf,
+                              const void* Df, const void* xb, const void* dtb,
+                              const void* Ab, const void* Bb, const void* Cb,
+                              const void* Db, void* yf, void* yb, int B, int L,
+                              int D, int N, const long* strides_f,
+                              const long* strides_b, void* stream) {
+  if (bad_shape(B, L, D, N)) return (int)cudaErrorInvalidValue;
+  const Operands fo = operands(xf, dtf, Af, Bf, Cf, Df, strides_f);
+  const Operands bo = operands(xb, dtb, Ab, Bb, Cb, Db, strides_b);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int threads = threads_for(D);
+  const dim3 grid(B, blocks_for(D, threads));
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    scan_bidir_kernel<T><<<grid, threads, 0, st>>>(
+        fo, bo, static_cast<T*>(yf), static_cast<T*>(yb), L, D, N);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Row 9. h0 may be null (zero state). states (B, K, D, N) and sumdt
+// (B, K, D) are fp32 scratch, K = ceil(L / CHUNK). Returns a cudaError_t
+// (0 on success). Requires N <= 16 and K <= 65535.
+int vetk_selective_scan_long(int dtype, const void* x, const void* dt,
+                             const void* A, const void* Bm, const void* Cm,
+                             const void* Dv, const void* h0, void* y, void* hlast,
+                             void* states, void* sumdt, int B, int L, int D, int N,
+                             const long* strides, void* stream) {
+  const int K = (L + CHUNK - 1) / CHUNK;
+  if (bad_shape(B, L, D, N) || K > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Operands o = operands(x, dt, A, Bm, Cm, Dv, strides);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto sf = static_cast<float*>(states);
+  auto sd = static_cast<float*>(sumdt);
+  const int threads = threads_for(D);
+  const dim3 grid(B, K, blocks_for(D, threads));
+  const int pass_blocks = blocks_for((long)B * D * N, PASS_THREADS);
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    cudaError_t err;
+    scan_chunk_kernel<T, false><<<grid, threads, 0, st>>>(o, sf, sd, nullptr, L,
+                                                           D, N, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    scan_state_pass_kernel<<<pass_blocks, PASS_THREADS, 0, st>>>(
+        sf, sd, o.A, static_cast<const float*>(h0), static_cast<float*>(hlast), B,
+        D, N, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    scan_chunk_kernel<T, true><<<grid, threads, 0, st>>>(o, sf, sd,
+                                                          static_cast<T*>(y), L, D,
+                                                          N, K);
+    return (int)cudaGetLastError();
+  });
+}
+
+}  // extern "C"

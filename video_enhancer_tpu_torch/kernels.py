@@ -29,7 +29,7 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "launch_counts",
            "reset_launch_counts", "build", "library", "dtype_code", "check",
-           "stream_of", "row_stride"]
+           "stream_of", "row_stride", "seq_strides"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -41,7 +41,11 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0,
-                                 "flash_attention": 0, "window_attention": 0}
+                                 "flash_attention": 0, "window_attention": 0,
+                                 "selective_scan_bidir": 0,
+                                 "selective_scan_short": 0,
+                                 "selective_scan_short_nostate": 0,
+                                 "selective_scan_long": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -63,6 +67,15 @@ _SIGNATURES = {
     # strides of q, k, v and o, windows a block, vec, stream
     "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12
     + [_I, _I, _P],
+    # dtype, x, dt, A, B, C, D, h0, y, h_last, B, L, D, N, strides, stream
+    "vetk_selective_scan_short": [_I] + [_P] * 9 + [_I] * 4 + [_P, _P],
+    # dtype, (x, dt, A, B, C, D) forward and backward, yf, yb, B, L, D, N,
+    # strides forward and backward, stream
+    "vetk_selective_scan_bidir": [_I] + [_P] * 14 + [_I] * 4 + [_P] * 3,
+    # dtype, x, dt, A, B, C, D, h0, y, h_last, states, sumdt, B, L, D, N,
+    # strides, stream
+    "vetk_selective_scan_long": [_I] + [_P] * 11 + [_I] * 4 + [_P, _P],
+    "vetk_selective_scan_chunk": [],
 }
 
 
@@ -188,3 +201,17 @@ def row_stride(t: torch.Tensor, name: str) -> int:
         raise ValueError(f"{name}: rows must be evenly strided with a dense "
                          f"last dim, got strides {t.stride()}")
     return ld
+
+
+def seq_strides(*named: tuple[torch.Tensor, str]) -> ctypes.Array:
+    """The batch and step strides, in elements, of (b, L, C) operands whose
+    last dim is dense, packed for a kernel's ``const long*`` argument;
+    raises for an operand whose last dim is strided."""
+    vals = []
+    for t, name in named:
+        if t.ndim != 3 or (t.stride(2) != 1 and t.shape[2] > 1):
+            raise ValueError(f"{name}: expected (b, L, C) with a dense last "
+                             f"dim, got shape {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+        vals += [t.stride(0), t.stride(1)]
+    return (ctypes.c_long * len(vals))(*vals)

@@ -2,7 +2,7 @@
 along time at every pixel.
 
 Counterpart of video_enhancer_tpu/models/fast_mamba_vsr.py with its default
-``temporal_mixer="ssm"`` and no ``time_axis``: separable-conv3d embeds ->
+``temporal_mixer="ssm"``: separable-conv3d embeds ->
 multi-scale fusion (2x2 average pools, separable convs, linear upsampling,
 1x1 fuse) -> ``num_layers`` layers of (LayerNorm, the shared-stream
 bidirectional SSM over each pixel's (T, C) sequence, depthwise and
@@ -17,6 +17,12 @@ CUDA kernel csrc/fused_bissm.cu for a CUDA tensor (the TPU's
 ``_fused_bissm_kernel``), here at (B*H*W, T, inner 96, N 8, K 5, rank 3).
 ``kernels=False`` runs its plain version. The ``ssd`` mixer
 (``fast_mamba_vsr_ssd``) is not ported.
+
+With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
+the model runs exactly over the whole clip: the temporal SSM is
+``bissm_apply_sharded`` (the distributed scans, four short-scan kernels a
+layer on the card) and the final temporal conv exchanges 1-frame halos,
+zeroed at the global edges.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..nn.ssm import bissm_apply, bissm_init
+from ..nn.ssm import bissm_apply, bissm_apply_sharded, bissm_init
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
+from ..parallel.temporal import halo_exchange_time
 
 __all__ = ["init", "apply"]
 
@@ -66,12 +73,16 @@ def init(gen: torch.Generator, dim: int = 48, num_layers: int = 8,
     }
 
 
-def _temporal_bimamba(p, x, kernels):
+def _temporal_bimamba(p, x, kernels, time_axis=None):
     """The bidirectional SSM along T at every pixel: (B, T, H, W, C) ->
     sequences (B*H*W, T, C) -> back."""
     b, t, h, w, c = x.shape
     seq = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-    y = bissm_apply(p, seq, use_kernel=kernels)
+    if time_axis is not None:
+        y = bissm_apply_sharded(p, seq, time_axis,
+                                impl=None if kernels else "ref")
+    else:
+        y = bissm_apply(p, seq, impl="fused" if kernels else "plain")
     return y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
@@ -96,11 +107,13 @@ def _multi_scale(params, feats):
 
 
 def apply(params: dict, clip: torch.Tensor, scale: int = 4,
-          kernels: bool = True) -> torch.Tensor:
+          kernels: bool = True, time_axis=None) -> torch.Tensor:
     """``(B, T, H, W, 3)`` in [0, 1] -> ``(B, T, scale*H, scale*W, 3)``.
 
-    ``kernels=True`` runs the fused SSM kernel for a CUDA tensor; ``False``
-    the plain version."""
+    ``kernels=True`` runs the fused SSM kernel for a CUDA tensor (with
+    ``time_axis``, the scan kernels by ``selective_scan``'s rule); ``False``
+    the plain versions. ``time_axis``: the clip is this rank's T shard (see
+    the module docstring)."""
     x = clip
     feats = _sepconv3d_apply(params["embed2"],
                              F.silu(_sepconv3d_apply(params["embed1"], x)))
@@ -109,7 +122,8 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4,
     skip = feats
     for i, layer in enumerate(params["layers"]):
         h = nn.layer_norm_apply(layer["norm"], feats)
-        feats = feats + _temporal_bimamba(layer["bimamba"], h, kernels)
+        feats = feats + _temporal_bimamba(layer["bimamba"], h, kernels,
+                                          time_axis)
         s = nn.conv3d_apply(layer["spatial_dw"], feats, groups=feats.shape[-1])
         feats = feats + nn.conv3d_apply(layer["spatial_pw"], F.silu(s))
         if i % 2 == 1:
@@ -120,5 +134,19 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4,
     res = pixel_shuffle(nn.conv3d_apply(params["head"], feats), scale)
     base = resize(x, (x.shape[2] * scale, x.shape[3] * scale), antialias=False)
     out = base + res
-    out = out + 0.1 * nn.conv3d_apply(params["temporal"], out)
+    out = out + 0.1 * _temporal_conv(params["temporal"], out, time_axis)
     return torch.clamp(out, 0.0, 1.0)
+
+
+def _temporal_conv(p, out, time_axis):
+    """The (3, 1, 1) temporal conv; over a T shard, with 1-frame halos from
+    the neighbours, zeroed at the global edges (the unsharded zero
+    padding)."""
+    if time_axis is None:
+        return nn.conv3d_apply(p, out)
+    oh = halo_exchange_time(out, 1, time_axis)
+    if time_axis.index == 0:
+        oh[:, :1] = 0
+    if time_axis.index == time_axis.size - 1:
+        oh[:, -1:] = 0
+    return nn.conv3d_apply(p, oh)[:, 1:-1]

@@ -1,11 +1,16 @@
 """VSRM: Mamba-based video super-resolution (the x4 model of the main path).
 
-Counterpart of video_enhancer_tpu/models/vsrm.py with ``mixer="ssd"`` and no
-``time_axis``: conv3d embed -> blocks of (bidirectional SSD over each
+Counterpart of video_enhancer_tpu/models/vsrm.py with ``mixer="ssd"``: conv3d embed -> blocks of (bidirectional SSD over each
 frame's H*W raster, per-site temporal attention + bidirectional temporal
 SSM, MLP) -> flow-based alignment -> recon -> per-frame pixel shuffle, added
 to the bicubic upscale. The head and the offset conv start at zero, so an
 untrained model returns exact bicubic. Layout ``(B, T, H, W, C)``.
+
+With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
+the model runs exactly over the whole clip: the temporal attention's keys
+and values are gathered over the axis, and the temporal SSM runs the
+distributed scans (``bissm_apply_sharded``); every conv has a T-kernel of
+1, so nothing else couples the frames.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..nn.ssm import bissd_apply, bissd_init, bissm_apply, bissm_init
+from ..nn.ssm import (bissd_apply, bissd_init, bissm_apply,
+                      bissm_apply_sharded, bissm_init)
 from ..ops.attention import site_attention
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
@@ -58,12 +64,20 @@ def _spatial_ssm(p, x, kernels):
     return y.reshape(b, t, h, w, c)
 
 
-def _temporal_mix(blk, x, heads, kernels):
+def _temporal_mix(blk, x, heads, kernels, time_axis=None):
     b, t, h, w, c = x.shape
     seq = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
     q, k, v = nn.dense_apply(blk["qkv"], seq).chunk(3, dim=-1)
+    if time_axis is not None:
+        k = time_axis.all_gather(k, dim=1, tiled=True)
+        v = time_axis.all_gather(v, dim=1, tiled=True)
     seq = seq + nn.dense_apply(blk["attn_out"], site_attention(q, k, v, heads))
-    seq = seq + bissm_apply(blk["temporal_ssm"], seq, use_kernel=kernels)
+    if time_axis is not None:
+        seq = seq + bissm_apply_sharded(blk["temporal_ssm"], seq, time_axis,
+                                        impl=None if kernels else "ref")
+    else:
+        seq = seq + bissm_apply(blk["temporal_ssm"], seq,
+                                impl="fused" if kernels else "plain")
     return seq.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
@@ -79,20 +93,22 @@ def _deformable_align(params, feats):
 
 
 def apply(params: dict, clip: torch.Tensor, scale: int = 4, heads: int = 4,
-          kernels: bool = True) -> torch.Tensor:
+          kernels: bool = True, time_axis=None) -> torch.Tensor:
     """``(B, T, H, W, 3)`` in [0, 1] -> ``(B, T, scale*H, scale*W, 3)``.
 
     ``kernels=True`` keeps the JAX package's dispatch (the SSD kernel for
-    half-precision input, the fused SSM kernel always); ``False`` runs the
-    plain PyTorch versions of both, the reference the kernels are held
-    against."""
+    half-precision input, the fused SSM kernel always, or with
+    ``time_axis`` the scan kernels by ``selective_scan``'s rule); ``False``
+    runs the plain PyTorch versions, the reference the kernels are held
+    against. ``time_axis``: the clip is this rank's T shard (see the module
+    docstring)."""
     x = clip
     feats = nn.conv3d_apply(params["embed"], x)
     for blk in params["blocks"]:
         h = nn.layer_norm_apply(blk["spatial_norm"], feats)
         feats = feats + _spatial_ssm(blk["spatial_ssm"], h, kernels)
         h = nn.layer_norm_apply(blk["temporal_norm"], feats)
-        feats = feats + _temporal_mix(blk, h, heads, kernels)
+        feats = feats + _temporal_mix(blk, h, heads, kernels, time_axis)
         h = nn.layer_norm_apply(blk["mlp_norm"], feats)
         feats = feats + nn.mlp_apply(blk["mlp"], h)
 

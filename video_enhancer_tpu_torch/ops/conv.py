@@ -4,7 +4,8 @@ Counterpart of the plain parts of video_enhancer_tpu/ops/conv.py. Layouts
 at the public functions stay those of the JAX package: frames ``(B, H, W,
 C)``, clips ``(B, T, H, W, C)``, sequences ``(B, L, C)``. Weights are in
 PyTorch's layout (runtime/weights.py converts the bundled checkpoints).
-Padding is XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``.
+Padding is XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``
+(``depthwise_conv1d`` also takes explicit padding).
 """
 
 from __future__ import annotations
@@ -71,12 +72,15 @@ def _temporal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor | None = None) -> torch.Tensor:
-    """SAME depthwise conv over a sequence: ``x (B, L, C)``, ``w (C, 1, k)``.
+                     b: torch.Tensor | None = None,
+                     padding="SAME") -> torch.Tensor:
+    """Depthwise conv over a sequence: ``x (B, L, C)``, ``w (C, 1, k)``.
+    ``padding`` is ``"SAME"`` or the JAX package's explicit ``((lo, hi),)``
+    (ssm's causal ``((k - 1, 0),)`` and anti-causal ``((0, k - 1),)``).
     Computed in fp32 and cast back to ``x``'s dtype, as the JAX package's
     conv accumulates in fp32 (ops/conv.py:126-149)."""
     C, k = w.shape[0], w.shape[2]
-    lo, hi = _same(k)
+    (lo, hi), = [_same(k)] if padding == "SAME" else padding
     xi = F.pad(x.float().transpose(1, 2), (lo, hi))
     out = F.conv1d(xi, w.float(), None if b is None else b.float(), groups=C)
     return out.transpose(1, 2).to(x.dtype,

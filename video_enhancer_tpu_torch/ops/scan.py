@@ -1,20 +1,40 @@
-"""The fused bidirectional shared-stream SSM (the whole bissm interior).
+"""Selective scans (Mamba-1, per-channel decay) and the fused bidirectional
+shared-stream SSM.
 
-Counterpart of video_enhancer_tpu/ops/scan.py ``fused_bidir_ssm``:
+Counterpart of video_enhancer_tpu/ops/scan.py. The recurrence, per sequence
+b, channel d and state n:
+
+    h_t = exp(dt_t * A[d, n]) * h_{t-1} + dt_t * B_t[n] * x_t
+    y_t = sum_n C_t[n] * h_t[n] + D[d] * x_t
+
+Shapes: x, dt ``(B, L, D)``; A ``(D, N)``; Bmat, C ``(B, L, N)``; D
+``(D,)``; states h0, h_last ``(B, D, N)`` fp32; y in x's dtype. Names,
+argument order and ``impl`` strings are the JAX package's:
+
+- ``selective_scan_plain`` / ``selective_scan_ref``: the sequential scan in
+  fp32 (JAX's ``lax.scan`` ground truth), also the plain version of the
+  short-sequence kernels;
+- ``selective_scan_assoc``: the log-depth Hillis-Steele scan in torch ops,
+  the plain version of the long-sequence kernel (JAX's choice off the TPU
+  for L > 32);
+- ``selective_scan_pallas_short`` (TPU kernels ``_scan_short_kernel`` and
+  ``_scan_short_kernel_nostate``), ``selective_scan_pallas`` (``_scan_kernel``)
+  and ``selective_scan_bidir`` (``_scan_bidir_kernel``): for a CUDA tensor
+  each launches the port's CUDA kernel (csrc/selective_scan.cu); for a CPU
+  tensor each takes its plain version;
+- ``selective_scan``: the JAX dispatch rule (ops/scan.py:615-624) with "on
+  the TPU" read as "a CUDA tensor";
+- ``chunked_selective_scan`` and ``selective_scan_bidir_shared``.
+
+``fused_bidir_ssm`` is the whole bissm interior (csrc/fused_bissm.cu):
 depthwise conv (SAME, bias), SiLU, x_proj (D -> dt_rank + 2N), dt_proj with
 bias, softplus with a dt bias per direction, a forward and a reverse
 selective scan over the shared u/B/C streams with their own A and D skip,
-their sum, times SiLU(gate).
-
-``fused_bidir_ssm_plain`` is the composed form in fp32 (the counterpart of
-``_fused_bissm_ref``, whose scans are ``_bidir_shared_ref``).
-``fused_bidir_ssm_kernel`` is the wrapper of the hand-written CUDA kernel
-(csrc/fused_bissm.cu): it launches the kernel for a CUDA tensor and takes
-the plain version only for a tensor on the CPU.
-
-Shapes: u_pre, gate ``(B, L, D)``; cw ``(D, 1, K)``; cb, bdt, dtbf, dtbb,
-Df, Db ``(D,)``; wx ``(dt_rank + 2N, D)``; wdt ``(D, dt_rank)`` (PyTorch's
-Conv1d/Linear layouts); Af, Ab ``(D, N)`` negative.
+their sum, times SiLU(gate). ``fused_bidir_ssm_plain`` is the composed form
+in fp32 (the counterpart of ``_fused_bissm_ref``). Its shapes: u_pre, gate
+``(B, L, D)``; cw ``(D, 1, K)``; cb, bdt, dtbf, dtbb, Df, Db ``(D,)``; wx
+``(dt_rank + 2N, D)``; wdt ``(D, dt_rank)`` (PyTorch's Conv1d/Linear
+layouts); Af, Ab ``(D, N)`` negative.
 """
 
 from __future__ import annotations
@@ -25,23 +45,287 @@ import torch.nn.functional as F
 from .. import kernels
 from .conv import depthwise_conv1d
 
-__all__ = ["selective_scan_plain", "fused_bidir_ssm",
-           "fused_bidir_ssm_plain", "fused_bidir_ssm_kernel"]
+__all__ = ["selective_scan_plain", "selective_scan_ref",
+           "selective_scan_assoc", "selective_scan_pallas_short",
+           "selective_scan_pallas", "selective_scan",
+           "chunked_selective_scan", "selective_scan_bidir",
+           "selective_scan_bidir_plain", "selective_scan_bidir_shared",
+           "scan_flops", "fused_bidir_ssm", "fused_bidir_ssm_plain",
+           "fused_bidir_ssm_kernel"]
+
+_MAX_N = 16                     # the kernels keep N states in registers
 
 
-def selective_scan_plain(x, dt, A, Bm, Cm, D, reverse: bool = False):
-    """Sequential Mamba-1 scan in fp32 over ``L``: h_t = exp(dt_t A) h +
-    dt_t B_t x_t; y_t = C_t . h_t + D x_t. x, dt ``(B, L, D)``; A ``(D,
-    N)``; Bm, Cm ``(B, L, N)``. ``reverse`` walks the steps back to front
-    (the JAX package's flip, scan, flip)."""
+def scan_flops(B: int, L: int, D: int, N: int, streams: int = 1) -> float:
+    """Operations of ``streams`` selective scans, the JAX package's count
+    (ops/scan.py:41-45): ~9 a (b, l, d, n) step plus the D skip."""
+    return streams * (9.0 * B * L * D * N + 2.0 * B * L * D)
+
+
+def selective_scan_plain(x, dt, A, Bmat, C, D, h0=None,
+                         reverse: bool = False):
+    """Sequential scan in fp32 over ``L`` from ``h0`` (zero when None).
+    ``reverse`` walks the steps back to front (the JAX package's flip, scan,
+    flip). Returns ``(y, h_last)``: y in x's dtype, h_last the fp32 state
+    after the last step walked."""
     Bsz, L, Dd = x.shape
-    h = x.new_zeros(Bsz, Dd, A.shape[1])
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, Bmat, C, A))
+    h = (torch.zeros((Bsz, Dd, A.shape[1]), device=x.device)
+         if h0 is None else h0.float())
     ys: list[torch.Tensor | None] = [None] * L
     for t in (range(L - 1, -1, -1) if reverse else range(L)):
-        dtt = dt[:, t, :, None]
-        h = torch.exp(dtt * A) * h + dtt * Bm[:, t, None, :] * x[:, t, :, None]
-        ys[t] = (h * Cm[:, t, None, :]).sum(-1)
-    return torch.stack(ys, dim=1) + x * D
+        dtt = dtf[:, t, :, None]
+        h = torch.exp(dtt * Af) * h + dtt * Bf[:, t, None, :] * xf[:, t, :, None]
+        ys[t] = (h * Cf[:, t, None, :]).sum(-1)
+    y = torch.stack(ys, dim=1) + xf * D.float()
+    return y.to(x.dtype), h
+
+
+# JAX's lax.scan ground truth: the sequential scan, forward.
+selective_scan_ref = selective_scan_plain
+
+
+def selective_scan_assoc(x, dt, A, Bmat, C, D, h0=None):
+    """Log-depth scan over L on (decay, drive) pairs: Hillis-Steele
+    doubling in torch ops, the counterpart of JAX's
+    ``lax.associative_scan``. Materialises the (B, L, D, N) fp32 decay and
+    drive and updates them in place (peak about four such tensors).
+    Returns ``(y, h_last)``."""
+    L = x.shape[1]
+    xf, dtf = x.float(), dt.float()
+    a = torch.exp(dtf[..., None] * A.float())                 # (B,L,D,N)
+    b = dtf[..., None] * Bmat.float()[:, :, None, :] * xf[..., None]
+    shift = 1
+    while shift < L:
+        # (a_l, b_l) then (a_r, b_r) -> (a_r a_l, a_r b_l + b_r)
+        nb = torch.addcmul(b[:, shift:], a[:, shift:], b[:, :-shift])
+        na = a[:, shift:] * a[:, :-shift]
+        b[:, shift:] = nb
+        a[:, shift:] = na
+        del nb, na
+        shift *= 2
+    if h0 is not None:
+        b.addcmul_(a, h0.float()[:, None])
+    del a
+    Bsz, _, Dd, N = b.shape
+    y = torch.bmm(b.reshape(Bsz * L, Dd, N),
+                  C.float().reshape(Bsz * L, N, 1)).reshape(Bsz, L, Dd)
+    y = y + xf * D.float()
+    return y.to(x.dtype), b[:, -1].clone()
+
+
+def _check_stream(x, dt, A, Bmat, C, D):
+    """Checks one direction's operands for the kernels; returns the batch
+    and step strides of x, dt, B and C for the C interface."""
+    Bsz, L, Dd = x.shape
+    N = A.shape[1] if A.ndim == 2 else -1
+    if dt.shape != x.shape or A.shape != (Dd, N) or D.shape != (Dd,):
+        raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, D "
+                         f"{tuple(D.shape)} do not match x {tuple(x.shape)}")
+    if Bmat.shape != (Bsz, L, N) or C.shape != (Bsz, L, N):
+        raise ValueError(f"B {tuple(Bmat.shape)} and C {tuple(C.shape)} must "
+                         f"be ({Bsz}, {L}, {N})")
+    if not (dt.dtype == Bmat.dtype == C.dtype == x.dtype):
+        raise TypeError("x, dt, B and C must share one dtype")
+    if N > _MAX_N:
+        raise ValueError(f"kernel takes N <= {_MAX_N}, got {N}")
+    for t in (dt, A, Bmat, C, D):
+        if t.device != x.device:
+            raise ValueError("all operands must be on one device")
+    return kernels.seq_strides((x, "x"), (dt, "dt"), (Bmat, "B"), (C, "C"))
+
+
+def _state_in(h0, x, N):
+    Bsz, _, Dd = x.shape
+    if h0.shape != (Bsz, Dd, N) or h0.device != x.device:
+        raise ValueError(f"h0 must be ({Bsz}, {Dd}, {N}) on {x.device}, got "
+                         f"{tuple(h0.shape)} on {h0.device}")
+    return h0.float().contiguous()
+
+
+def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
+    strides = _check_stream(x, dt, A, Bmat, C, D)
+    Bsz, L, Dd = x.shape
+    N = A.shape[1]
+    stateful = h0 is not None or need_state
+    if stateful:
+        h0 = (torch.zeros((Bsz, Dd, N), device=x.device) if h0 is None
+              else _state_in(h0, x, N))
+    h_last = (torch.empty((Bsz, Dd, N), device=x.device) if stateful
+              else None)
+    y = torch.empty((Bsz, L, Dd), dtype=x.dtype, device=x.device)
+    A32, D32 = A.float().contiguous(), D.float().contiguous()
+    key = "selective_scan_short" if stateful else "selective_scan_short_nostate"
+    lib = kernels.library()
+    with torch.cuda.device(x.device):
+        err = lib.vetk_selective_scan_short(
+            kernels.dtype_code(x), x.data_ptr(), dt.data_ptr(),
+            A32.data_ptr(), Bmat.data_ptr(), C.data_ptr(), D32.data_ptr(),
+            h0.data_ptr() if stateful else None, y.data_ptr(),
+            h_last.data_ptr() if stateful else None, Bsz, L, Dd, N, strides,
+            kernels.stream_of(x))
+        kernels.launch_counts[key] += 1
+    kernels.check(err, key)
+    return y, h_last
+
+
+def selective_scan_pallas_short(x, dt, A, Bmat, C, D, h0=None,
+                                need_state: bool = True):
+    """Batched short-sequence scan (TPU kernels ``_scan_short_kernel`` and,
+    with ``h0=None`` and ``need_state=False``, ``_scan_short_kernel_nostate``).
+    Returns ``(y, h_last)``, h_last None for the stateless form. Launches
+    the CUDA kernel for a CUDA tensor; the sequential plain version for a
+    CPU tensor."""
+    if x.device.type == "cuda":
+        return _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state)
+    if x.device.type == "cpu":
+        y, h = selective_scan_plain(x, dt, A, Bmat, C, D, h0)
+        return y, (h if h0 is not None or need_state else None)
+    raise ValueError(f"selective_scan_pallas_short: no kernel for {x.device}")
+
+
+def _scan_long_cuda(x, dt, A, Bmat, C, D, h0):
+    strides = _check_stream(x, dt, A, Bmat, C, D)
+    Bsz, L, Dd = x.shape
+    N = A.shape[1]
+    if h0 is not None:
+        h0 = _state_in(h0, x, N)
+    lib = kernels.library()
+    K = -(-L // lib.vetk_selective_scan_chunk())
+    if Bsz > 65535 or K > 65535:
+        raise ValueError(f"kernel takes B and L / chunk <= 65535, got B={Bsz} "
+                         f"chunks={K}")
+    y = torch.empty((Bsz, L, Dd), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((Bsz, Dd, N), device=x.device)
+    states = torch.empty((Bsz, K, Dd, N), device=x.device)
+    sumdt = torch.empty((Bsz, K, Dd), device=x.device)
+    A32, D32 = A.float().contiguous(), D.float().contiguous()
+    with torch.cuda.device(x.device):
+        err = lib.vetk_selective_scan_long(
+            kernels.dtype_code(x), x.data_ptr(), dt.data_ptr(),
+            A32.data_ptr(), Bmat.data_ptr(), C.data_ptr(), D32.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), states.data_ptr(), sumdt.data_ptr(), Bsz, L,
+            Dd, N, strides, kernels.stream_of(x))
+        kernels.launch_counts["selective_scan_long"] += 1
+    kernels.check(err, "selective_scan_long")
+    return y, h_last
+
+
+def selective_scan_pallas(x, dt, A, Bmat, C, D, h0=None):
+    """Long-sequence scan (TPU kernel ``_scan_kernel``). Returns ``(y,
+    h_last)``. Launches the CUDA kernel (chunked, three phases) for a CUDA
+    tensor; ``selective_scan_assoc`` for a CPU tensor."""
+    if x.device.type == "cuda":
+        return _scan_long_cuda(x, dt, A, Bmat, C, D, h0)
+    if x.device.type == "cpu":
+        return selective_scan_assoc(x, dt, A, Bmat, C, D, h0)
+    raise ValueError(f"selective_scan_pallas: no kernel for {x.device}")
+
+
+def _auto_impl(B: int, L: int, on_card: bool) -> str:
+    if L <= 32:
+        return "pallas_short" if (on_card and B >= 1024) else "ref"
+    return "pallas" if on_card else "assoc"
+
+
+def selective_scan(x, dt, A, Bmat, C, D, h0=None, impl: str | None = None,
+                   need_state: bool = True):
+    """Dispatching entry point; impl: ref | assoc | pallas | pallas_short |
+    None (auto). Auto keeps the JAX package's rule with "on the TPU" read as
+    "a CUDA tensor": L <= 32 takes the short kernel on the card when B >=
+    1024 and the sequential scan otherwise (with B < 1024 that is the
+    reference's own choice, its ``lax.scan``, not a fallback); L > 32 takes
+    the long kernel on the card and the associative scan elsewhere.
+    ``need_state=False`` lets the short kernel skip the state (h_last comes
+    back as None)."""
+    if impl is None:
+        impl = _auto_impl(x.shape[0], x.shape[1], x.device.type == "cuda")
+    if impl == "pallas_short":
+        return selective_scan_pallas_short(x, dt, A, Bmat, C, D, h0,
+                                           need_state=need_state)
+    fn = {"ref": selective_scan_ref, "assoc": selective_scan_assoc,
+          "pallas": selective_scan_pallas}[impl]
+    return fn(x, dt, A, Bmat, C, D, h0)
+
+
+def chunked_selective_scan(x, dt, A, Bmat, C, D, chunk: int,
+                           impl: str | None = None):
+    """A long sequence in chunks of ``chunk`` steps, threading the state:
+    the same result as one full scan. Returns ``(y, h_last)``."""
+    Bsz, L, Dd = x.shape
+    h = torch.zeros((Bsz, Dd, A.shape[1]), device=x.device)
+    ys = []
+    for s in range(0, L, chunk):
+        e = min(s + chunk, L)
+        y, h = selective_scan(x[:, s:e], dt[:, s:e], A, Bmat[:, s:e],
+                              C[:, s:e], D, h0=h, impl=impl)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def selective_scan_bidir_plain(xf, dtf, Af, Bf, Cf, Df,
+                               xb, dtb, Ab, Bb, Cb, Db):
+    """Two sequential scans: the forward stream l = 0..L-1, the backward
+    stream l = L-1..0. Returns ``(y_forward, y_backward)``."""
+    yf, _ = selective_scan_plain(xf, dtf, Af, Bf, Cf, Df)
+    yb, _ = selective_scan_plain(xb, dtb, Ab, Bb, Cb, Db, reverse=True)
+    return yf, yb
+
+
+def _scan_bidir_cuda(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
+    sf = _check_stream(xf, dtf, Af, Bf, Cf, Df)
+    sb = _check_stream(xb, dtb, Ab, Bb, Cb, Db)
+    if xb.shape != xf.shape or Ab.shape != Af.shape or xb.dtype != xf.dtype:
+        raise ValueError("the two streams must match in shape and dtype")
+    Bsz, L, Dd = xf.shape
+    N = Af.shape[1]
+    yf = torch.empty((Bsz, L, Dd), dtype=xf.dtype, device=xf.device)
+    yb = torch.empty_like(yf)
+    w = [t.float().contiguous() for t in (Af, Df, Ab, Db)]
+    lib = kernels.library()
+    with torch.cuda.device(xf.device):
+        err = lib.vetk_selective_scan_bidir(
+            kernels.dtype_code(xf), xf.data_ptr(), dtf.data_ptr(),
+            w[0].data_ptr(), Bf.data_ptr(), Cf.data_ptr(), w[1].data_ptr(),
+            xb.data_ptr(), dtb.data_ptr(), w[2].data_ptr(), Bb.data_ptr(),
+            Cb.data_ptr(), w[3].data_ptr(), yf.data_ptr(), yb.data_ptr(),
+            Bsz, L, Dd, N, sf, sb, kernels.stream_of(xf))
+        kernels.launch_counts["selective_scan_bidir"] += 1
+    kernels.check(err, "selective_scan_bidir")
+    return yf, yb
+
+
+def selective_scan_bidir(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
+    """A forward and a time-reversed stateless scan over the same sequence
+    axis (TPU kernel ``_scan_bidir_kernel``): the forward stream walks l =
+    0..L-1, the backward one l = L-1..0, both in one kernel with no flips.
+    Returns ``(y_forward, y_backward)`` in natural order. Launches the CUDA
+    kernel for a CUDA tensor; two sequential scans for a CPU tensor."""
+    args = (xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db)
+    if xf.device.type == "cuda":
+        return _scan_bidir_cuda(*args)
+    if xf.device.type == "cpu":
+        return selective_scan_bidir_plain(*args)
+    raise ValueError(f"selective_scan_bidir: no kernel for {xf.device}")
+
+
+def selective_scan_bidir_shared(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db,
+                                impl: str = "bidir"):
+    """Sum of a forward and a time-reversed scan over SHARED u/B/C streams
+    (the directions differ in dt, A and D). ``impl="bidir"`` runs
+    ``selective_scan_bidir`` with u, B and C passed for both streams. The
+    batch-major ``"bmajor"`` kernel (TPU kernel ``_scan_bidir_shared_kernel``)
+    is not ported yet."""
+    if impl == "bidir":
+        yf, yb = selective_scan_bidir(u, dtf, Af, Bm, Cm, Df,
+                                      u, dtb, Ab, Bm, Cm, Db)
+        return yf + yb
+    if impl == "bmajor":
+        raise NotImplementedError(
+            "impl='bmajor' needs TPU kernel row 10 (_scan_bidir_shared_kernel),"
+            " not ported yet (ROADMAP.md section 2)")
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def fused_bidir_ssm_plain(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
@@ -59,8 +343,8 @@ def fused_bidir_ssm_plain(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
     dtp = dt_raw @ wdt.t() + bdt
     dt_f = F.softplus(dtp + dtbf)
     dt_b = F.softplus(dtp + dtbb)
-    y = (selective_scan_plain(u, dt_f, Af, Bm, Cm, Df)
-         + selective_scan_plain(u, dt_b, Ab, Bm, Cm, Db, reverse=True))
+    y = (selective_scan_plain(u, dt_f, Af, Bm, Cm, Df)[0]
+         + selective_scan_plain(u, dt_b, Ab, Bm, Cm, Db, reverse=True)[0])
     return (y * F.silu(gate.float())).to(u_pre.dtype)
 
 
