@@ -14,8 +14,12 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    also at ragged lengths, the fused SSM also at fast_mamba_vsr's shape,
    the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
    a nonzero h0, and a control: run with h0 = 0 it must read far from the
-   plain version); time of each, and of the PyTorch library call that
-   computes the same function where there is one;
+   plain version), the shared bidirectional scan (row 10) at vsrm's and
+   fast_mamba_vsr's temporal shapes and past its register bound (also
+   against row 6, which computes the same sum), the depthwise conv + SiLU
+   (row 11) on vsrm's strided in_proj slice at K = 5 and 4; time of each,
+   and of the PyTorch library call that computes the same function where
+   there is one;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -52,7 +56,19 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    and over 7 rasters (two long-scan launches), ``bissm_apply(impl=
    "composed")`` on vsrm's block-0 temporal input from phase 4's clip (one
    bidirectional scan launch; also against the fused kernel), ``ssm_apply``
-   per pixel (one stateless short-scan launch), each against its plain form.
+   per pixel (one stateless short-scan launch), each against its plain form;
+10. the opt-in kernels and the mesh code: (a) one vsrm window (phase 4's
+   handler and clip) with ``vsrm.bissd_apply`` rebound to
+   ``conv_impl="pallas"`` (6 conv launches, 12 SSD, 6 fused SSM, no other)
+   against the grouped-conv window and the plain versions, ms per window of
+   both; (b) the composed bissm on vsrm's block-0 temporal input with its
+   scan on ``impl="bmajor"`` (one launch of row 10) against ``"bidir"`` and
+   the plain forms; (c) on a one-rank NCCL mesh ``make_mesh(1, 1, 1)``,
+   ``make_sharded_clip_fn`` (halo 2) and ``make_spatially_sharded_clip_fn``
+   (halo 8, scale 4) around ``vsrm.apply`` on those 7 frames against the
+   model on the same edge-padded clip, trimmed, with frames/s; a handler on
+   that mesh, and the registry's on the policy's (1, 1, 1) mesh, take the
+   unsharded path.
 
 The line before the card's name and power limit holds the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. The script
@@ -63,6 +79,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -73,34 +90,40 @@ import numpy as np
 import torch
 
 from video_enhancer_tpu_torch import kernels
-from video_enhancer_tpu_torch.config import MODELS
+from video_enhancer_tpu_torch.config import MODELS, default_policy
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt, vsrm
+from video_enhancer_tpu_torch.nn import ssm
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
+from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
+                                               depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, scan_flops,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
-    selective_scan_bidir_shared, selective_scan_pallas,
-    selective_scan_pallas_short, selective_scan_plain)
+    selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
+    selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
                                                           calibrate_vsr)
 from video_enhancer_tpu_torch.parallel.inference import (
-    make_exact_sharded_fmv, make_exact_sharded_vsrm)
+    make_exact_sharded_fmv, make_exact_sharded_vsrm, make_sharded_clip_fn)
 from video_enhancer_tpu_torch.parallel.mesh import make_mesh
+from video_enhancer_tpu_torch.parallel.spatial import \
+    make_spatially_sharded_clip_fn
 from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
 from video_enhancer_tpu_torch.runtime.registry import (build_handler,
                                                       bundled_weights,
                                                       load_params)
-from video_enhancer_tpu_torch.runtime.vsr_handler import cast_params
+from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
+                                                         cast_params)
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -129,6 +152,16 @@ SCAN_SHAPES = {"selective_scan_bidir": dict(B=180 * 320, L=7, D=128, N=4),
                "selective_scan_short_nostate": dict(B=180 * 320, L=7, D=128,
                                                     N=16),
                "selective_scan_long": dict(B=7, L=180 * 320, D=128, N=16)}
+# row 10 at vsrm's composed temporal bissm (B and C column slices of x_proj,
+# 4 + 2 * 4 = 12 wide) and at fast_mamba_vsr's (3 + 2 * 8 = 19 wide); a
+# small case past the kernel's register bound (L > 32, fp32 workspace)
+SHARED_SHAPES = [dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4),
+                 dict(B=180 * 320, L=16, D=96, N=8, dt_rank=3),
+                 dict(B=4096, L=40, D=64, N=8, dt_rank=3)]
+# row 11 at vsrm's spatial SSD: x (B*T 7, H*W 57600, C 160) a column slice
+# of in_proj's 290-wide output (z 128 | x, B, C 160 | dt 2), K = 5; and K = 4
+DWCONV_SHAPE = dict(B=7, L=180 * 320, C=160, ld=290, off=128)
+DWCONV_KS = (5, 4)
 
 # tolerances: max |kernel - plain| / max |plain|
 TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
@@ -139,7 +172,11 @@ TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
        ("window_attention", "float32"): 1e-4,
        ("window_attention", "bfloat16"): 2e-2,
        **{(k, "float32"): 1e-4 for k in SCAN_SHAPES},
-       **{(k, "bfloat16"): 1e-2 for k in SCAN_SHAPES}}
+       **{(k, "bfloat16"): 1e-2 for k in SCAN_SHAPES},
+       ("selective_scan_bidir_shared", "float32"): 1e-4,
+       ("selective_scan_bidir_shared", "bfloat16"): 1e-2,
+       ("dwconv_silu", "float32"): 1e-4,
+       ("dwconv_silu", "bfloat16"): 1e-2}
 # one served window, kernels vs plain versions (both bf16), on [0, 1]
 WINDOW_MAX_ABS, WINDOW_MEAN_ABS = 0.05, 0.005
 
@@ -532,6 +569,134 @@ def scans_vs_plain() -> dict:
     return rec
 
 
+def shared_scan_vs_plain() -> dict:
+    """Row 10 (``selective_scan_bidir_shared(impl="bmajor")``) against its
+    plain version and against row 6 (``impl="bidir"``, the same yf + yb),
+    at the paths' shapes and past the register bound, fp32 and bf16."""
+    rec = {}
+    for si, s in enumerate(SHARED_SHAPES):
+        shape = {k: s[k] for k in ("B", "L", "D", "N")}
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + si)
+            u, dtf, Af, Bm, Cm, Df = _scan_inputs(dtype, gen, **s)
+            dtb = torch.nn.functional.softplus(
+                torch.randn(u.shape, generator=gen, device="cuda") * 0.5
+                - 2.0).to(dtype)
+            Ab, Db = Af.flip(1), Df.flip(0)
+            args = (u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)
+            run = lambda: selective_scan_bidir_shared(  # noqa: E731
+                *args, impl="bmajor")
+            got = run()
+            ref = selective_scan_bidir_shared_plain(*args)
+            bidir = selective_scan_bidir_shared(*args, impl="bidir")
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  "selective_scan_bidir_shared: non-finite")
+            tol = TOL[("selective_scan_bidir_shared",
+                       str(dtype).split(".")[1])]
+            err, rel = rel_err(got, ref)
+            _, rel_b = rel_err(got, bidir)
+            print(f"selective_scan_bidir_shared {shape} {dtype}: max_abs_err "
+                  f"{err:.3e} rel {rel:.3e}, vs impl='bidir' rel {rel_b:.3e} "
+                  f"(tol {tol:g})")
+            check(rel <= tol and rel_b <= tol,
+                  f"selective_scan_bidir_shared {shape} {dtype}: rel {rel} / "
+                  f"{rel_b} > {tol}")
+            ms = time_ms(run)
+            nbytes = _nbytes(*args) + u.numel() * u.element_size()
+            flops = scan_flops(**shape, streams=2)
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        flops / H100_FP32_FLOPS) * 1e3
+            line = (f"selective_scan_bidir_shared {shape} {dtype}: kernel "
+                    f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} "
+                    f"MB, {flops / 1e9:.2f} GFLOP)")
+            if dtype == torch.bfloat16 and si < 2:
+                plain_ms = time_ms(
+                    lambda: selective_scan_bidir_shared_plain(*args),
+                    warmup=1, iters=3)
+                bidir_ms = time_ms(lambda: selective_scan_bidir_shared(
+                    *args, impl="bidir"))
+                line += (f", plain {plain_ms:.3f} ms, impl='bidir' (row 6 "
+                         f"and a sum) {bidir_ms:.4f} ms")
+                key = "selective_scan_bidir_shared" + (
+                    "" if si == 0 else ":fast_mamba_vsr")
+                rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bytes=nbytes, flops=flops,
+                                peak=H100_FP32_FLOPS, library_ms=None)
+            print(line)
+            del got, ref, bidir, args, run, u, dtf, dtb, Bm, Cm
+            torch.cuda.empty_cache()
+    return rec
+
+
+def _dwconv_inputs(dtype, gen, K):
+    s = DWCONV_SHAPE
+    wide = torch.randn((s["B"], s["L"], s["ld"]), generator=gen,
+                       device="cuda").to(dtype)
+    x = wide[..., s["off"]:s["off"] + s["C"]]
+    # bissd casts the conv weight to x's dtype (nn/ssm.py)
+    w = (torch.randn((s["C"], 1, K), generator=gen, device="cuda")
+         / K ** 0.5).to(dtype)
+    b = torch.randn((s["C"],), generator=gen, device="cuda") * 0.1
+    return x, w, b
+
+
+def dwconv_vs_plain() -> dict:
+    """Row 11 (``depthwise_conv1d_silu``) against its plain version on
+    vsrm's strided view, K = 5 and 4, fp32 and bf16; its time beside the
+    plain version's and PyTorch's ``F.conv1d(groups=C)`` then ``F.silu``."""
+    rec = {}
+    s = DWCONV_SHAPE
+    F = torch.nn.functional
+    for K in DWCONV_KS:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + K)
+            x, w, b = _dwconv_inputs(dtype, gen, K)
+            check(x.stride(1) == s["ld"] and not x.is_contiguous(),
+                  "dwconv_silu: x is not vsrm's strided view")
+            got = depthwise_conv1d_silu(x, w, b)
+            ref = depthwise_conv1d_silu_plain(x, w, b)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  "dwconv_silu: non-finite")
+            tol = TOL[("dwconv_silu", str(dtype).split(".")[1])]
+            err, rel = rel_err(got, ref)
+            ms = time_ms(lambda: depthwise_conv1d_silu(x, w, b))
+            item = x.element_size()
+            n = s["B"] * s["L"] * s["C"]
+            nbytes = 2 * n * item + w.numel() * item + b.numel() * 4
+            flops = n * (2.0 * K + 5.0)
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        flops / H100_FP32_FLOPS) * 1e3
+            print(f"dwconv_silu {s} K={K} {dtype}: max_abs_err {err:.3e} rel "
+                  f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+            check(rel <= tol, f"dwconv_silu K={K} {dtype}: rel {rel} > {tol}")
+            if dtype == torch.bfloat16:
+                plain_ms = time_ms(lambda: depthwise_conv1d_silu_plain(
+                    x, w, b), warmup=1, iters=3)
+                print(f"dwconv_silu K={K} bf16: plain {plain_ms:.3f} ms")
+            if dtype == torch.bfloat16 and K % 2:
+                # two calls on the channels-first view of the same x (an odd
+                # K pads both ends alike, so conv1d pads it itself)
+                xt, bd = x.transpose(1, 2), b.to(dtype)
+                lib_ms = time_ms(lambda: F.silu(F.conv1d(
+                    xt, w, bd, padding=(K - 1) // 2, groups=s["C"])))
+                _, lib_rel = rel_err(F.silu(F.conv1d(
+                    xt, w, bd, padding=(K - 1) // 2,
+                    groups=s["C"])).transpose(1, 2), ref)
+                print(f"dwconv_silu K={K} bf16: F.conv1d(groups=C) then "
+                      f"F.silu {lib_ms:.4f} ms (rel to plain {lib_rel:.3e})")
+                rec["dwconv_silu"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bytes=nbytes, flops=flops,
+                    peak=H100_FP32_FLOPS)
+                del xt
+            del got, ref, x, w, b
+            torch.cuda.empty_cache()
+    return rec
+
+
 @phase("3 kernels vs plain")
 def kernels_vs_plain() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -597,6 +762,10 @@ def kernels_vs_plain() -> dict:
         rec.update(window_vs_plain())
         # --- the Mamba-1 scans (TPU kernel rows 6-9) -------------------------
         rec.update(scans_vs_plain())
+        # --- row 10: the shared bidirectional scan ---------------------------
+        rec.update(shared_scan_vs_plain())
+        # --- row 11: the depthwise conv + SiLU -------------------------------
+        rec.update(dwconv_vs_plain())
     torch.cuda.empty_cache()
     return rec
 
@@ -1045,6 +1214,159 @@ def layers() -> dict:
     return counts
 
 
+def _conv_window(handler, first, device_line: str) -> int:
+    """Phase 10 (a): one vsrm window with every block's spatial SSD on the
+    conv kernel (``vsrm.bissd_apply`` rebound to ``conv_impl="pallas"``, as
+    the JAX package's A/B scripts switch it) against the grouped-conv
+    window and the plain versions; returns the conv kernel's launches."""
+    real = vsrm.bissd_apply
+    with torch.inference_mode():
+        y_grouped = handler.process_clip(first)
+        plain = calibrate_vsr("vsrm", lambda p, x: vsrm.apply(
+            p, x, scale=handler.scale, kernels=False))
+        y_plain = plain(handler.params,
+                        first[None].to(handler.dtype)).float()[0]
+        grouped_ms = time_ms(lambda: handler.process_clip(first), warmup=1,
+                             iters=5)
+        vsrm.bissd_apply = functools.partial(real, conv_impl="pallas")
+        try:
+            handler.process_clip(first)               # warm-up, not counted
+            y_pallas, c, _ = _counted(handler.process_clip, first)
+            pallas_ms = time_ms(lambda: handler.process_clip(first),
+                                warmup=1, iters=5)
+        finally:
+            vsrm.bissd_apply = real
+    blocks = len(handler.params["blocks"])
+    want = _only(dwconv_silu=blocks, ssd_shared=2 * blocks,
+                 fused_bidir_ssm=blocks)
+    print(f"(a) vsrm window with conv_impl='pallas': launches {c} (expected "
+          f"{want})")
+    check(c == want, f"conv window launches {c} != {want}")
+    _window_tol("  vs the grouped-conv window", y_pallas, y_grouped)
+    _window_tol("  vs the plain versions", y_pallas, y_plain)
+    print(f"  ms per window: grouped conv {grouped_ms:.3f}, conv kernel "
+          f"{pallas_ms:.3f} ({device_line})")
+    return c["dwconv_silu"]
+
+
+def _shared_scan_layer(vp, clip) -> int:
+    """Phase 10 (b): ``bissm_apply(impl="composed")`` on vsrm's block-0
+    temporal input with its scan on ``impl="bmajor"`` (row 10), its output
+    against the composed layer on ``impl="bidir"`` and the plain layer, and
+    the scan against its plain version and row 6 on the same streams;
+    returns row 10's launches."""
+    real = ssm.selective_scan_bidir_shared
+    caught = []
+
+    def bmajor(*args, impl="bidir"):
+        caught.append(args)
+        return real(*args, impl="bmajor")
+
+    with torch.inference_mode():
+        seq = _block0_temporal_input(vp, clip)
+        tp = vp["blocks"][0]["temporal_ssm"]
+        ssm.selective_scan_bidir_shared = bmajor
+        try:
+            got, c, secs = _counted(
+                lambda: bissm_apply(tp, seq, impl="composed"))
+        finally:
+            ssm.selective_scan_bidir_shared = real
+        want = _only(selective_scan_bidir_shared=1)
+        print(f"(b) composed bissm on vsrm's block 0 {tuple(seq.shape)}, "
+              f"scan impl='bmajor': launches {c} (expected {want}), "
+              f"{1000 * secs:.2f} ms")
+        check(c == want, f"bmajor launches {c} != {want}")
+        _window_tol("  vs the composed layer with impl='bidir'", got,
+                    bissm_apply(tp, seq, impl="composed"))
+        _window_tol("  vs the plain layer", got,
+                    bissm_apply(tp, seq, impl="plain"))
+        args = caught[0]
+        y = real(*args, impl="bmajor")
+        tol = TOL[("selective_scan_bidir_shared", "bfloat16")]
+        for name, ref in (("plain", selective_scan_bidir_shared_plain(*args)),
+                          ("impl='bidir'", real(*args, impl="bidir"))):
+            _, rel = rel_err(y, ref)
+            print(f"  the scan vs {name}: rel {rel:.3e} (tol {tol:g})")
+            check(rel <= tol, f"bmajor scan vs {name}: rel {rel} > {tol}")
+    return c["selective_scan_bidir_shared"]
+
+
+def _edge_pad(clip, n: int, dim: int):
+    """``clip`` with ``n`` copies of its first and last slice along
+    ``dim`` (what a one-rank halo exchange adds)."""
+    first = clip.narrow(dim, 0, 1)
+    last = clip.narrow(dim, clip.shape[dim] - 1, 1)
+    return torch.cat([first] * n + [clip] + [last] * n, dim=dim)
+
+
+def _mesh_path(vp, clip, device_line: str) -> None:
+    """Phase 10 (c): the halo factories around ``vsrm.apply`` on a one-rank
+    NCCL mesh, each against the model on the same padded clip, trimmed; a
+    handler with that mesh, and the registry's with the policy's (1, 1, 1),
+    take the unsharded path."""
+    apply = lambda p, x: vsrm.apply(p, x, scale=4)      # noqa: E731
+    mesh = make_mesh(1, 1, 1)
+    try:
+        check(mesh.shape == {"data": 1, "time": 1, "space": 1}
+              and mesh.device.type == "cuda",
+              f"mesh {mesh.shape} on {mesh.device}")
+        n = clip.shape[1]
+        cases = [
+            ("make_sharded_clip_fn (halo 2)",
+             make_sharded_clip_fn(apply, mesh, halo=2),
+             lambda: apply(vp, _edge_pad(clip, 2, 1))[:, 2:n + 2]),
+            ("make_spatially_sharded_clip_fn (halo 8, scale 4)",
+             make_spatially_sharded_clip_fn(apply, mesh, halo=8, scale=4),
+             lambda: apply(vp, _edge_pad(clip, 8, 2))[
+                 :, :, 32:32 + 4 * clip.shape[2]]),
+        ]
+        with torch.inference_mode():
+            for name, fn, ref in cases:
+                fn(vp, clip)                          # warm-up, not counted
+                got, c, secs = _counted(fn, vp, clip)
+                blocks = len(vp["blocks"])
+                want = _only(ssd_shared=2 * blocks, fused_bidir_ssm=blocks)
+                print(f"(c) {name}: launches {c}; {secs:.3f} s = "
+                      f"{n / secs:.2f} frames/s ({device_line})")
+                check(c == want, f"{name}: launches {c} != {want}")
+                check(got.shape == (1, n, 4 * clip.shape[2],
+                                    4 * clip.shape[3], 3),
+                      f"{name}: shape {tuple(got.shape)}")
+                _window_tol("  vs vsrm.apply on the padded clip, trimmed",
+                            got, ref())
+        h = VSRHandler("vsrm", apply, vp, scale=4, chunk=7, overlap=4,
+                       mesh=mesh)
+        check(h.mesh is mesh and h._sharded is None,
+              "a handler on a one-rank mesh must take the unsharded path")
+        served = build_handler("vsrm")
+        print(f"  handler on the one-rank mesh: unsharded; the registry's "
+              f"vsrm handler with the policy's mesh {default_policy().mesh}"
+              f" and the group up: mesh {served.mesh}")
+        check(served.mesh is None and served._sharded is None,
+              "the registry's handler should serve unsharded at mesh "
+              "(1, 1, 1), as the JAX registry's does")
+    finally:
+        mesh.destroy()
+
+
+@phase("10 opt-in kernels")
+def opt_in_kernels(device_line: str) -> dict:
+    """Rows 10 and 11 on the paths that reach them (each behind the switch
+    the JAX package keeps for A/B runs) and the halo-approximate mesh code
+    at one rank."""
+    handler = build_handler("vsrm")
+    frames = synthetic_clip(handler.chunk, 180, 320)
+    first = torch.from_numpy(np.stack(frames)).cuda().float() / 255.0
+    counts = {"dwconv_silu": _conv_window(handler, first, device_line)}
+    vp = cast_params(load_params("vsrm"), torch.bfloat16, "cuda")
+    clip = first[None].bfloat16()
+    counts["selective_scan_bidir_shared"] = _shared_scan_layer(vp, clip)
+    _mesh_path(vp, clip, device_line)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
+
+
 SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
 
 
@@ -1066,6 +1388,10 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
         "selective_scan_short_nostate": (
             SCAN_CU, "video_enhancer_tpu/ops/scan.py:362"),
         "selective_scan_long": (SCAN_CU, "video_enhancer_tpu/ops/scan.py:556"),
+        "selective_scan_bidir_shared": (
+            SCAN_CU, "video_enhancer_tpu/ops/scan.py:736"),
+        "dwconv_silu": ("video_enhancer_tpu_torch/csrc/dwconv_silu.cu",
+                        "video_enhancer_tpu/ops/conv.py:220"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -1097,6 +1423,7 @@ def main() -> int:
     strict = strict_route(f"{env['kind']}, {env['smi']}")
     sharded = sharded_path(f"{env['kind']}, {env['smi']}")
     layer_counts = layers()
+    opt_in = opt_in_kernels(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -1110,7 +1437,9 @@ def main() -> int:
                   c["selective_scan_short"] for c in sharded.values()),
               **{k: layer_counts[k] for k in (
                   "selective_scan_bidir", "selective_scan_short_nostate",
-                  "selective_scan_long")}}
+                  "selective_scan_long")},
+              # rows 10 and 11: phase 10
+              **opt_in}
     print(json.dumps({"kernels": kernel_record(rec, counts)}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

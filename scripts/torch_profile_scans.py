@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The Mamba-1 scan kernels of the PyTorch/CUDA port (TPU kernel rows 6-9)
-at the served paths' shapes, and where the exact time-sharded
-fast_mamba_vsr spends its time.
+"""The Mamba-1 scan kernels of the PyTorch/CUDA port (TPU kernel rows 6-10)
+and the depthwise conv + SiLU (row 11) at the paths' shapes, and where the
+exact time-sharded fast_mamba_vsr spends its time.
 
     python3 scripts/torch_profile_scans.py [--root DIR] [--tag NAME]
         [--trace]
@@ -9,9 +9,11 @@ fast_mamba_vsr spends its time.
 Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 (this checkout by default, so that two trees can be timed by the same
 script in one call), builds the kernels and runs
-``chip_smoke.scans_vs_plain``: each scan kernel against its plain version
-in fp32 and bf16, with the median time of 10 runs after 3 warm-ups and its
-bound. With ``--trace``, ``torch.profiler`` then records one call of
+``chip_smoke.scans_vs_plain``, ``shared_scan_vs_plain`` and
+``dwconv_vs_plain`` (the last two where the checkout has them): each
+kernel against its plain version in fp32 and bf16, with the median time
+of 10 runs after 3 warm-ups and its bound. With ``--trace``,
+``torch.profiler`` then records one call of
 ``make_exact_sharded_fmv`` (one-rank NCCL group, bundled weights in bf16,
 16 frames of 180x320) after a warm-up, and prints the wall time, the
 device's busy time and the ops of most device time. The last line is one
@@ -97,6 +99,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         rec = chip_smoke.scans_vs_plain()
+        # rows 10 and 11, in a checkout that has them
+        for fn in ("shared_scan_vs_plain", "dwconv_vs_plain"):
+            if hasattr(chip_smoke, fn):
+                rec.update(getattr(chip_smoke, fn)())
     res = {"tag": args.tag, "device": smi,
            "ms": {k: v["ms"] for k, v in rec.items()},
            "plain_ms": {k: v["plain_ms"] for k, v in rec.items()}}

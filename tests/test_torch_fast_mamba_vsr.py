@@ -9,6 +9,7 @@ measured gap is ~1e-6 through 8 layers).
 
 from __future__ import annotations
 
+import copy
 import sys
 import types
 from pathlib import Path
@@ -136,7 +137,8 @@ def test_handler_matches_jax(monkeypatch):
     weights, and one window through the calibrated blend (s = 0.6)."""
     monkeypatch.setattr(jvh, "VSRHandler", _F32Handler)
     jh = jregistry._build("fast_mamba_vsr", j_default_policy(), 0)
-    th = registry.build_handler("fast_mamba_vsr", device="cpu")
+    # a copy: the registry hands the same handler to later callers
+    th = copy.copy(registry.build_handler("fast_mamba_vsr", device="cpu"))
     for attr in ("name", "scale", "chunk", "overlap", "tile", "tile_overlap"):
         assert getattr(th, attr) == getattr(jh, attr), attr
     assert (th.chunk, th.overlap, th.dtype) == (16, 2, torch.bfloat16)

@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels against their plain versions,
 at small shapes that reach the kernels' edges (ragged chunks, strided rows,
 narrow heads, even conv kernels, ragged query and key lengths, strided
-views of a split projection, every dtype), and the Mamba-1 scans also at
-the shapes the served paths give them; the exact time-sharded
-fast_mamba_vsr on a one-rank NCCL group.
+views of a split projection, every dtype), and the Mamba-1 scans, the
+shared bidirectional scan and the depthwise conv + SiLU also at the shapes
+the served paths give them; the exact time-sharded fast_mamba_vsr on a
+one-rank NCCL group.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -26,11 +27,13 @@ from video_enhancer_tpu_torch.ops.attention import (attention, attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
+from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
+                                               depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
-    selective_scan_bidir_shared, selective_scan_pallas,
-    selective_scan_pallas_short, selective_scan_plain)
+    selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
+    selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
                                               ssd_shared_plain)
 
@@ -527,3 +530,113 @@ def test_exact_sharded_fmv_on_one_nccl_rank(cuda):
     torch.cuda.synchronize()
     assert y.shape == y1.shape == (1, 8, 128, 160, 3)
     assert (y.float() - y1.float()).abs().max().item() <= 3e-2
+
+
+# Row 10: the shared bidirectional scan (``impl="bmajor"``).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,L,D,N", SCAN_SMALL + [
+    (100, 33, 16, 4), (9, 64, 40, 8), (57600, 7, 128, 4),
+    (57600, 16, 96, 8)])
+def test_scan_bidir_shared_kernel_matches_plain(cuda, dtype, B, L, D, N):
+    """One launch against the plain version and against row 6 (which
+    computes the same yf + yb): ragged B, L up to the register bound (32)
+    and past it (the fp32 workspace), D over one block (130), strided u, B
+    and C."""
+    u, dtf, Af, Bm, Cm, Df = _scan_inputs(cuda, dtype, B, L, D, N, seed=L)
+    _, dtb, Ab, _, _, Db = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + 1)
+    args = (u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)
+    before = kernels.launch_counts["selective_scan_bidir_shared"]
+    y = selective_scan_bidir_shared(*args, impl="bmajor")
+    ref = selective_scan_bidir_shared_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_bidir_shared"] == before + 1
+    assert y.dtype == dtype and y.shape == (B, L, D)
+    assert _rel(y, ref) <= SCAN_TOL[dtype]
+    assert _rel(y, selective_scan_bidir_shared(*args, impl="bidir")) <= \
+        SCAN_TOL[dtype]
+    # a kernel that dropped the backward direction would fail the check
+    yf, _ = selective_scan_plain(u, dtf, Af, Bm, Cm, Df)
+    assert _rel(yf, ref) > 5 * SCAN_TOL[dtype]
+
+
+def test_scan_bidir_shared_rejects_what_it_does_not_take(cuda):
+    u, dtf, Af, Bm, Cm, Df = _scan_inputs(cuda, torch.float32, 4, 5, 8, 4, 0)
+    with pytest.raises(TypeError, match="share one dtype"):
+        selective_scan_bidir_shared(u, dtf, dtf.half(), Af, Af, Bm, Cm, Df,
+                                    Df, impl="bmajor")
+    with pytest.raises(ValueError, match="must be"):
+        selective_scan_bidir_shared(u, dtf, dtf, Af, Af[:, :2], Bm, Cm, Df,
+                                    Df, impl="bmajor")
+    with pytest.raises(ValueError, match="do not match"):
+        selective_scan_bidir_shared(u, dtf, dtf[:, :4], Af, Af, Bm, Cm, Df,
+                                    Df, impl="bmajor")
+
+
+# Row 11: the depthwise conv + SiLU.
+def _dwconv_inputs(cuda, dtype, B, L, C, K, pad, seed):
+    """x as a column slice of a (B, L, C + pad) tensor (offset pad // 2),
+    w (C, 1, K) in x's dtype (as bissd casts it), b (C,) fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    off = pad // 2
+    x = torch.randn((B, L, C + pad), generator=gen, device=cuda).to(dtype)
+    x = x[..., off:off + C]
+    w = (torch.randn((C, 1, K), generator=gen, device=cuda)
+         / K ** 0.5).to(dtype)
+    b = torch.randn((C,), generator=gen, device=cuda) * 0.1
+    return x, w, b
+
+
+DWCONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+              torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,L,C,K,pad", [
+    (3, 70, 16, 5, 0), (3, 64, 16, 4, 0), (2, 37, 8, 3, 0), (1, 1, 4, 5, 0),
+    (2, 50, 24, 8, 0), (2, 45, 6, 1, 0), (2, 33, 7, 2, 3), (2, 100, 12, 6, 1),
+    (7, 300, 160, 5, 130), (7, 57600, 160, 5, 130), (7, 57600, 160, 4, 130)])
+def test_dwconv_silu_kernel_matches_plain(cuda, dtype, B, L, C, K, pad):
+    """K from 1 to 8 (even ones pad asymmetrically), sequences shorter than
+    the window and ragged runs, dense rows and rows of vsrm's 290-wide
+    in_proj (pad 130: 580 bytes in bf16, 4- not 16-byte aligned) and odd
+    strides and widths (every vector width the wrapper picks)."""
+    x, w, b = _dwconv_inputs(cuda, dtype, B, L, C, K, pad, seed=L + K)
+    before = kernels.launch_counts["dwconv_silu"]
+    y = depthwise_conv1d_silu(x, w, b)
+    ref = depthwise_conv1d_silu_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dwconv_silu"] == before + 1
+    assert y.dtype == dtype and y.shape == (B, L, C) and y.is_contiguous()
+    assert _rel(y, ref) <= DWCONV_TOL[dtype]
+    if 1 < K < L:
+        # the taps mirrored: a kernel that flips them fails the check
+        assert _rel(depthwise_conv1d_silu_plain(x, w.flip(-1), b), ref) > \
+            5 * DWCONV_TOL[dtype]
+
+
+def test_dwconv_silu_rejects_what_it_does_not_take(cuda):
+    x, w, b = _dwconv_inputs(cuda, torch.float32, 2, 10, 8, 9, 0, 0)
+    with pytest.raises(ValueError, match="K <= 8"):
+        depthwise_conv1d_silu(x, w, b)
+    with pytest.raises(ValueError, match="dense last dim"):
+        depthwise_conv1d_silu(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              w[..., :5], b)
+    with pytest.raises(ValueError, match="must be"):
+        depthwise_conv1d_silu(x, w[:4, :, :5], b)
+
+
+def test_bissd_conv_impl_routes_through_the_conv_kernel(cuda):
+    """``bissd_apply(conv_impl="pallas")``: one conv launch beside the two
+    SSD launches, within bf16 rounding of the grouped path."""
+    gen = torch.Generator().manual_seed(0)
+    p = _to(bissd_init(gen, 32, state_dim=16), cuda, torch.bfloat16)
+    x = torch.randn((3, 500, 32), device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    y = bissd_apply(p, x, conv_impl="pallas")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dwconv_silu"] == 1
+    assert kernels.launch_counts["ssd_shared"] == 2
+    assert sum(kernels.launch_counts.values()) == 3
+    assert _rel(y, bissd_apply(p, x)) <= 3e-2

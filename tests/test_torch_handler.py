@@ -10,6 +10,7 @@ frames, 1e-4 on float outputs in [0, 1], fp32 on both sides.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import jax
@@ -27,6 +28,7 @@ from video_enhancer_tpu.runtime import vsr_handler as jvh
 from video_enhancer_tpu.runtime.weights import (
     convert_torch_state_dict as j_convert_sd)
 from video_enhancer_tpu.runtime.weights import flatten_params, unflatten_into
+from video_enhancer_tpu_torch import config as tconfig
 from video_enhancer_tpu_torch.device import resolve_device
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import vsrm as tvsrm
@@ -248,3 +250,48 @@ def test_torch_state_dict_is_read(monkeypatch, tmp_path):
     assert params["embed"]["b"].eq(0.5).all()
     np.testing.assert_array_equal(params["embed"]["w"].numpy(),
                                   sd["embed.weight"].numpy())
+
+
+def test_build_handler_caches_by_name_device_entry_and_mesh(monkeypatch):
+    """One handler for each name, device, entry and mesh: the same object
+    comes back for the same key, another device or entry gets its own,
+    ``clear_cache`` forgets them, and a build that raises caches
+    nothing."""
+    builds = []
+
+    def fake_build(name, entry, device, mesh):
+        if entry.tile == 13:
+            raise RuntimeError("build failed on purpose")
+        builds.append((name, str(device), entry.tile, mesh))
+        return object()
+
+    monkeypatch.setattr(registry, "_build", fake_build)
+    # a card device is only resolved, never used, by the fake build
+    monkeypatch.setattr(registry, "resolve_device", torch.device)
+    registry.clear_cache()
+    pol = tconfig.default_policy()
+    other = dataclasses.replace(pol, models={
+        **pol.models, "vsrm": dataclasses.replace(pol.models["vsrm"],
+                                                  tile=256)})
+    failing = dataclasses.replace(pol, models={
+        **pol.models, "vsrm": dataclasses.replace(pol.models["vsrm"],
+                                                  tile=13)})
+    try:
+        h = registry.build_handler("vsrm", device="cpu")
+        assert registry.build_handler("vsrm", pol, torch.device("cpu")) is h
+        on_card = registry.build_handler("vsrm", device="cuda:0")
+        wider = registry.build_handler("vsrm", other, device="cpu")
+        assert len({id(h), id(on_card), id(wider)}) == 3
+        assert registry.build_handler("rvrt", device="cpu") is not h
+        assert builds == [("vsrm", "cpu", 512, None),
+                          ("vsrm", "cuda:0", 512, None),
+                          ("vsrm", "cpu", 256, None),
+                          ("rvrt", "cpu", 512, None)]
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="on purpose"):
+                registry.build_handler("vsrm", failing, device="cpu")
+        registry.clear_cache()
+        assert registry.build_handler("vsrm", device="cpu") is not h
+        assert len(builds) == 5
+    finally:
+        registry.clear_cache()

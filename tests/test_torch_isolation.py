@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import nothing of JAX, OpenCV, PyYAML or the
-JAX package: the card's machine has none of them (OpenCV only inside the
-port's file-IO functions). Checked in fresh interpreters: one imports every
-module of the port and chip_smoke.py; one, where those packages cannot be
+"""The port, chip_smoke.py and scripts/torch_ab_harness.py import nothing of
+JAX, OpenCV, PyYAML or the JAX package: the card's machine has none of them
+(OpenCV only inside the port's file-IO functions). Checked in fresh
+interpreters: one imports every module of the port, chip_smoke.py and the
+A/B script; one, where those packages cannot be
 imported at all, drives the auto route on frames in memory; one, likewise,
 drives rvrt (an explicit engine and the fallback manager) and the
 strict-latency route to fast_mamba_vsr."""
@@ -24,6 +25,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "torch_ab_harness", sys.argv[1] + "/scripts/torch_ab_harness.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print(json.dumps({"modules": names, "bad": bad}))
 """ % (BAD,)
@@ -79,7 +84,7 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.registry", "runtime.upscaler_handler",
                  "models.rvrt", "models.fast_mamba_vsr", "runtime.fallback",
                  "runtime.weights", "parallel.mesh", "parallel.temporal",
-                 "parallel.inference"):
+                 "parallel.inference", "parallel.spatial"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

@@ -290,3 +290,26 @@ def test_run_auto_pipeline_rvrt_matches_jax(monkeypatch, tmp_path):
     b = np.stack(list(read_frames(tmp_path / "jax.mp4"))).astype(np.int16)
     assert a.shape == b.shape == (10, 64, 96, 3)
     assert np.abs(a - b).mean() <= 1.0 and np.abs(a - b).max() <= 16
+
+
+def test_cached_ditvr_handler_takes_each_videos_context():
+    """The registry hands the same ditvr handler to every call, and the
+    pipeline sets the router's degradation context on it before each
+    video, so a later video never runs with an earlier one's context."""
+    clips = [dim_clip(8, 32, 32, seed=6), dim_clip(8, 32, 48, seed=3),
+             dim_clip(8, 32, 32, seed=6)]
+    contexts = []
+    for frames in clips:
+        _, stats = tpipeline.run_auto_frames(frames, device="cpu")
+        plan = stats["routing_plan"]
+        assert stats["model"] == "ditvr"
+        deg = plan["degradations"]
+        scores = [deg["noise"], deg["motion_blur"], deg["compression"]]
+        assert stats["context"]["degradation_scores"] == pytest.approx(
+            scores, abs=1e-6)
+        contexts.append(stats["context"])
+    assert contexts[0] == contexts[2] != contexts[1]
+    h = registry.build_handler("ditvr", device="cpu")
+    assert registry.build_handler("ditvr", device="cpu") is h
+    assert h.context["degradation_scores"].tolist() == \
+        contexts[2]["degradation_scores"]

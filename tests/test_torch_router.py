@@ -168,6 +168,8 @@ def test_policy_copy_matches_jax():
         k: dataclasses.asdict(v) for k, v in jpol.latency_budgets.items()}
     assert dataclasses.asdict(tpol.defaults) == dataclasses.asdict(
         jpol.defaults)
+    assert dataclasses.asdict(tpol.mesh) == dataclasses.asdict(jpol.mesh)
+    assert tpol.mesh.num_devices == jpol.mesh.num_devices == 1
     assert dict(tpol.enabled) == {n: m.enabled for n, m in
                                   jpol.models.items()}
     assert tpol.enabled_models() == jpol.enabled_models()

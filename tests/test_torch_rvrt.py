@@ -7,6 +7,7 @@ measured gap is ~1e-6: sums in another order through 4 attention blocks).
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import jax
@@ -112,7 +113,8 @@ def test_handler_matches_jax(monkeypatch):
     weights, and one window through the calibrated blend (s = 0.25)."""
     monkeypatch.setattr(jvh, "VSRHandler", _F32Handler)
     jh = jregistry._build("rvrt", j_default_policy(), 0)
-    th = registry.build_handler("rvrt", device="cpu")
+    # a copy: the registry hands the same handler to later callers
+    th = copy.copy(registry.build_handler("rvrt", device="cpu"))
     for attr in ("name", "scale", "chunk", "overlap", "tile", "tile_overlap"):
         assert getattr(th, attr) == getattr(jh, attr), attr
     assert (th.chunk, th.overlap, th.dtype) == (7, 4, torch.bfloat16)

@@ -97,7 +97,9 @@ def test_bidir_scan_matches_pallas(B, L, D, N):
 
 
 def test_bidir_shared_matches_jax():
-    """``selective_scan_bidir_shared(impl="bidir")``: u, B and C shared."""
+    """``selective_scan_bidir_shared`` with u, B and C shared: ``"bidir"``
+    against JAX's, and ``"bmajor"`` (row 10) against it too, since both
+    compute yf + yb."""
     a = _inputs(300, 7, 16, 4, seed=3, state=False)
     dtb = np.random.default_rng(4).uniform(0.01, 0.3, (300, 7, 16)).astype(
         np.float32)
@@ -109,9 +111,37 @@ def test_bidir_shared_matches_jax():
                                              interpret=True, impl="bidir")
     got = tscan.selective_scan_bidir_shared(*map(torch.from_numpy, args))
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="row 10"):
+    _close(tscan.selective_scan_bidir_shared(*map(torch.from_numpy, args),
+                                             impl="bmajor"), want)
+    with pytest.raises(ValueError, match="unknown impl"):
         tscan.selective_scan_bidir_shared(*map(torch.from_numpy, args),
-                                          impl="bmajor")
+                                          impl="time_major")
+
+
+@pytest.mark.parametrize("L", [1, 7, 16, 33])
+def test_bidir_shared_bmajor_matches_pallas(L):
+    """Row 10 (``_scan_bidir_shared_kernel``) in interpret mode: a ragged
+    batch (100 against the TPU kernel's block of 64), L from 1 to one
+    above the CUDA kernel's register bound (32, past which it takes its
+    fp32 workspace), B and C column slices of one projection."""
+    B, D, N = 100, 16, 4
+    a = _inputs(B, L, D, N, seed=L, state=False)
+    g = np.random.default_rng(L + 1)
+    dtb = g.uniform(0.01, 0.3, (B, L, D)).astype(np.float32)
+    Ab = -g.uniform(0.1, 1.0, (D, N)).astype(np.float32)
+    Db = g.standard_normal(D).astype(np.float32)
+    proj = g.standard_normal((B, L, 3 + 2 * N)).astype(np.float32)
+    Bm, Cm = proj[..., 3:3 + N], proj[..., 3 + N:]
+    args = (a["x"], a["dt"], dtb, a["A"], Ab, Bm, Cm, a["D"], Db)
+    want = jscan.selective_scan_bidir_shared(*map(jnp.asarray, args),
+                                             interpret=True, impl="bmajor")
+    tp = torch.from_numpy(proj)
+    targs = [torch.from_numpy(v) for v in args]
+    targs[5], targs[6] = tp[..., 3:3 + N], tp[..., 3 + N:]
+    got = tscan.selective_scan_bidir_shared(*targs, impl="bmajor")
+    assert got.shape == (B, L, D) and not targs[5].is_contiguous()
+    _close(got, want)
+    _close(tscan.selective_scan_bidir_shared_plain(*targs), want)
 
 
 @pytest.mark.parametrize("B,L,D,N,state", [(2, 100, 16, 4, True),

@@ -5,10 +5,11 @@ The card's machine has no PyYAML, so the port reads no YAML: the values
 below are copied from the policy file and held against the JAX package's
 ``default_policy()`` by the tests. They are the degradation thresholds
 (:7-14), the latency budgets (:16-19), the pipeline defaults (:27-36), the
-entries of the models the port serves (vsrm :44-53, fast_mamba_vsr :54-63,
-ditvr :89-101, rvrt :102-108, cnn_upscaler :126-130, bicubic :131-134) and
-the ``enabled`` flag of every model of the policy. ``LatencyClass`` is
-video_enhancer_tpu/config/types.py:19-23.
+serving mesh (:38-41), the entries of the models the port serves (vsrm
+:44-53, fast_mamba_vsr :54-63, ditvr :89-101, rvrt :102-108, cnn_upscaler
+:126-130, bicubic :131-134) and the ``enabled`` flag of every model of the
+policy. ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
+``MeshConfig`` :90-106.
 
 As in the JAX package's ``load_policy`` (config/__init__.py:50-61), a set
 ``weights_env`` variable becomes the entry's ``weights_path`` when a policy
@@ -23,8 +24,8 @@ import os
 from typing import Any, Mapping
 
 __all__ = ["LatencyClass", "DegradationThresholds", "LatencyBudget",
-           "PipelineDefaults", "ModelEntry", "Policy", "MODELS", "ENABLED",
-           "default_policy"]
+           "PipelineDefaults", "MeshConfig", "ModelEntry", "Policy",
+           "MODELS", "ENABLED", "default_policy"]
 
 
 class LatencyClass(str, enum.Enum):
@@ -62,6 +63,21 @@ class PipelineDefaults:
     enable_temporal_smoothing: bool = False
     output_codec: str = "mp4v"
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The serving mesh: ranks along ``data`` (clip batch), ``time`` (frame
+    halos) and ``space`` (row halos); runtime/registry.py builds it when a
+    process group of that many ranks is up."""
+
+    data: int = 1
+    time: int = 1
+    space: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.time * self.space
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +157,7 @@ class Policy:
     latency_budgets: Mapping[str, LatencyBudget] = dataclasses.field(
         default_factory=lambda: dict(LATENCY_BUDGETS))
     defaults: PipelineDefaults = DEFAULTS
+    mesh: MeshConfig = MeshConfig()
     models: Mapping[str, ModelEntry] = dataclasses.field(
         default_factory=_models_from_env)
     enabled: Mapping[str, bool] = dataclasses.field(

@@ -12,7 +12,11 @@
 //   row 8  _selective_scan_pallas_short_nostate_impl -> _scan_short_kernel_nostate
 //          (:362): zero state in, none out;
 //   row 9  _selective_scan_pallas_impl -> _scan_kernel (:556): long sequences,
-//          h0 in, h_last out.
+//          h0 in, h_last out;
+//   row 10 _scan_bidir_shared_impl -> _scan_bidir_shared_kernel (:736): a
+//          forward and a backward stateless scan over SHARED u, B and C (the
+//          directions differ in dt, A and D), y = yf + yb summed in fp32 and
+//          cast once (selective_scan_bidir_shared(impl="bmajor")).
 //
 // What bounds them on an H100. Rows 6-8 serve the video models' temporal
 // axis: B = B*H*W per-pixel sequences (57600 at 180x320), L a handful of
@@ -51,6 +55,19 @@
 //        writes y.
 //   The price is the inputs read twice and the chunk states (B, K, D, N)
 //   fp32 round-tripping device memory.
+// - row 10: as row 6, but B_t and C_t of all L steps are staged once for
+//   both directions, u is read from device memory once (the backward pass
+//   reads the block's few-KB slab again from L1), and the forward pass keeps
+//   its y in registers as fp32 for the backward pass to add to. The loops
+//   are unrolled to compile-time bounds (LMAX >= L up to SHARED_MAX_L, NMAX
+//   >= N), so the registers hold only the states the shape needs: 55-64
+//   registers and 8 blocks an SM at the served shapes (holding u in
+//   registers as well, and every state to MAX_N, took 76-94 registers and
+//   read 0.86-0.91 ms against 0.51-0.55 ms at vsrm's shape). Longer L takes
+//   a version that walks both directions as row 6 does and passes the
+//   forward y through an fp32 workspace. At vsrm's composed temporal shape
+//   (B 57600, L 7, D 128, N 4, bf16) it moves 419 MB, 0.125 ms at 3.35
+//   TB/s, against 3.9 GFLOP (0.059 ms at the fp32 rate): bytes.
 // All arithmetic is fp32 on CUDA cores; storage is fp32, bf16 or fp16, y in
 // x's dtype, states fp32. Nothing is padded: ragged B and L are bounds.
 //
@@ -59,6 +76,8 @@
 // slices of a longer sequence qualify); A (D, N) and Dv (D,) fp32; h0,
 // h_last (B, D, N) fp32 contiguous; y (B, L, D) contiguous. Scratch of row
 // 9: states (B, K, D, N) and sumdt (B, K, D) fp32, K = ceil(L / CHUNK).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -70,6 +89,7 @@ constexpr int MAX_N = 16;
 constexpr int MAX_THREADS = 256;  // channels a block, all of one sequence
 constexpr int STAGE = 32;         // steps of B and C staged in shared memory
 constexpr int CHUNK = 128;        // row 9: steps a chunk
+constexpr int SHARED_MAX_L = 32;  // row 10: longest L held in registers
 constexpr int PASS_THREADS = 128;
 constexpr int PASS_UNROLL = 8;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -117,42 +137,79 @@ __device__ __forceinline__ void store_row(const float* src, int N,
 }
 
 // A's row d times log2 e, so that exp(dt A) = exp2(dt a2) (one ex2 a state).
+template <int NMAX = MAX_N>
 __device__ __forceinline__ void load_a(const float* __restrict__ A, int d, int N,
                                        float* a2) {
 #pragma unroll
-  for (int n = 0; n < MAX_N; ++n) a2[n] = n < N ? A[(size_t)d * N + n] * LOG2E : 0.0f;
+  for (int n = 0; n < NMAX; ++n) a2[n] = n < N ? A[(size_t)d * N + n] * LOG2E : 0.0f;
+}
+
+// One step of a channel: h = exp(dt A) o h + dt x B_t, from B_t and C_t
+// staged as fp32 at `bcs` (B, then C, MAX_N floats each); returns y0 +
+// C_t . h. NMAX (a multiple of 4, >= N) bounds the unrolled states.
+template <int NMAX = MAX_N>
+__device__ __forceinline__ float step(float* h, const float* a2, float dtv, float xv,
+                                      const float* bcs, int N, float y0) {
+  const float drive = dtv * xv;
+  const float4* bq = reinterpret_cast<const float4*>(bcs);
+  float yv = y0;
+#pragma unroll
+  for (int q = 0; q < NMAX / 4; ++q) {
+    if (4 * q < N) {
+      const float4 b4 = bq[q], c4 = bq[MAX_N / 4 + q];
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = 4 * q + k;
+        h[n] = exp2f(dtv * a2[n]) * h[n] + drive * bv[k];
+        yv += h[n] * cv[k];
+      }
+    }
+  }
+  return yv;
+}
+
+// Stages B_t and C_t of `steps` steps from s0 of sequence b into `bc` as
+// fp32, 2 * MAX_N floats a step (B, then C, zeros beyond N). Every thread of
+// the block takes part; the caller synchronises.
+template <typename T>
+__device__ __forceinline__ void stage_bc(const Operands& o, long b, int s0, int steps,
+                                         int N, float* bc) {
+  const T* __restrict__ Bm = static_cast<const T*>(o.B) + b * o.sbb;
+  const T* __restrict__ Cm = static_cast<const T*>(o.C) + b * o.sbc;
+  for (int i = threadIdx.x; i < steps * 2 * MAX_N; i += blockDim.x) {
+    const int s = i / (2 * MAX_N), j = i - s * (2 * MAX_N);
+    const int n = j < MAX_N ? j : j - MAX_N;
+    float v = 0.0f;
+    if (n < N) {
+      const long t = s0 + s;
+      v = to_f32(j < MAX_N ? Bm[t * o.slb + n] : Cm[t * o.slc + n]);
+    }
+    bc[i] = v;
+  }
 }
 
 // Walks steps [t_begin, t_end) of sequence b for channel d (back to front
 // when `reverse`), advancing the N states h from and into registers, and
-// writes y unless it is null; returns the sum of dt over the steps. Every
-// thread of the block calls it (B_t and C_t of the block's sequence are
-// staged in shared memory `bc`, 2 * MAX_N floats a step: B, then C); `live`
-// says whether this thread's channel exists.
-template <typename T>
+// writes y (plus `add` at the same place, when not null) unless y is null;
+// returns the sum of dt over the steps. Every thread of the block calls it
+// (B_t and C_t of the block's sequence are staged in shared memory `bc`,
+// STAGE steps at a time); `live` says whether this thread's channel exists.
+template <typename T, typename TY = T>
 __device__ __forceinline__ float walk(const Operands& o, long b, int d, bool live,
                                       int t_begin, int t_end, int L, int D, int N,
                                       bool reverse, const float* a2, float dd,
-                                      float* h, T* __restrict__ y, float* bc) {
+                                      float* h, TY* __restrict__ y, float* bc,
+                                      const float* add = nullptr) {
   const T* __restrict__ x = static_cast<const T*>(o.x) + b * o.sbx + d;
   const T* __restrict__ dt = static_cast<const T*>(o.dt) + b * o.sbdt + d;
-  const T* __restrict__ Bm = static_cast<const T*>(o.B) + b * o.sbb;
-  const T* __restrict__ Cm = static_cast<const T*>(o.C) + b * o.sbc;
   float dsum = 0.0f;
   for (int c0 = 0; c0 < t_end - t_begin; c0 += STAGE) {
     const int steps = min(STAGE, t_end - t_begin - c0);
     const int s0 = reverse ? t_end - c0 - steps : t_begin + c0;
     __syncthreads();  // the previous stage has been read
-    for (int i = threadIdx.x; i < steps * 2 * MAX_N; i += blockDim.x) {
-      const int s = i / (2 * MAX_N), j = i - s * (2 * MAX_N);
-      const int n = j < MAX_N ? j : j - MAX_N;
-      float v = 0.0f;
-      if (n < N) {
-        const long t = s0 + s;
-        v = to_f32(j < MAX_N ? Bm[t * o.slb + n] : Cm[t * o.slc + n]);
-      }
-      bc[i] = v;
-    }
+    stage_bc<T>(o, b, s0, steps, N, bc);
     __syncthreads();
     if (!live) continue;
     for (int u = 0; u < steps; ++u) {
@@ -160,24 +217,11 @@ __device__ __forceinline__ float walk(const Operands& o, long b, int d, bool liv
       const long t = s0 + s;
       const float xv = to_f32(x[t * o.slx]);
       const float dtv = to_f32(dt[t * o.sldt]);
-      const float drive = dtv * xv;
-      const float4* bq = reinterpret_cast<const float4*>(bc + s * 2 * MAX_N);
-      float yv = dd * xv;
-#pragma unroll
-      for (int q = 0; q < MAX_N / 4; ++q) {
-        if (4 * q < N) {
-          const float4 b4 = bq[q], c4 = bq[MAX_N / 4 + q];
-          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int n = 4 * q + k;
-            h[n] = exp2f(dtv * a2[n]) * h[n] + drive * bv[k];
-            yv += h[n] * cv[k];
-          }
-        }
+      const float yv = step(h, a2, dtv, xv, bc + s * 2 * MAX_N, N, dd * xv);
+      if (y) {
+        const size_t e = ((size_t)b * L + t) * D + d;
+        y[e] = from_f32<TY>(add ? add[e] + yv : yv);
       }
-      if (y) y[((size_t)b * L + t) * D + d] = from_f32<T>(yv);
       dsum += dtv;
     }
   }
@@ -206,11 +250,13 @@ scan_short_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
   if (kState && live) store_row(h, N, hlast + ((size_t)b * D + d) * N);
 }
 
-// One stateless direction of row 6, from zero state.
-template <typename T>
+// One stateless direction of rows 6 and 10, from zero state; y gets `add`
+// added when that is not null.
+template <typename T, typename TY = T>
 __device__ __forceinline__ void scan_stream(const Operands& o, long b, int d, bool live,
                                             int L, int D, int N, bool reverse,
-                                            T* __restrict__ y, float* bc) {
+                                            TY* __restrict__ y, float* bc,
+                                            const float* add = nullptr) {
   float a2[MAX_N], h[MAX_N];
 #pragma unroll
   for (int n = 0; n < MAX_N; ++n) h[n] = 0.0f;
@@ -219,7 +265,7 @@ __device__ __forceinline__ void scan_stream(const Operands& o, long b, int d, bo
     load_a(o.A, d, N, a2);
     dd = o.D[d];
   }
-  walk<T>(o, b, d, live, 0, L, L, D, N, reverse, a2, dd, h, y, bc);
+  walk<T, TY>(o, b, d, live, 0, L, L, D, N, reverse, a2, dd, h, y, bc, add);
 }
 
 // Row 6: the forward stream walks l up, then the backward stream walks l
@@ -234,6 +280,73 @@ scan_bidir_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   const bool live = d < D;
   scan_stream<T>(fo, b, d, live, L, D, N, false, yf, bc);
   scan_stream<T>(bo, b, d, live, L, D, N, true, yb, bc);
+}
+
+// Row 10 for L <= LMAX and N <= NMAX: B_t and C_t of every step are staged
+// once in shared memory for both directions; the forward pass keeps its y
+// (with its D skip) in registers as fp32, the backward pass adds its own
+// and stores y once. u is read in both passes, the second time from L1 (the
+// block's slab is a few KB), which keeps the registers at 64 or fewer.
+// Loops run over LMAX and NMAX with a guard, so every register index is
+// static. `fo` and `bo` differ in dt, A and D only.
+// Grid (B, ceil(D / blockDim)).
+template <typename T, int LMAX, int NMAX>
+__global__ void __launch_bounds__(MAX_THREADS, LMAX <= 16 ? 4 : 2)
+scan_bidir_shared_kernel(Operands fo, Operands bo, T* __restrict__ y, int L,
+                         int D, int N) {
+  __shared__ __align__(16) float bc[LMAX * 2 * MAX_N];
+  const long b = blockIdx.x;
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
+  stage_bc<T>(fo, b, 0, L, N, bc);
+  __syncthreads();
+  if (d >= D) return;
+  const T* __restrict__ u = static_cast<const T*>(fo.x) + b * fo.sbx + d;
+  float acc[LMAX], a2[NMAX], h[NMAX];
+
+  load_a<NMAX>(fo.A, d, N, a2);
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) h[n] = 0.0f;
+  const float df = fo.D[d];
+  const T* __restrict__ dtf = static_cast<const T*>(fo.dt) + b * fo.sbdt + d;
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) {
+    if (l < L) {
+      const float xv = to_f32(u[l * fo.slx]);
+      acc[l] = step<NMAX>(h, a2, to_f32(dtf[l * fo.sldt]), xv,
+                          bc + l * 2 * MAX_N, N, df * xv);
+    }
+  }
+
+  load_a<NMAX>(bo.A, d, N, a2);
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) h[n] = 0.0f;
+  const float db = bo.D[d];
+  const T* __restrict__ dtb = static_cast<const T*>(bo.dt) + b * bo.sbdt + d;
+#pragma unroll
+  for (int l = LMAX - 1; l >= 0; --l) {
+    if (l < L) {
+      // u again: the block's (L, D) slab was read a pass ago and sits in L1
+      const float xv = to_f32(u[l * fo.slx]);
+      const float yb = step<NMAX>(h, a2, to_f32(dtb[l * bo.sldt]), xv,
+                                  bc + l * 2 * MAX_N, N, db * xv);
+      y[((size_t)b * L + l) * D + d] = from_f32<T>(acc[l] + yb);
+    }
+  }
+}
+
+// Row 10 for longer L: the forward pass writes its y to an fp32 workspace
+// laid out as y, the backward pass adds it to its own and stores y once
+// (each thread reads back only what it wrote). Grid (B, ceil(D / blockDim)).
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan_bidir_shared_ws_kernel(Operands fo, Operands bo, float* __restrict__ ws,
+                            T* __restrict__ y, int L, int D, int N) {
+  __shared__ __align__(16) float bc[STAGE * 2 * MAX_N];
+  const long b = blockIdx.x;
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool live = d < D;
+  scan_stream<T, float>(fo, b, d, live, L, D, N, false, ws, bc);
+  scan_stream<T, T>(bo, b, d, live, L, D, N, true, y, bc, ws);
 }
 
 // Row 9, phase 1 (kOutput false): chunk end states from zero state and the
@@ -404,6 +517,63 @@ int vetk_selective_scan_bidir(int dtype, const void* xf, const void* dtf,
     using T = typename decltype(tag)::type;
     scan_bidir_kernel<T><<<grid, threads, 0, st>>>(
         fo, bo, static_cast<T*>(yf), static_cast<T*>(yb), L, D, N);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Longest L that row 10 keeps in registers; longer ones need the workspace.
+int vetk_selective_scan_shared_max_l() { return SHARED_MAX_L; }
+
+// Row 10: y = the forward scan of (u, dtf, Af, B, C, Df) plus the backward
+// scan of (u, dtb, Ab, B, C, Db), summed in fp32 and cast once. strides (10
+// values, host memory): the batch and step strides, in elements, of u, dtf,
+// dtb, B and C. ws: an fp32 (B, L, D) workspace, needed (and read) only for
+// L > SHARED_MAX_L. Returns a cudaError_t (0 on success). Requires N <= 16.
+int vetk_selective_scan_bidir_shared(int dtype, const void* u, const void* dtf,
+                                     const void* dtb, const void* Af,
+                                     const void* Ab, const void* Bm,
+                                     const void* Cm, const void* Df,
+                                     const void* Db, void* y, void* ws, int B,
+                                     int L, int D, int N, const long* strides,
+                                     void* stream) {
+  if (bad_shape(B, L, D, N) || (L > SHARED_MAX_L && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long sf[8] = {strides[0], strides[1], strides[2], strides[3],
+                      strides[6], strides[7], strides[8], strides[9]};
+  const long sb[8] = {strides[0], strides[1], strides[4], strides[5],
+                      strides[6], strides[7], strides[8], strides[9]};
+  const Operands fo = operands(u, dtf, Af, Bm, Cm, Df, sf);
+  const Operands bo = operands(u, dtb, Ab, Bm, Cm, Db, sb);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int threads = threads_for(D);
+  const dim3 grid(B, blocks_for(D, threads));
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    T* yt = static_cast<T*>(y);
+    if (L > SHARED_MAX_L) {
+      scan_bidir_shared_ws_kernel<T><<<grid, threads, 0, st>>>(
+          fo, bo, static_cast<float*>(ws), yt, L, D, N);
+      return (int)cudaGetLastError();
+    }
+    // the register kernel for the smallest (LMAX, NMAX) that holds (L, N)
+    auto launch = [&](auto lmax, auto nmax) {
+      scan_bidir_shared_kernel<T, decltype(lmax)::value, decltype(nmax)::value>
+          <<<grid, threads, 0, st>>>(fo, bo, yt, L, D, N);
+    };
+    auto by_n = [&](auto lmax) {
+      if (N <= 4)
+        launch(lmax, std::integral_constant<int, 4>{});
+      else if (N <= 8)
+        launch(lmax, std::integral_constant<int, 8>{});
+      else
+        launch(lmax, std::integral_constant<int, MAX_N>{});
+    };
+    if (L <= 8)
+      by_n(std::integral_constant<int, 8>{});
+    else if (L <= 16)
+      by_n(std::integral_constant<int, 16>{});
+    else
+      by_n(std::integral_constant<int, SHARED_MAX_L>{});
     return (int)cudaGetLastError();
   });
 }

@@ -10,7 +10,7 @@ flags, built in a fresh temporary directory and moved into place, so a
 half-built file or a library of other sources is never loaded.
 
 Each kernel's wrapper lives beside its plain PyTorch version (ops/ssd.py,
-ops/scan.py, ops/attention.py) and adds one to its entry of
+ops/scan.py, ops/attention.py, ops/conv.py) and adds one to its entry of
 ``launch_counts`` where it launches the kernel, and nowhere else.
 """
 
@@ -45,7 +45,9 @@ launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0,
                                  "selective_scan_bidir": 0,
                                  "selective_scan_short": 0,
                                  "selective_scan_short_nostate": 0,
-                                 "selective_scan_long": 0}
+                                 "selective_scan_long": 0,
+                                 "selective_scan_bidir_shared": 0,
+                                 "dwconv_silu": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -76,6 +78,14 @@ _SIGNATURES = {
     # strides, stream
     "vetk_selective_scan_long": [_I] + [_P] * 11 + [_I] * 4 + [_P, _P],
     "vetk_selective_scan_chunk": [],
+    # dtype, u, dtf, dtb, Af, Ab, B, C, Df, Db, y, workspace, B, L, D, N,
+    # strides (u, dtf, dtb, B, C), stream
+    "vetk_selective_scan_bidir_shared": [_I] + [_P] * 11 + [_I] * 4
+    + [_P, _P],
+    "vetk_selective_scan_shared_max_l": [],
+    # dtype, x, w, bias, y, B, L, C, K, ld, vec, stream
+    "vetk_dwconv_silu": [_I] + [_P] * 4 + [_I] * 4 + [_L, _I, _P],
+    "vetk_dwconv_silu_max_k": [],
 }
 
 

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import depthwise_conv1d
+from ..ops.conv import depthwise_conv1d, depthwise_conv1d_silu
 from ..ops.scan import (fused_bidir_ssm, selective_scan,
                         selective_scan_bidir, selective_scan_bidir_shared)
 from ..ops.ssd import ssd_shared
@@ -192,10 +192,16 @@ def bissd_init(gen: torch.Generator, dim: int, state_dim: int = 32,
 
 
 def bissd_apply(p: dict, x: torch.Tensor, chunk: int = 256,
+                conv_impl: str = "grouped",
                 use_kernel: bool | None = None) -> torch.Tensor:
     """x ``(B, L, dim)`` -> ``(B, L, dim)``: one in_proj and one SAME
     depthwise conv feed a forward and a reverse SSD scan (their own decays
     and dt biases), summed, D skip, gated RMS norm (eps 1e-6), out_proj.
+    ``conv_impl``, with the JAX package's values: ``"grouped"`` (the
+    default) runs the conv and then the SiLU as PyTorch ops; ``"pallas"``
+    runs both as ``depthwise_conv1d_silu``, the counterpart of the TPU
+    kernel ``_dwconv_silu_kernel`` (csrc/dwconv_silu.cu for a CUDA tensor),
+    which the JAX package keeps behind this switch for A/B runs.
     ``use_kernel`` is passed to ``ssd_shared`` (None keeps its dtype rule)."""
     heads = p["A_log_f"].shape[0]
     inner = p["D"].shape[0]
@@ -206,7 +212,13 @@ def bissd_apply(p: dict, x: torch.Tensor, chunk: int = 256,
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner:2 * inner + 2 * state_dim]
     dt_raw = zxbcdt[..., -heads:].float()
-    xbc = F.silu(depthwise_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    if conv_impl == "pallas":
+        xbc = depthwise_conv1d_silu(xbc, p["conv_w"].to(xbc.dtype),
+                                    p["conv_b"])
+    elif conv_impl == "grouped":
+        xbc = F.silu(depthwise_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    else:
+        raise ValueError(f"unknown conv_impl {conv_impl!r}")
     u = xbc[..., :inner]
     Bm = xbc[..., inner:inner + state_dim]
     Cm = xbc[..., inner + state_dim:]

@@ -6,6 +6,11 @@ C)``, clips ``(B, T, H, W, C)``, sequences ``(B, L, C)``. Weights are in
 PyTorch's layout (runtime/weights.py converts the bundled checkpoints).
 Padding is XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``
 (``depthwise_conv1d`` also takes explicit padding).
+
+``depthwise_conv1d_silu`` is SiLU of the SAME depthwise conv in one pass:
+for a CUDA tensor it launches the port's kernel (csrc/dwconv_silu.cu, the
+counterpart of TPU kernel ``_dwconv_silu_kernel``), for a CPU tensor it
+takes ``depthwise_conv1d_silu_plain``.
 """
 
 from __future__ import annotations
@@ -13,7 +18,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "conv3d", "depthwise_conv1d"]
+from .. import kernels
+
+__all__ = ["conv2d", "conv3d", "depthwise_conv1d", "depthwise_conv1d_silu",
+           "depthwise_conv1d_silu_plain"]
 
 
 def _same(k: int) -> tuple[int, int]:
@@ -85,3 +93,67 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     out = F.conv1d(xi, w.float(), None if b is None else b.float(), groups=C)
     return out.transpose(1, 2).to(x.dtype,
                                   memory_format=torch.contiguous_format)
+
+
+def depthwise_conv1d_silu_plain(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """``silu(depthwise_conv1d(x, w, b, SAME))`` with the conv and the SiLU
+    in fp32 and one cast to x's dtype, as the JAX package's
+    ``_dwconv_silu_ref`` (ops/conv.py:246-249). (bissd's grouped path casts
+    the conv to x's dtype before the SiLU, so in bf16 the two differ by a
+    rounding, as they do in JAX.)"""
+    return F.silu(depthwise_conv1d(x.float(), w.float(), b)).to(x.dtype)
+
+
+def _vec_width(x: torch.Tensor, ld: int) -> int:
+    """Channels the kernel moves as one load: the widest of 8, 4, 2, 1 (at
+    most 16 bytes) that divides C and the row stride and to which the
+    pointer is aligned."""
+    size = x.element_size()
+    for v in (8, 4, 2):
+        if (v * size <= 16 and x.shape[-1] % v == 0 and ld % v == 0
+                and x.data_ptr() % (v * size) == 0):
+            return v
+    return 1
+
+
+def _dwconv_silu_cuda(x, w, b):
+    if x.ndim != 3:
+        raise ValueError(f"x must be (B, L, C), got {tuple(x.shape)}")
+    Bsz, L, C = x.shape
+    K = w.shape[-1]
+    if tuple(w.shape) != (C, 1, K) or tuple(b.shape) != (C,):
+        raise ValueError(f"w {tuple(w.shape)} and b {tuple(b.shape)} must be "
+                         f"({C}, 1, K) and ({C},)")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError("x, w and b must be on one device")
+    lib = kernels.library()
+    if K > lib.vetk_dwconv_silu_max_k():
+        raise ValueError(f"kernel takes K <= {lib.vetk_dwconv_silu_max_k()}, "
+                         f"got {K}")
+    ld = kernels.row_stride(x, "x")
+    w32 = w.float().reshape(C, K).contiguous()
+    b32 = b.float().contiguous()
+    y = torch.empty((Bsz, L, C), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.vetk_dwconv_silu(
+            kernels.dtype_code(x), x.data_ptr(), w32.data_ptr(),
+            b32.data_ptr(), y.data_ptr(), Bsz, L, C, K, ld,
+            _vec_width(x, ld), kernels.stream_of(x))
+        kernels.launch_counts["dwconv_silu"] += 1
+    kernels.check(err, "dwconv_silu")
+    return y
+
+
+def depthwise_conv1d_silu(x: torch.Tensor, w: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """``silu(depthwise_conv1d(x, w, b, SAME))`` in one pass (TPU kernel
+    ``_dwconv_silu_kernel``): x ``(B, L, C)`` with any row stride (a column
+    slice of a wider projection is read in place), w ``(C, 1, K)``, b
+    ``(C,)``; y in x's dtype. Launches the CUDA kernel for a CUDA tensor
+    (K <= 8); the plain version for a CPU tensor."""
+    if x.device.type == "cuda":
+        return _dwconv_silu_cuda(x, w, b)
+    if x.device.type == "cpu":
+        return depthwise_conv1d_silu_plain(x, w, b)
+    raise ValueError(f"depthwise_conv1d_silu: no kernel for {x.device}")

@@ -24,7 +24,11 @@ argument order and ``impl`` strings are the JAX package's:
   tensor each takes its plain version;
 - ``selective_scan``: the JAX dispatch rule (ops/scan.py:615-624) with "on
   the TPU" read as "a CUDA tensor";
-- ``chunked_selective_scan`` and ``selective_scan_bidir_shared``.
+- ``chunked_selective_scan``;
+- ``selective_scan_bidir_shared``: the forward and reverse scans over
+  shared u/B/C, summed; its ``impl="bmajor"`` is TPU kernel
+  ``_scan_bidir_shared_kernel`` (csrc/selective_scan.cu for a CUDA tensor,
+  ``selective_scan_bidir_shared_plain`` for a CPU tensor).
 
 ``fused_bidir_ssm`` is the whole bissm interior (csrc/fused_bissm.cu):
 depthwise conv (SAME, bias), SiLU, x_proj (D -> dt_rank + 2N), dt_proj with
@@ -50,6 +54,7 @@ __all__ = ["selective_scan_plain", "selective_scan_ref",
            "selective_scan_pallas", "selective_scan",
            "chunked_selective_scan", "selective_scan_bidir",
            "selective_scan_bidir_plain", "selective_scan_bidir_shared",
+           "selective_scan_bidir_shared_plain",
            "scan_flops", "fused_bidir_ssm", "fused_bidir_ssm_plain",
            "fused_bidir_ssm_kernel"]
 
@@ -310,22 +315,62 @@ def selective_scan_bidir(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
     raise ValueError(f"selective_scan_bidir: no kernel for {xf.device}")
 
 
+def selective_scan_bidir_shared_plain(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db):
+    """A forward and a back-to-front sequential scan over the shared u, B
+    and C, each cast to u's dtype, summed: the JAX package's
+    ``_bidir_shared_ref`` (ops/scan.py:756-760)."""
+    yf, _ = selective_scan_plain(u, dtf, Af, Bm, Cm, Df)
+    yb, _ = selective_scan_plain(u, dtb, Ab, Bm, Cm, Db, reverse=True)
+    return yf + yb
+
+
+def _scan_bidir_shared_cuda(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db):
+    _check_stream(u, dtf, Af, Bm, Cm, Df)
+    _check_stream(u, dtb, Ab, Bm, Cm, Db)
+    Bsz, L, Dd = u.shape
+    N = Af.shape[1]
+    strides = kernels.seq_strides((u, "u"), (dtf, "dtf"), (dtb, "dtb"),
+                                  (Bm, "B"), (Cm, "C"))
+    lib = kernels.library()
+    y = torch.empty((Bsz, L, Dd), dtype=u.dtype, device=u.device)
+    ws = (torch.empty((Bsz, L, Dd), device=u.device)
+          if L > lib.vetk_selective_scan_shared_max_l() else None)
+    w = [t.float().contiguous() for t in (Af, Ab, Df, Db)]
+    with torch.cuda.device(u.device):
+        err = lib.vetk_selective_scan_bidir_shared(
+            kernels.dtype_code(u), u.data_ptr(), dtf.data_ptr(),
+            dtb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), w[2].data_ptr(), w[3].data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), Bsz, L, Dd, N, strides,
+            kernels.stream_of(u))
+        kernels.launch_counts["selective_scan_bidir_shared"] += 1
+    kernels.check(err, "selective_scan_bidir_shared")
+    return y
+
+
 def selective_scan_bidir_shared(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db,
                                 impl: str = "bidir"):
     """Sum of a forward and a time-reversed scan over SHARED u/B/C streams
     (the directions differ in dt, A and D). ``impl="bidir"`` runs
-    ``selective_scan_bidir`` with u, B and C passed for both streams. The
-    batch-major ``"bmajor"`` kernel (TPU kernel ``_scan_bidir_shared_kernel``)
-    is not ported yet."""
+    ``selective_scan_bidir`` with u, B and C passed for both streams and
+    sums its two outputs. ``impl="bmajor"`` is the counterpart of TPU
+    kernel ``_scan_bidir_shared_kernel``, which the JAX package keeps behind
+    this switch for A/B runs: for a CUDA tensor one kernel
+    (csrc/selective_scan.cu) reads u, B and C once, holds the forward
+    output in fp32 and casts the sum once; for a CPU tensor
+    ``selective_scan_bidir_shared_plain``."""
     if impl == "bidir":
         yf, yb = selective_scan_bidir(u, dtf, Af, Bm, Cm, Df,
                                       u, dtb, Ab, Bm, Cm, Db)
         return yf + yb
-    if impl == "bmajor":
-        raise NotImplementedError(
-            "impl='bmajor' needs TPU kernel row 10 (_scan_bidir_shared_kernel),"
-            " not ported yet (ROADMAP.md section 2)")
-    raise ValueError(f"unknown impl {impl!r}")
+    if impl != "bmajor":
+        raise ValueError(f"unknown impl {impl!r}")
+    args = (u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)
+    if u.device.type == "cuda":
+        return _scan_bidir_shared_cuda(*args)
+    if u.device.type == "cpu":
+        return selective_scan_bidir_shared_plain(*args)
+    raise ValueError(f"selective_scan_bidir_shared: no kernel for {u.device}")
 
 
 def fused_bidir_ssm_plain(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,

@@ -4,9 +4,8 @@ a time axis (parallel/mesh.py).
 Counterpart of video_enhancer_tpu/parallel/temporal.py:
 
 - ``halo_exchange_time`` (:36-66): pad each shard with ``halo`` boundary
-  steps of its neighbours, so that temporal convolutions see real context.
-  JAX sends them around a ring (``ppermute``); here every rank gathers all
-  boundary blocks and takes its neighbours';
+  steps of its neighbours, so that temporal convolutions see real context
+  (parallel/mesh.py ``halo_exchange`` along T);
 - ``temporal_parallel_scan`` (:69-119): the exact distributed selective
   scan. Each shard scans from zero state, the shards gather their (decay,
   end state) summaries, an exclusive prefix-combine gives each shard its
@@ -20,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.scan import selective_scan
-from .mesh import TimeAxis
+from .mesh import TimeAxis, halo_exchange
 
 __all__ = ["halo_exchange_time", "temporal_parallel_scan",
            "make_temporal_scan"]
@@ -32,21 +31,7 @@ def halo_exchange_time(x: torch.Tensor, halo: int, axis: TimeAxis,
     neighbour's last ``halo`` steps, x, the right neighbour's first. At the
     global ends ``edge="replicate"`` repeats the boundary step and
     ``"zero"`` inserts zeros (what an unsharded zero-padded conv sees)."""
-    n, idx = axis.size, axis.index
-    t = x.shape[1]
-    left, right = x[:, :halo], x[:, t - halo:]
-    blocks = axis.all_gather(torch.stack([left, right]))     # (n, 2, ...)
-    if idx == 0:
-        from_left = (torch.zeros_like(left) if edge == "zero"
-                     else x[:, :1].expand_as(left))
-    else:
-        from_left = blocks[idx - 1, 1]
-    if idx == n - 1:
-        from_right = (torch.zeros_like(right) if edge == "zero"
-                      else x[:, t - 1:].expand_as(right))
-    else:
-        from_right = blocks[idx + 1, 0]
-    return torch.cat([from_left, x, from_right], dim=1)
+    return halo_exchange(x, halo, axis, dim=1, edge=edge)
 
 
 def temporal_parallel_scan(x, dt, A, Bmat, C, D, axis: TimeAxis,

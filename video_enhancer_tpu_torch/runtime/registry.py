@@ -2,22 +2,29 @@
 cnn_upscaler and bicubic.
 
 Counterpart of video_enhancer_tpu/runtime/registry.py: availability
-(:48-75), the weight-resolution chain (:93-123) and the handlers of
-cnn_upscaler and bicubic (:145-160), fast_mamba_vsr (:161-185), vsrm
-(:187-215), ditvr (:235-266) and rvrt (:268-281). Each handler reads its
-entry from the policy it is given (the default policy otherwise). Unlike the
-JAX registry, ``build_handler`` keeps no cache: each call builds a handler.
+(:48-75), the handler cache (:21-23, 78-90), the weight-resolution chain
+(:93-123), the serving mesh (:126-135) and the handlers of cnn_upscaler
+and bicubic (:145-160), fast_mamba_vsr (:161-185), vsrm (:187-215), ditvr
+(:235-266) and rvrt (:268-281). Each handler reads its entry from the
+policy it is given (the default policy otherwise). The JAX cache is keyed
+by the model's name alone; this one is keyed by everything a build reads
+(the name, the device, the policy's entry and the mesh), so a handler
+built for one device or entry is never handed to a caller of another.
 """
 
 from __future__ import annotations
 
+import threading
 import zlib
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..config import MODELS, ModelEntry, Policy, default_policy
+from ..device import resolve_device
 from ..models import ditvr, fast_mamba_vsr, rvrt, vsrm
+from ..parallel.mesh import Mesh, mesh_on_group
 from .calibration import calibrate_restore, calibrate_vsr
 from .qualification import disqualified_models
 from .upscaler_handler import CnnUpscalerHandler
@@ -25,10 +32,14 @@ from .vsr_handler import VSRHandler
 from .weights import read_npz, try_load_params
 
 __all__ = ["MODELS", "WEIGHTS_DIR", "bundled_weights", "load_params",
-           "probe_available", "build_handler", "read_npz"]
+           "probe_available", "build_handler", "clear_cache", "read_npz"]
 
 WEIGHTS_DIR = (Path(__file__).resolve().parents[2] / "video_enhancer_tpu"
                / "weights")
+
+_lock = threading.Lock()
+_cache: dict[tuple, object] = {}
+_meshes: dict[tuple, Mesh] = {}
 
 
 def bundled_weights(name: str, scale: int | None = None) -> Path | None:
@@ -83,16 +94,62 @@ def probe_available(policy: Policy | None = None) -> set[str]:
             - disqualified_models())
 
 
+def clear_cache() -> None:
+    """Forget every cached handler."""
+    with _lock:
+        _cache.clear()
+
+
+def _serving_mesh(policy: Policy, device: torch.device) -> Mesh | None:
+    """The policy's ``data x time x space`` mesh over the initialised
+    process group when the policy asks for more than one rank and the group
+    has exactly that many; None otherwise, as the JAX registry serves
+    unsharded with too few devices. One mesh is made per process group and
+    device, by every rank at its first build (it creates the axes'
+    groups)."""
+    cfg = policy.mesh
+    if (cfg.num_devices <= 1 or not dist.is_initialized()
+            or dist.get_world_size() != cfg.num_devices):
+        return None
+    key = (cfg, dist.group.WORLD, str(device))
+    with _lock:
+        mesh = _meshes.get(key)
+    if mesh is None:
+        mesh = mesh_on_group(cfg.data, cfg.time, cfg.space, device)
+        with _lock:
+            mesh = _meshes.setdefault(key, mesh)
+    return mesh
+
+
 def build_handler(name: str = "vsrm", policy: Policy | None = None,
                   device: str | torch.device | None = None):
     """The serving handler of ``name`` on ``device`` (the card unless
     ``"cpu"`` is asked for), with its entry from ``policy``: the VSR models
-    in bf16 behind their calibrated blends, cnn_upscaler in bf16, bicubic in
-    fp32."""
+    in bf16 behind their calibrated blends, on the policy's mesh when one is
+    up (``_serving_mesh``), cnn_upscaler in bf16, bicubic in fp32. A handler
+    is built once for each name, device, entry and mesh and then handed
+    out again (``clear_cache`` forgets them); a build that raises caches
+    nothing. The build runs outside the cache's lock, so a slow build does
+    not hold up others (two callers of one key may both build; the first
+    stored is kept)."""
     policy = policy or default_policy()
     entry = policy.models.get(name)
     if name not in MODELS or entry is None:
         raise KeyError(f"the port serves {sorted(MODELS)}, not {name!r}")
+    dev = resolve_device(device)
+    mesh = (None if name in ("cnn_upscaler", "bicubic")
+            else _serving_mesh(policy, dev))
+    key = (name, str(dev), repr(entry), mesh)
+    with _lock:
+        handler = _cache.get(key)
+    if handler is None:
+        handler = _build(name, entry, dev, mesh)
+        with _lock:
+            handler = _cache.setdefault(key, handler)
+    return handler
+
+
+def _build(name: str, entry: ModelEntry, device: torch.device, mesh):
     if name in ("cnn_upscaler", "bicubic"):
         use_cnn = name == "cnn_upscaler"
         weights = entry.weights_path or bundled_weights(name, entry.scale)
@@ -101,7 +158,7 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
             weights_path=weights if use_cnn else None, device=device)
     scale = entry.scale
     tiles = dict(tile=entry.tile, tile_overlap=entry.tile_overlap,
-                 device=device)
+                 device=device, mesh=mesh)
     windows = dict(chunk=entry.window,
                    overlap=max(entry.window - entry.stride, 0), **tiles)
     params = load_params(name, entry)

@@ -2,7 +2,7 @@
 model ``(B, T, H, W, 3) -> (B, T, sH, sW, 3)``.
 
 Counterpart of video_enhancer_tpu/runtime/vsr_handler.py:35-247 without its
-mesh and quality-gate options (no served model of the port uses them):
+quality gate (a scale-1 option of seedvr2, not ported yet):
 
 - windows of ``chunk`` frames overlapping by ``overlap``; overlap frames are
   written from the later window (its fresh temporal context) and a padded
@@ -10,11 +10,15 @@ mesh and quality-gate options (no served model of the port uses them):
 - frames larger than ``tile`` are cut into overlapping tiles, run in groups
   of 4 (the last group padded by repeating its last tile) and blended back
   with ramp weights (ops/blend.py);
+- with a ``mesh`` of more than one rank (parallel/mesh.py), a window whose
+  T and H split over the mesh runs sharded instead
+  (parallel/inference.py ``make_mesh_sharded_clip_fn``: frame halos of
+  ``max(overlap, 1)``, row halos of 8), on every rank of the mesh;
 - parameters are cast to the compute dtype (bf16 by default) once;
 - ``context`` holds per-video conditioning (ditvr's degradation scores and
   type) as tensors on the handler's device, passed to the model as keyword
-  arguments on every forward, tiles included; ``update_context`` changes
-  it between videos.
+  arguments on every forward, tiles and shards included;
+  ``update_context`` changes it between videos.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from ..device import resolve_device
 from ..io.pipeline import iter_windows
 from ..ops.blend import overlap_add_blend
+from ..parallel.inference import make_mesh_sharded_clip_fn
 
 __all__ = ["VSRHandler", "cast_params"]
 
@@ -52,7 +57,7 @@ class VSRHandler:
                  chunk: int = 8, overlap: int = 2, tile: int = 512,
                  tile_overlap: int = 32, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
-                 context: dict | None = None):
+                 context: dict | None = None, mesh=None):
         self.name = name
         self.apply_fn = apply_fn
         self.scale = scale
@@ -65,6 +70,12 @@ class VSRHandler:
         self.params = cast_params(params, dtype, self.device)
         self.context = {k: torch.as_tensor(v).to(self.device)
                         for k, v in (context or {}).items()}
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None and mesh.num_devices > 1:
+            self._sharded = make_mesh_sharded_clip_fn(
+                lambda _, x: self._fwd(x), mesh, halo_t=max(overlap, 1),
+                halo_s=8, scale=scale)
 
     def update_context(self, **kw) -> None:
         """Set context entries the handler has, keeping each one's dtype
@@ -82,8 +93,18 @@ class VSRHandler:
 
     def process_clip(self, clip: torch.Tensor) -> torch.Tensor:
         """``(T, H, W, 3)`` float32 on the handler's device -> ``(T, sH, sW,
-        3)`` float32, tiling when the frame is larger than ``tile``."""
+        3)`` float32: sharded over the mesh when T and H split over it (as
+        the JAX handler decides), else whole, or tiled when the frame is
+        larger than ``tile``."""
         t, h, w, _ = clip.shape
+        if self._sharded is not None:
+            n_t, n_s = self.mesh.shape["time"], self.mesh.shape["space"]
+            divisible = (t % n_t == 0 and h % n_s == 0
+                         and (n_t == 1 or t // n_t >= max(self.overlap, 1))
+                         and (n_s == 1 or h // n_s >= 8))
+            if divisible:
+                with torch.inference_mode():
+                    return self._sharded(self.params, clip[None])[0]
         if max(h, w) <= self.tile:
             return self._fwd(clip[None])[0]
         return self._tiled(clip)
