@@ -11,7 +11,9 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    (ptxas's register/shared-memory/spill report on earlier lines);
 3. kernels against their plain PyTorch versions at the main paths' shapes,
    in fp32 (TF32 off) and bf16, each with its tolerance; the flash kernel
-   also at ragged lengths, the fused SSM also at fast_mamba_vsr's shape,
+   also at ragged lengths (one across a 128-row tile edge, Dh 48), the
+   fused SSM also at fast_mamba_vsr's shape and at a count of sequences
+   that is not a multiple of the sequences a block,
    the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
    a nonzero h0, and a control: run with h0 = 0 it must read far from the
    plain version), the shared bidirectional scan (row 10) at vsrm's and
@@ -135,11 +137,14 @@ SSD_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=16)
 BISSM_SHAPE = dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4, K=5)
 # fast_mamba_vsr at 180x320, chunk 16: dim 48 -> inner 96, N 8, rank 3
 BISSM_FMV_SHAPE = dict(B=180 * 320, L=16, D=96, N=8, dt_rank=3, K=5)
+# vsrm's shape with 5 sequences fewer: not a multiple of the warps a block
+BISSM_RAGGED_SHAPE = dict(BISSM_SHAPE, B=180 * 320 - 5)
 # ditvr at 180x320, window 8: two 180x224 tiles in one batch, heads 3,
 # 4 x 45 x 56 = 10080 tokens of patch (2, 4, 4)
 FLASH_SHAPE = dict(B=2, H=3, L=10080, Dh=128)
 FLASH_RAGGED = [dict(B=2, H=3, Lq=300, Lk=1000, Dh=64),
-                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128)]
+                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
+                dict(B=2, H=3, Lq=129, Lk=1000, Dh=48)]
 # rvrt at 180x320, window 7: padded to 8x184x320, windows of 2x8x8 tokens,
 # dim 64, heads 4
 WINDOW_SHAPE = dict(nW=4 * 23 * 40, H=4, N=128, Dh=16)
@@ -731,8 +736,10 @@ def kernels_vs_plain() -> dict:
                 del got, ref
             del args
         # --- kernel 2: fused_bidir_ssm, at vsrm's and fast_mamba_vsr's shape
+        # and at a count of sequences that is not a multiple of a block's
         for key, shape in (("fused_bidir_ssm", BISSM_SHAPE),
-                           ("fused_bidir_ssm:fast_mamba_vsr", BISSM_FMV_SHAPE)):
+                           ("fused_bidir_ssm:fast_mamba_vsr", BISSM_FMV_SHAPE),
+                           ("fused_bidir_ssm:ragged B", BISSM_RAGGED_SHAPE)):
             for dtype in (torch.float32, torch.bfloat16):
                 gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
                 args = _bissm_inputs(dtype, gen, shape)

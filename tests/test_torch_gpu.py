@@ -23,13 +23,16 @@ from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissd_apply, bissd_init,
                                              bissm_apply, bissm_init,
                                              ssm_apply)
-from video_enhancer_tpu_torch.ops.attention import (attention, attention_ref,
+from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
+                                                    _flash_plan, _flash_smem,
+                                                    attention, attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
 from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
+    _FUSED_INSTANCES, _fused_bissm_plan, _fused_smem,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
@@ -103,6 +106,97 @@ def test_fused_bissm_kernel_matches_plain(cuda, dtype, B, L, D, N, K, r):
     torch.cuda.synchronize()
     assert kernels.launch_counts["fused_bidir_ssm"] == before + 1
     assert _rel(got, ref) <= TOL[dtype]
+
+
+def _fused_args(cuda, B, L, D, N, K, r, dtype, wdtype, seed, offset=0):
+    """u_pre and gate as the two halves of one (B, L, 2D) projection (row
+    stride 2D; shifted by ``offset`` elements off the 16-byte grid), the
+    weights in ``wdtype``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    xz = rnd(B, L, 2 * D + offset).to(dtype)[..., offset:]
+    u, gate = xz.chunk(2, dim=-1)
+    w = (rnd(D, 1, K, scale=0.3), rnd(D, scale=0.1),
+         rnd(r + 2 * N, D, scale=0.2), rnd(D, r, scale=0.2),
+         rnd(D, scale=0.1), rnd(D, scale=0.1) - 2, rnd(D, scale=0.1) - 2,
+         -torch.exp(rnd(D, N, scale=0.3)), -torch.exp(rnd(D, N, scale=0.3)),
+         rnd(D), rnd(D))
+    return (u, gate, *(t.to(wdtype) for t in w), r)
+
+
+# (D, N, K, dt_rank): vsrm's instance, fast_mamba_vsr's, the generic one at
+# its bounds and a narrow one
+FUSED_INSTANCE_CASES = [(128, 4, 5, 4), (96, 8, 5, 3), (256, 16, 8, 16),
+                        (32, 16, 3, 1)]
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 7, 16, 32])
+@pytest.mark.parametrize("B", [1, 7, 1000])
+@pytest.mark.parametrize("D,N,K,r", FUSED_INSTANCE_CASES)
+def test_fused_bissm_instances_match_plain(cuda, D, N, K, r, B, L, dtype,
+                                           wdtype):
+    """Every instance (the specialised ones where N, K, dt_rank, D and L
+    fit them, the generic one otherwise), B of 1, 7 and 1000 (not a
+    multiple of the warps a block), strided u and gate, weights in fp32 and
+    in bf16; one launch a call."""
+    args = _fused_args(cuda, B, L, D, N, K, r, dtype, wdtype, seed=B + L + D)
+    before = kernels.launch_counts["fused_bidir_ssm"]
+    got = fused_bidir_ssm_kernel(*args)
+    ref = fused_bidir_ssm_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["fused_bidir_ssm"] == before + 1
+    assert got.shape == (B, L, D) and got.dtype == dtype
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [57600, 57595])
+@pytest.mark.parametrize("L,D,N,K,r", [(7, 128, 4, 5, 4), (16, 96, 8, 5, 3)])
+def test_fused_bissm_at_the_served_shapes(cuda, L, D, N, K, r, B, dtype):
+    """vsrm's and fast_mamba_vsr's shapes, with B a multiple of the warps a
+    block and not."""
+    args = _fused_args(cuda, B, L, D, N, K, r, dtype, dtype, seed=L)
+    got = fused_bidir_ssm_kernel(*args)
+    ref = fused_bidir_ssm_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bissm_reads_rows_off_the_16_byte_grid(cuda, dtype):
+    """u and gate one element off the 16-byte grid take the kernel's plain
+    copies instead of cp.async."""
+    args = _fused_args(cuda, 300, 7, 128, 4, 5, 4, dtype, torch.float32,
+                       seed=3, offset=1)
+    assert args[0].data_ptr() % 16
+    got = fused_bidir_ssm_kernel(*args)
+    ref = fused_bidir_ssm_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D", [(7, 128), (16, 96), (32, 256), (1, 1)])
+def test_fused_bissm_plan_mirrors_the_kernel(cuda, dtype, L, D):
+    """The plan's shared memory is the kernel's own sum, for every
+    instance, and the plan launches a block the card takes."""
+    lib = kernels.library()
+    code = kernels.dtype_code(torch.empty((), dtype=dtype))
+    item = torch.empty((), dtype=dtype).element_size()
+    for index in range(len(_FUSED_INSTANCES)):
+        regs = lib.vetk_fused_bissm_regs(code, index)
+        assert 0 < regs <= 255
+        for warps in (1, 4):
+            assert (lib.vetk_fused_bissm_smem(code, index, L, D, warps)
+                    == _fused_smem(index, L, D, item, warps))
+    plan = _fused_bissm_plan(57600, L, D, 4, 5, 4, item,
+                             kernels.sm_count(cuda), regs=128)
+    assert plan["smem"] <= 232448
 
 
 def test_layers_route_through_kernels(cuda):
@@ -182,7 +276,54 @@ def test_flash_kernel_matches_plain(cuda, dtype, split, B, H, Lq, Lk, Dh):
     assert _rel(got, ref) <= FLASH_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+FLASH_LENGTHS = [1, 63, 127, 128, 129, 300, 1000]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("Dh", [16, 48, 64, 128])
+@pytest.mark.parametrize("Lk", FLASH_LENGTHS)
+@pytest.mark.parametrize("Lq", FLASH_LENGTHS)
+def test_flash_wgmma_kernel_at_tile_edges(cuda, Lq, Lk, Dh, dtype):
+    """Query and key lengths on both sides of the 128-row tiles, every
+    padded width (64: Dh 16-64; 128: Dh 128), views of a split projection
+    read in place; one launch a call."""
+    q, k, v = _qkv(cuda, dtype, 2, 3, Lq, Lk, Dh, "split", seed=7 * Lq + Lk)
+    assert _flash_plan(2, 3, Lq, Lk, Dh, 2, _flash_operands(
+        q=q, k=k, v=v, o=q))["copy"] == ()
+    before = kernels.launch_counts["flash_attention"]
+    got = flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert got.shape == (2, 3, Lq, Dh) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernel_copies_what_tma_cannot_read(cuda, dtype):
+    """Views one element off the 16-byte grid are copied once to dense
+    tensors (the plan says which) and give the plain version's result."""
+    q, k, v = _qkv(cuda, dtype, 2, 3, 300, 1000, 64, "odd", seed=5)
+    plan = _flash_plan(2, 3, 300, 1000, 64, 2,
+                       _flash_operands(q=q, k=k, v=v, o=q.contiguous()))
+    assert plan["copy"] == ("q", "k", "v")
+    before = kernels.launch_counts["flash_attention"]
+    got = flash_attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert _rel(got, ref) <= FLASH_TOL[dtype]
+
+
+def test_flash_plan_mirrors_the_kernel(cuda):
+    lib = kernels.library()
+    for dhp in (64, 128):
+        assert lib.vetk_flash_smem(dhp) == _flash_smem(dhp, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_kernel_scale_and_large_logits(cuda, dtype):
     """A given scale is used, and logits far from 0 stay finite."""
     q, k, v = _qkv(cuda, dtype, 1, 2, 70, 130, 32, "dense", seed=9)

@@ -1,0 +1,262 @@
+"""The launch arithmetic of the port's flash-attention and fused
+bidirectional-SSM kernels, on the CPU (no card, no compiler).
+
+``ops.attention._flash_plan`` and ``ops.scan._fused_bissm_plan`` are the
+pure functions the wrappers launch from: padded head width, grid, threads,
+shared memory, the TMA maps and the operands to copy (flash); the
+instance, warps a block, shared memory and grid (fused SSM). Over the
+kernels' whole accepted domains they stay inside what one H100 block and
+SM take (232,448 bytes of shared memory a block, 1024 threads, a grid y of
+65535, 2048 threads and 64K registers an SM), every TMA stride is a
+multiple of 16 bytes or the operand is planned as a copy, and what the
+kernels do not take raises the wrappers' ValueErrors. ``_flash_smem`` and
+``_fused_smem`` mirror the CUDA sources' own sums; the card-only tests hold
+the two against each other.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
+                                                    _flash_plan, _flash_smem)
+from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES,
+                                               _fused_bissm_plan,
+                                               _fused_instance, _fused_smem)
+
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+FAST = settings(max_examples=200, deadline=None, database=None)
+
+
+def _up(x, m):
+    return -(-x // m) * m
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+@st.composite
+def _flash_case(draw):
+    """A shape in the kernel's domain and each operand as (data_ptr,
+    (batch, head, row) strides): base offsets and strides of any size, as
+    strided views and padded projections give them."""
+    B = draw(st.integers(1, 64))
+    H = draw(st.integers(1, 65535 // B))
+    Lq = draw(st.integers(1, 1 << 20))
+    Lk = draw(st.integers(1, 1 << 20))
+    Dh = 16 * draw(st.integers(1, 8))
+    item = draw(st.sampled_from([2, 4]))
+    ops = {}
+    for name, rows in (("q", Lq), ("k", Lk), ("v", Lk), ("o", Lq)):
+        ptr = (1 << 20) + item * draw(st.integers(0, 40))
+        sl = Dh * draw(st.integers(1, 4)) + draw(st.integers(0, 9))
+        sh = draw(st.sampled_from([Dh, sl * rows]))
+        sb = max(sl * rows, sh * H) + draw(st.integers(0, 9))
+        ops[name] = (ptr, (sb, sh, sl))
+    return B, H, Lq, Lk, Dh, item, ops
+
+
+@FAST
+@given(_flash_case())
+def test_flash_plan_fits_a_block_over_the_domain(case):
+    B, H, Lq, Lk, Dh, item, ops = case
+    plan = _flash_plan(B, H, Lq, Lk, Dh, item, ops)
+    assert plan["smem"] <= SMEM_BLOCK
+    assert plan["threads"] <= 1024
+    assert plan["grid"][1] == B * H <= 65535
+    assert plan["dhp"] in ((32, 64, 128) if item == 4 else (64, 128))
+    assert Dh <= plan["dhp"]
+    if item == 4:           # CUDA-core kernel: 64 query rows a block, no TMA
+        assert plan["grid"][0] == _up(Lq, 64) // 64 and plan["copy"] == ()
+        return
+    assert plan["grid"][0] == _up(Lq, 128) // 128
+    for name, t in plan["tma"].items():
+        ptr = ops[name][0]
+        aligned = ptr % 16 == 0 and all(s % 16 == 0 for s in t["stride_bytes"])
+        assert (name in plan["copy"]) == (not aligned)
+        order = [(t["perm"] >> (2 * pos)) & 3 for pos in range(3)]
+        assert sorted(order) == [0, 1, 2]
+        # the map's dims 1-3 in stride order, the box a 64-column chunk of
+        # 128 rows (64 for the output)
+        assert list(t["stride_bytes"]) == sorted(t["stride_bytes"])
+        assert t["dims"][0] == Dh and t["box"][0] == 64
+        rows = {"q": Lq, "k": Lk, "v": Lk, "o": Lq}[name]
+        assert sorted(t["dims"][1:]) == sorted((rows, H, B))
+        assert sorted(t["box"][1:]) == [1, 1, 64 if name == "o" else 128]
+
+
+@FAST
+@given(_flash_case())
+def test_flash_plan_after_the_copy_needs_none(case):
+    """What the wrapper copies comes out dense and aligned: planning again
+    on the copies asks for no copy."""
+    B, H, Lq, Lk, Dh, item, ops = case
+    plan = _flash_plan(B, H, Lq, Lk, Dh, item, ops)
+    rows = {"q": Lq, "k": Lk, "v": Lk, "o": Lq}
+    dense = {n: (1 << 20, (H * rows[n] * Dh, rows[n] * Dh, Dh))
+             if n in plan["copy"] else ops[n] for n in ops}
+    assert _flash_plan(B, H, Lq, Lk, Dh, item, dense)["copy"] == ()
+
+
+@pytest.mark.parametrize("Dh", [0, 8, 24, 100, 144, 256])
+def test_flash_plan_refuses_a_head_dim(Dh):
+    ops = {n: (0, (1, 1, 1)) for n in "qkvo"}
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        _flash_plan(1, 1, 8, 8, Dh, 2, ops)
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk", [(1, 1, 0, 8), (1, 1, 8, 0),
+                                       (256, 257, 8, 8), (65536, 1, 8, 8)])
+def test_flash_plan_refuses_lengths_and_rows(B, H, Lq, Lk):
+    ops = {n: (0, (1, 1, 1)) for n in "qkvo"}
+    with pytest.raises(ValueError, match=r"Lq, Lk >= 1 and B\*H <= 65535"):
+        _flash_plan(B, H, Lq, Lk, 64, 2, ops)
+
+
+def _split_views(B, H, L, Dh, dtype, offset=0):
+    """q, k, v as ditvr hands them over: (B, H, L, Dh) views of the column
+    slices of one (B, L, 3*H*Dh) projection, shifted by ``offset``
+    elements; o as the wrapper allocates it."""
+    qkv = torch.zeros((B, L, 3 * H * Dh + offset), dtype=dtype)[..., offset:]
+    q, k, v = (z.reshape(B, L, H, Dh).transpose(1, 2)
+               for z in qkv.chunk(3, dim=-1))
+    o = torch.empty((B, L, H, Dh), dtype=dtype).permute(0, 2, 1, 3)
+    return q, k, v, o
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_copy_rule_reads_ditvr_views_in_place(dtype):
+    B, H, L, Dh = 2, 3, 256, 128       # ditvr's B, heads and head dim
+    q, k, v, o = _split_views(B, H, L, Dh, dtype)
+    plan = _flash_plan(B, H, L, L, Dh, 2, _flash_operands(q=q, k=k, v=v, o=o))
+    assert plan["copy"] == ()
+    # row stride 3*H*Dh = 1152 elements, heads Dh apart: heads are the
+    # map's inner dimension
+    assert plan["tma"]["q"]["stride_bytes"] == (256, 2304, 2304 * L)
+    assert plan["tma"]["q"]["box"] == (64, 1, 128, 1)
+    assert plan["strides"]["q"] == (1152 * L, 128, 1152)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_copy_rule_copies_an_odd_offset_view(dtype):
+    B, H, L, Dh = 2, 3, 256, 128
+    q, k, v, o = _split_views(B, H, L, Dh, dtype, offset=1)
+    ops = _flash_operands(q=q, k=k, v=v, o=o)
+    assert all(ops[n][0] % 16 for n in "qkv")
+    plan = _flash_plan(B, H, L, L, Dh, 2, ops)
+    assert plan["copy"] == ("q", "k", "v")
+    copies = {n: t.clone(memory_format=torch.contiguous_format)
+              for n, t in (("q", q), ("k", k), ("v", v))}
+    again = _flash_plan(B, H, L, L, Dh, 2, _flash_operands(**copies, o=o))
+    assert again["copy"] == ()
+
+
+def test_flash_copy_rule_copies_a_misaligned_row_of_one():
+    """A single misaligned row is dense already; the copy the plan asks for
+    must still move it (``contiguous`` would return the same view)."""
+    x = torch.zeros((1, 1, 1, 49), dtype=torch.bfloat16)[..., 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    plan = _flash_plan(1, 1, 1, 1, 48, 2, _flash_operands(q=x, k=x, v=x, o=x))
+    assert plan["copy"] == ("q", "k", "v", "o")
+    y = x.clone(memory_format=torch.contiguous_format)
+    assert _flash_plan(1, 1, 1, 1, 48, 2,
+                       _flash_operands(q=y, k=y, v=y, o=y))["copy"] == ()
+
+
+def test_flash_copy_rule_ignores_the_stride_of_a_dim_of_one():
+    """A batch of one may carry any batch stride: it is never stepped."""
+    q = torch.zeros((1, 2, 40, 64), dtype=torch.bfloat16)
+    odd = q.as_strided((1, 2, 40, 64), (7, 40 * 64, 64, 1))
+    ops = _flash_operands(q=odd, k=q, v=q, o=q)
+    assert _flash_plan(1, 2, 40, 40, 64, 2, ops)["copy"] == ()
+
+
+def test_flash_smem_is_the_kernels():
+    """Three stages of K and V tiles plus the Q tile and ten barriers, and
+    1 KB to align the base: 225 KB at Dh 128."""
+    assert _flash_smem(128, 2) == 32768 + 3 * 65536 + 80 + 1024
+    assert _flash_smem(64, 2) == 16384 + 3 * 32768 + 80 + 1024
+    assert _flash_smem(128, 4) == 4 * (128 * 64 + 128 * 68 + 64 * 128)
+
+
+# --------------------------------------------------------------------------
+# fused bidirectional SSM
+# --------------------------------------------------------------------------
+
+_fused_domain = dict(B=st.integers(1, 1 << 20), L=st.integers(1, 32),
+                     D=st.integers(1, 256), N=st.integers(1, 16),
+                     K=st.integers(1, 8), r=st.integers(1, 16),
+                     item=st.sampled_from([2, 4]),
+                     sms=st.sampled_from([1, 114, 132]),
+                     regs=st.one_of(st.none(), st.integers(24, 255)))
+
+
+@FAST
+@given(**_fused_domain)
+def test_fused_plan_fits_an_sm_over_the_domain(B, L, D, N, K, r, item, sms,
+                                               regs):
+    plan = _fused_bissm_plan(B, L, D, N, K, r, item, sms, regs)
+    name, n, k, rank, cpl, lmax = _FUSED_INSTANCES[plan["index"]]
+    assert plan["instance"] == name
+    assert N <= n and K <= k and r <= rank and D <= 32 * cpl and L <= lmax
+    w, per_sm = plan["warps"], plan["blocks_per_sm"]
+    assert plan["threads"] == 32 * w <= (128 if name == "generic" else 512)
+    assert plan["smem"] <= SMEM_BLOCK
+    assert per_sm >= 1 and per_sm * (plan["smem"] + 1024) <= SMEM_SM
+    assert per_sm * 32 * w <= 2048
+    if regs:
+        assert per_sm * w * 32 * _up(regs, 8) <= 65536
+    # one wave at most; every warp has a sequence when B allows it
+    assert 1 <= plan["grid"] <= per_sm * sms
+    assert plan["grid"] <= _up(B, w) // w
+
+
+@pytest.mark.parametrize("shape,instance", [
+    ((57600, 7, 128, 4, 5, 4), "vsrm"),
+    ((57600, 16, 96, 8, 5, 3), "fast_mamba_vsr"),
+    ((57600, 9, 128, 4, 5, 4), "generic"),      # past vsrm's bound on L
+    ((57600, 7, 64, 4, 5, 4), "generic"),       # another channels a lane
+    ((57600, 16, 96, 8, 4, 3), "generic"),
+    ((3, 32, 256, 16, 8, 16), "generic")])
+def test_fused_plan_picks_the_instance(shape, instance):
+    plan = _fused_bissm_plan(*shape, 2, 132, 128)
+    assert plan["instance"] == instance
+
+
+def test_fused_plan_at_the_served_shapes():
+    """vsrm and fast_mamba_vsr at 128 registers a thread: 16 and 15 warps
+    a block, one block an SM, a grid of one wave."""
+    vsrm = _fused_bissm_plan(57600, 7, 128, 4, 5, 4, 2, 132, 128)
+    fmv = _fused_bissm_plan(57600, 16, 96, 8, 5, 3, 2, 132, 128)
+    assert (vsrm["warps"], vsrm["blocks_per_sm"], vsrm["grid"]) == (16, 1, 132)
+    assert (fmv["warps"], fmv["blocks_per_sm"], fmv["grid"]) == (15, 1, 132)
+
+
+def test_fused_smem_is_the_kernels():
+    """The weights staged in fp32 (wx^T rows padded to an odd number of
+    float4s, A_f, A_b, wdt and five vectors; the generic instance also its
+    conv taps), then per warp the u and gate tiles, the fp32 x stash and
+    the projections (dt | B | C, each padded to 4)."""
+    # vsrm, bf16, L 7, D 128: 29 rows; 2 tiles of 1792, x 3584, proj 336
+    assert _fused_smem(0, 7, 128, 2, 16) == 29 * 512 + 16 * (2 * 1792 + 3584 + 336)
+    # fast_mamba_vsr, bf16, L 16, D 96: wx^T 20 + 16 + 3 + 5 rows
+    assert _fused_smem(1, 16, 96, 2, 15) == 44 * 384 + 15 * (2 * 3072 + 6144 + 1280)
+    # generic, fp32, L 32, D 256: wx^T 52 + 32 + 16 + 5 + K 8 rows
+    assert _fused_smem(2, 32, 256, 4, 1) == 113 * 1024 + (2 * 32768 + 32768 + 6144)
+
+
+@pytest.mark.parametrize("L,D,N,K,r", [(33, 128, 4, 5, 4), (7, 257, 4, 5, 4),
+                                       (7, 128, 17, 5, 4), (7, 128, 4, 9, 4),
+                                       (7, 128, 4, 5, 17)])
+def test_fused_plan_refuses_past_the_bounds(L, D, N, K, r):
+    msg = (r"kernel takes L <= 32, D <= 256, N <= 16, K <= 8, "
+           r"dt_rank <= 16")
+    with pytest.raises(ValueError, match=msg):
+        _fused_bissm_plan(100, L, D, N, K, r, 2, 132)
+    with pytest.raises(ValueError, match=msg):
+        _fused_instance(N, K, r, D, L)

@@ -12,6 +12,11 @@ namespace vetk {
 // dtype codes passed by the Python wrappers (kernels.py DTYPE_CODES).
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
+// Returned by a launch whose TMA tensor map could not be encoded, plus the
+// driver's CUresult (0 when cuTensorMapEncodeTiled itself was not found);
+// above every cudaError_t.
+constexpr int kTensorMapError = 100000;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }

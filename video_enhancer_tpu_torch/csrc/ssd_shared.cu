@@ -278,6 +278,9 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 extern "C" {
 
 const char* vetk_error_string(int err) {
+  if (err >= vetk::kTensorMapError)
+    return "cuTensorMapEncodeTiled failed (the code less 100000 is its CUresult; "
+           "0: the driver has no such entry point)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -27,9 +27,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "launch_counts",
-           "reset_launch_counts", "build", "library", "dtype_code", "check",
-           "stream_of", "row_stride", "seq_strides"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "KERNEL_DTYPES",
+           "launch_counts", "reset_launch_counts", "build", "library",
+           "dtype_code", "check", "stream_of", "sm_count", "row_stride",
+           "seq_strides"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -39,6 +40,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # dtype codes of the C interface (csrc/common.cuh vetk::DType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
 
 launch_counts: dict[str, int] = {"ssd_shared": 0, "fused_bidir_ssm": 0,
                                  "flash_attention": 0, "window_attention": 0,
@@ -58,13 +60,21 @@ _SIGNATURES = {
     # reverse, stream
     "vetk_ssd_shared": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
     # dtype, u, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb, Af, Ab, Df, Db, y,
-    # B, L, D, N, K, dt_rank, ldu, ldg, blocks, stream
-    "vetk_fused_bissm": [_I] + [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I, _P],
+    # B, L, D, N, K, dt_rank, ldu, ldg, weight dtypes, instance, warps,
+    # blocks, stream
+    "vetk_fused_bissm": [_I] + [_P] * 14 + [_I] * 6 + [_L] * 2 + [_I] * 4
+    + [_P],
+    # dtype, instance
+    "vetk_fused_bissm_regs": [_I, _I],
+    # dtype, instance, L, D, warps
+    "vetk_fused_bissm_smem": [_I] * 5,
     "vetk_ssd_chunk": [],
     # dtype, q, k, v, o, B, H, Lq, Lk, Dh, scale, (batch, head, row) strides
-    # of q, k, v and o, vec, stream
+    # of q, k, v and o, TMA dimension orders, stream
     "vetk_flash_attention": [_I] + [_P] * 4 + [_I] * 5 + [_F] + [_L] * 12
     + [_I, _P],
+    # padded head width
+    "vetk_flash_smem": [_I],
     # dtype, q, k, v, bias, o, nW, H, N, Dh, scale, (window, head, row)
     # strides of q, k, v and o, windows a block, vec, stream
     "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12
@@ -199,6 +209,20 @@ def check(err: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device, asked once."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def row_stride(t: torch.Tensor, name: str) -> int:

@@ -51,6 +51,91 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
+# bf16/fp16 kernel (csrc/flash_attn.cu flash_fwd_wgmma): 128 query rows and
+# three warpgroups a block, keys in tiles of 128 through a ring of three
+# stages, tiles of 64 columns in TMA's 128-byte swizzle
+_FLASH_TQ, _FLASH_TK, _FLASH_STAGES, _FLASH_CHUNK = 128, 128, 3, 64
+# fp32 kernel (flash_fwd_simt): 64 query rows and 256 threads a block
+_SIMT_BQ, _SIMT_BK, _SIMT_THREADS = 64, 64, 256
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _flash_smem(dhp: int, itemsize: int) -> int:
+    """Dynamic shared memory of a block (csrc/flash_attn.cu HopSmem::ALLOC
+    and smem_bytes)."""
+    if itemsize == 4:
+        kt_rows = max(dhp, _SIMT_BQ)
+        return 4 * (dhp * _SIMT_BQ + kt_rows * (_SIMT_BK + 4) + _SIMT_BK * dhp)
+    tile = (dhp // _FLASH_CHUNK) * 128 * 128
+    return tile + 2 * _FLASH_STAGES * tile + 8 * (1 + 3 * _FLASH_STAGES) + 1024
+
+
+def _tma_operand(ptr: int, itemsize: int, Dh: int, extents, strides) -> dict:
+    """How TMA reads a (B, H, rows, Dh) operand with a dense last dim:
+    ``extents`` and ``strides`` (elements) are (rows, heads, batches). A
+    dimension of extent 1 takes a stride past the others (it is never
+    stepped). The map's dimensions 1-3 are these in the order of their
+    strides (``perm``, 2 bits a dimension: 0 rows, 1 heads, 2 batches).
+    ``copy`` when TMA cannot describe it: a base not 16-byte aligned, or a
+    stride that is not a positive multiple of 16 bytes."""
+    span = max([Dh] + [e * s for e, s in zip(extents, strides) if e > 1])
+    span = _up(span, 16 // itemsize)
+    st = [s if e > 1 else span for e, s in zip(extents, strides)]
+    order = sorted(range(3), key=lambda i: (st[i], i))
+    copy = ptr % 16 != 0 or any(
+        s <= 0 or (s * itemsize) % 16 for e, s in zip(extents, st) if e > 1)
+    return {"copy": copy, "strides": tuple(st),
+            "perm": sum(w << (2 * pos) for pos, w in enumerate(order)),
+            "dims": (Dh, *(extents[w] for w in order)),
+            "stride_bytes": tuple(st[w] * itemsize for w in order)}
+
+
+def _flash_plan(B: int, H: int, Lq: int, Lk: int, Dh: int, itemsize: int,
+                operands: dict) -> dict:
+    """The flash kernel's launch. ``operands`` maps q, k, v and o to
+    (data_ptr, (batch, head, row) strides in elements). Gives the padded
+    head width, the grid, the threads and shared memory of a block, and for
+    the bf16/fp16 kernel each operand's TMA map (``tma``: dimension order,
+    dims, byte strides, box) and the operands to copy once to a contiguous
+    tensor (``copy``). Raises ValueError for what the kernel does not
+    take."""
+    if Dh % 16 or not 16 <= Dh <= 128:
+        raise ValueError(f"kernel takes a head dim that is a multiple of 16 "
+                         f"up to 128, got {Dh}")
+    if Lq < 1 or Lk < 1 or B * H > 65535:
+        raise ValueError(f"kernel takes Lq, Lk >= 1 and B*H <= 65535, got "
+                         f"{(B, H, Lq, Lk)}")
+    if itemsize == 4:
+        dhp = 32 if Dh <= 32 else (64 if Dh <= 64 else 128)
+        return {"dhp": dhp, "grid": (-(-Lq // _SIMT_BQ), B * H),
+                "threads": _SIMT_THREADS, "smem": _flash_smem(dhp, 4),
+                "copy": (), "perms": 0,
+                "strides": {n: tuple(st) for n, (_, st) in operands.items()}}
+    dhp = 64 if Dh <= 64 else 128
+    rows = {"q": Lq, "k": Lk, "v": Lk, "o": Lq}
+    box = {"q": _FLASH_TQ, "k": _FLASH_TK, "v": _FLASH_TK, "o": 64}
+    tma, perms = {}, 0
+    for i, name in enumerate(("q", "k", "v", "o")):
+        ptr, (sb, sh, sl) = operands[name]
+        t = _tma_operand(ptr, itemsize, Dh, (rows[name], H, B), (sl, sh, sb))
+        order = [(t["perm"] >> (2 * pos)) & 3 for pos in range(3)]
+        t["box"] = (_FLASH_CHUNK, *(box[name] if w == 0 else 1 for w in order))
+        tma[name] = t
+        perms |= t["perm"] << (6 * i)
+    return {"dhp": dhp, "grid": (-(-Lq // _FLASH_TQ), B * H),
+            "threads": 3 * 128, "smem": _flash_smem(dhp, itemsize),
+            "stages": _FLASH_STAGES, "tma": tma, "perms": perms,
+            "copy": tuple(n for n in ("q", "k", "v", "o") if tma[n]["copy"]),
+            "strides": {n: tuple(reversed(tma[n]["strides"])) for n in tma}}
+
+
+def _flash_operands(**named) -> dict:
+    return {n: (t.data_ptr(), tuple(t.stride()[:3])) for n, t in named.items()}
+
+
 def _flash_cuda(q, k, v, scale: float) -> torch.Tensor:
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
@@ -61,29 +146,34 @@ def _flash_cuda(q, k, v, scale: float) -> torch.Tensor:
         raise TypeError("q, k and v must share one dtype")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    if Dh % 16 or not 16 <= Dh <= 128:
-        raise ValueError(f"kernel takes a head dim that is a multiple of 16 "
-                         f"up to 128, got {Dh}")
-    if Lq < 1 or Lk < 1 or B * H > 65535:
-        raise ValueError(f"kernel takes Lq, Lk >= 1 and B*H <= 65535, got "
-                         f"{(B, H, Lq, Lk)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the head dim must be dense, got "
                              f"strides {t.stride()}")
+    code = kernels.dtype_code(q)
     # (B, Lq, H, Dh) storage: the caller's transpose back to tokens is free
     o = torch.empty((B, Lq, H, Dh), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    # 16-byte tile loads need aligned operands and strides of 8 elements
-    vec = all(t.data_ptr() % 16 == 0
-              and all(st % 8 == 0 for st in t.stride()[:3]) for t in (q, k, v))
+    plan = _flash_plan(B, H, Lq, Lk, Dh, q.element_size(),
+                       _flash_operands(q=q, k=k, v=v, o=o))
+    if plan["copy"]:
+        # an operand TMA cannot describe is copied once to a new dense
+        # tensor (``contiguous`` would return a misaligned view of one row)
+        q, k, v = (t.clone(memory_format=torch.contiguous_format)
+                   if n in plan["copy"] else t
+                   for n, t in (("q", q), ("k", k), ("v", v)))
+        plan = _flash_plan(B, H, Lq, Lk, Dh, q.element_size(),
+                           _flash_operands(q=q, k=k, v=v, o=o))
+        if plan["copy"]:
+            raise RuntimeError(f"flash_attention: {plan['copy']} still "
+                               f"need a copy after one")
+    strides = [s for n in ("q", "k", "v", "o") for s in plan["strides"][n]]
     lib = kernels.library()
     with torch.cuda.device(q.device):
         err = lib.vetk_flash_attention(
-            kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), B, H, Lq, Lk, Dh, float(scale), *strides, int(vec),
-            kernels.stream_of(q))
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, H, Lq, Lk, Dh, float(scale), *strides,
+            plan["perms"], kernels.stream_of(q))
         kernels.launch_counts["flash_attention"] += 1
     kernels.check(err, "flash_attention")
     return o
@@ -93,7 +183,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """Blockwise attention with an online softmax: the CUDA kernel for a
     CUDA tensor (any strides with a dense head dim), ``attention_ref`` for
-    a CPU tensor. ``scale`` defaults to ``Dh ** -0.5``."""
+    a CPU tensor. ``scale`` defaults to ``Dh ** -0.5``. In bf16 and fp16 the
+    kernel reads q, k and v in place through TMA, which needs 16-byte
+    aligned bases and strides of multiples of 8 elements (the views of a
+    split qkv projection have them); an operand without them is first
+    copied once to a contiguous tensor."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cuda":
@@ -130,8 +224,7 @@ def _window_blocks(device: torch.device, nW: int, H: int) -> int:
     its head's bias once a block: one wave of 2 blocks an SM (56 windows a
     block at rvrt's shape, the fastest of those tried, PERF.md). The fp32
     kernel takes one window a block and ignores it."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-nW * H // (2 * sms)))
+    return max(1, -(-nW * H // (2 * kernels.sm_count(device))))
 
 
 def _window_cuda(q, k, v, bias, scale: float) -> torch.Tensor:

@@ -393,9 +393,95 @@ def fused_bidir_ssm_plain(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
     return (y * F.silu(gate.float())).to(u_pre.dtype)
 
 
-def _blocks_for(device: torch.device, B: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(B, 8 * sms))
+# The fused kernel's instances, in the order of csrc/fused_bissm.cu's
+# instance indices: (name, N, K, dt_rank, channels a lane, bound on L); the
+# first two run at exactly their N, K and dt_rank, the last at the bounds
+# with runtime counts.
+_FUSED_INSTANCES = (("vsrm", 4, 5, 4, 4, 8), ("fast_mamba_vsr", 8, 5, 3, 3, 16),
+                    ("generic", 16, 8, 16, 8, 32))
+_FUSED_GENERIC = len(_FUSED_INSTANCES) - 1
+_FUSED_MAX_WARPS = (16, 16, 4)   # warps a block, by instance
+_SMEM_BLOCK = 232448           # dynamic shared memory a block may use (H100)
+_SMEM_SM = 233472              # shared memory of an SM; each block takes 1 KB more
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fused_smem(instance: int, L: int, D: int, itemsize: int,
+                warps: int) -> int:
+    """Bytes of dynamic shared memory (csrc/fused_bissm.cu ``smem_bytes``):
+    the weights staged in fp32 (x_proj's transposed, its rows padded so
+    that four outputs are one 16-byte read), then per warp the u tile, the
+    gate tile, the x stash and the projections."""
+    _, N, K, rank, _, _ = _FUSED_INSTANCES[instance]
+    rs = _up(rank + 2 * N, 4)
+    rs += 0 if rs // 4 % 2 else 4
+    ps = _up(rank, 4) + 2 * _up(N, 4)
+    rows = rs + 2 * N + rank + 5 + (K if instance == _FUSED_GENERIC else 0)
+    warp = 2 * _up(L * D * itemsize, 16) + _up(L * D * 4, 16) + _up(L * ps * 4, 16)
+    return _up(rows * D * 4, 16) + warps * warp
+
+
+def _fused_instance(N: int, K: int, dt_rank: int, D: int, L: int) -> int:
+    """Index of the instance that takes these sizes (the specialised ones
+    at exactly their N, K and dt_rank, their channels a lane and up to
+    their bound on L; else the one at the bounds). Raises ValueError for
+    what the kernel does not take."""
+    if L > 32 or D > 256 or N > 16 or K > 8 or dt_rank > 16:
+        raise ValueError(f"kernel takes L <= 32, D <= 256, N <= 16, K <= 8, "
+                         f"dt_rank <= 16; got L={L} D={D} N={N} K={K} "
+                         f"dt_rank={dt_rank}")
+    for i, (_, n, k, r, cpl, lmax) in enumerate(_FUSED_INSTANCES[:-1]):
+        if ((N, K, dt_rank) == (n, k, r) and 32 * (cpl - 1) < D <= 32 * cpl
+                and L <= lmax):
+            return i
+    return _FUSED_GENERIC
+
+
+def _fused_bissm_plan(B: int, L: int, D: int, N: int, K: int, dt_rank: int,
+                      itemsize: int, sms: int, regs: int | None = None) -> dict:
+    """The fused kernel's launch: the instance, the sequences in flight a
+    block (one a warp, each with one u and one gate tile that its next
+    sequence refills as soon as they are spent), the shared memory and the
+    grid. The warps a block keep the most warps resident on an SM (by
+    shared memory, threads and, given the kernel's ``regs`` a thread,
+    registers; the larger block on a tie, as each stages the weights once);
+    at most one wave of blocks, each warp walking a strided list of
+    sequences. Raises ValueError for what the kernel does not take."""
+    index = _fused_instance(N, K, dt_rank, D, L)
+    best = None
+    for warps in range(1, _FUSED_MAX_WARPS[index] + 1):
+        smem = _fused_smem(index, L, D, itemsize, warps)
+        if smem > _SMEM_BLOCK:
+            break
+        per_sm = min(_SMEM_SM // (smem + 1024), 2048 // (32 * warps), 32)
+        if regs:
+            # 256-register units a warp; warps by registers in fours
+            by_regs = 65536 // (32 * _up(regs, 8)) // 4 * 4
+            per_sm = min(per_sm, by_regs // warps)
+        if best is None or per_sm * warps >= best[0]:
+            best = (per_sm * warps, warps, per_sm, smem)
+    _, warps, per_sm, smem = best
+    return {"instance": _FUSED_INSTANCES[index][0], "index": index,
+            "warps": warps, "threads": 32 * warps, "smem": smem,
+            "blocks_per_sm": per_sm,
+            "grid": max(1, min(-(-B // warps), per_sm * sms))}
+
+
+_fused_regs: dict[tuple[int, int], int] = {}
+
+
+def _fused_kernel_regs(lib, dtype_code: int, index: int) -> int:
+    """Registers a thread of an instance's kernel, asked once."""
+    key = (dtype_code, index)
+    if key not in _fused_regs:
+        regs = lib.vetk_fused_bissm_regs(dtype_code, index)
+        if regs <= 0:
+            kernels.check(-regs, "fused_bidir_ssm")
+        _fused_regs[key] = regs
+    return _fused_regs[key]
 
 
 def _fused_bidir_ssm_cuda(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
@@ -417,21 +503,26 @@ def _fused_bidir_ssm_cuda(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
         if t.device != u_pre.device:
             raise ValueError(f"{name} is on {t.device}, u_pre on {u_pre.device}")
-    if L > 32 or D > 256 or N > 16 or K > 8 or dt_rank > 16:
-        raise ValueError(f"kernel takes L <= 32, D <= 256, N <= 16, K <= 8, "
-                         f"dt_rank <= 16; got L={L} D={D} N={N} K={K} "
-                         f"dt_rank={dt_rank}")
     ldu = kernels.row_stride(u_pre, "u_pre")
     ldg = kernels.row_stride(gate, "gate")
-    w32 = [weights[n].float().contiguous() for n in expected]
-    y = torch.empty((B, L, D), dtype=u_pre.dtype, device=u_pre.device)
+    index = _fused_instance(N, K, dt_rank, D, L)
     lib = kernels.library()
+    code = kernels.dtype_code(u_pre)
+    plan = _fused_bissm_plan(B, L, D, N, K, dt_rank, u_pre.element_size(),
+                             kernels.sm_count(u_pre.device),
+                             regs=_fused_kernel_regs(lib, code, index))
+    # the weights in their own dtype (fp32, bf16 or fp16; another is cast to
+    # fp32), which the kernel casts on load
+    w = [t.contiguous() if t.dtype in kernels.KERNEL_DTYPES
+         else t.float().contiguous() for t in (weights[n] for n in expected)]
+    wcodes = sum(kernels.dtype_code(t) << (2 * i) for i, t in enumerate(w))
+    y = torch.empty((B, L, D), dtype=u_pre.dtype, device=u_pre.device)
     with torch.cuda.device(u_pre.device):
         err = lib.vetk_fused_bissm(
-            kernels.dtype_code(u_pre), u_pre.data_ptr(), gate.data_ptr(),
-            *(t.data_ptr() for t in w32), y.data_ptr(), B, L, D, N, K,
-            dt_rank, ldu, ldg, _blocks_for(u_pre.device, B),
-            kernels.stream_of(u_pre))
+            code, u_pre.data_ptr(), gate.data_ptr(),
+            *(t.data_ptr() for t in w), y.data_ptr(), B, L, D, N, K,
+            dt_rank, ldu, ldg, wcodes, plan["index"], plan["warps"],
+            plan["grid"], kernels.stream_of(u_pre))
         kernels.launch_counts["fused_bidir_ssm"] += 1
     kernels.check(err, "fused_bidir_ssm")
     return y
