@@ -21,7 +21,11 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    against row 6, which computes the same sum), the depthwise conv + SiLU
    (row 11) on vsrm's strided in_proj slice at K = 5 and 4; time of each,
    and of the PyTorch library call that computes the same function where
-   there is one;
+   there is one; the device time of each of the SSD's three launches in
+   one call (``torch.profiler``), on its tensor-core path (bf16) and its
+   CUDA-core path (fp32), and ptxas's
+   registers and spills of the SSD's run kernels and the short scan's tile
+   kernels;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -109,7 +113,7 @@ from video_enhancer_tpu_torch.ops.scan import (
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
     selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
-from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
+from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
                                                           calibrate_vsr)
@@ -249,7 +253,8 @@ def environment() -> dict:
 
 
 @phase("2 build")
-def build() -> float:
+def build() -> str:
+    """Builds the kernels; returns ptxas's report."""
     t0 = time.perf_counter()
     so, log = kernels.build(ptxas_verbose=True)
     secs = time.perf_counter() - t0
@@ -260,7 +265,50 @@ def build() -> float:
     kernels.library()
     print(f"built {so.name} (one nvcc per source, all at once, and one "
           f"link) in {secs:.2f} s")
-    return secs
+    return log
+
+
+# the kernels the SSD and short-scan redesign added (rows 1-2 and 7)
+REDESIGNED = ("ssd_run_kernel", "scan_short_tile_kernel")
+
+
+def ptxas_summary(log: str, names=REDESIGNED) -> list[str]:
+    """One line per compiled instance of ``names``: its (mangled) name,
+    registers and spills, from ptxas's report."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((mangled[mangled.index(n):] for n in names
+                         if n in mangled), None)
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {spill}")
+            name = None
+    return out
+
+
+def device_ms(fn, keys, iters: int = 10) -> dict:
+    """Device time a call of each kernel whose name holds one of ``keys``,
+    from ``torch.profiler`` (CUPTI), over ``iters`` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = (getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0))
+        if t and any(k in e.key for k in keys):
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            out[name] = round(out.get(name, 0.0) + t / 1e3 / iters, 4)
+    return out
 
 
 def _ssd_inputs(dtype, gen):
@@ -703,11 +751,13 @@ def dwconv_vs_plain() -> dict:
 
 
 @phase("3 kernels vs plain")
-def kernels_vs_plain() -> dict:
+def kernels_vs_plain(ptxas_log: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     Q = kernels.library().vetk_ssd_chunk()
     rec = {}
+    for line in ptxas_summary(ptxas_log):
+        print(f"ptxas {line}")
     with torch.inference_mode():
         # --- kernel 1: ssd_shared, forward and reverse ---------------------
         for dtype in (torch.float32, torch.bfloat16):
@@ -725,6 +775,16 @@ def kernels_vs_plain() -> dict:
                 print(f"ssd_shared {d} {dtype}: max_abs_err {err:.3e} "
                       f"rel {rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms")
                 check(rel <= tol, f"ssd_shared {d} {dtype}: rel {rel} > {tol}")
+                if not reverse:
+                    # the device time of each of the call's three launches
+                    plan = _ssd_plan(*args[0].shape, args[-1].shape[-1], dtype,
+                                     kernels.sm_count(args[0].device))
+                    split = device_ms(
+                        lambda: ssd_shared_kernel(*args, reverse=False),
+                        ("ssd_",))
+                    print(f"ssd_shared split {dtype}, {plan['route']} path "
+                          f"(chunks a run {plan['run']}, runs "
+                          f"{plan['runs']}): device ms {split}")
                 if dtype == torch.bfloat16 and not reverse:
                     plain_ms = time_ms(
                         lambda: ssd_shared_plain(*args, reverse=reverse),
@@ -1422,8 +1482,7 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     env = environment()
-    build()
-    rec = kernels_vs_plain()
+    rec = kernels_vs_plain(build())
     path = main_path(f"{env['kind']}, {env['smi']}")
     route = auto_route(f"{env['kind']}, {env['smi']}")
     rv = rvrt_path(f"{env['kind']}, {env['smi']}")

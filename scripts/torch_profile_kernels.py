@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""The flash-attention kernel (TPU kernel row 4) and the fused bidirectional
-SSM (row 3) of the PyTorch/CUDA port at the paths' shapes, for an A/B of
-two checkouts in one call.
+"""The redesigned kernels of the PyTorch/CUDA port at the paths' shapes:
+flash attention (TPU kernel row 4), the fused bidirectional SSM (row 3),
+the SSD chunked scan (rows 1-2) and the short scan with and without state
+(rows 7-8), for an A/B of two checkouts in one call.
 
     python3 scripts/torch_profile_kernels.py [--root DIR] [--tag NAME]
+        [--only flash,fused,ssd,short]
 
 Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 (this checkout by default), builds the kernels with ``ptxas -v`` and
-prints the registers and shared memory of these two sources' kernels.
+prints the registers, shared memory and spills of these sources' kernels.
 Then each case: the kernel against its plain version (max |kernel -
 plain| / max |plain|, held to ``chip_smoke.TOL``), and the median
 CUDA-event time of 10 runs after 3 warm-ups; beside flash at ditvr's
@@ -15,8 +17,14 @@ shape, ``scaled_dot_product_attention`` on the same inputs. Cases: flash
 in bf16 at ditvr's shape (B 2, H 3, L 10080, Dh 128, views of one qkv
 projection) and at ragged lengths; the fused SSM in fp32 and bf16 at
 vsrm's (57600, 7, 128, N 4) and fast_mamba_vsr's (57600, 16, 96, N 8)
-shapes. The last line is one JSON object: the tag, the card, each case's
-ms and error.
+shapes; the SSD forward and reverse in bf16 at vsrm's shape (b 7, L
+57600, H 2, P 64, N 16, column slices of one conv output); rows 7 and 8
+at the sharded fast_mamba_vsr's (57600, 16, 96, N 8, h0) and the
+per-pixel (57600, 7, 128, N 16) shapes in bf16, and row 7 at D 95 and on
+x and dt sliced 3 columns in (operands the tile kernel leaves to the
+walking kernel). Beside each SSD and short-scan time, the device time a
+call of each kernel it launches, from ``torch.profiler``. The last line is one JSON object: the
+tag, the card, each case's ms and error.
 """
 
 from __future__ import annotations
@@ -31,21 +39,118 @@ import torch
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("--tag", default="")
+ap.add_argument("--only", default="flash,fused,ssd,short")
 args = ap.parse_args()
+ONLY = set(args.only.split(","))
 sys.path.insert(0, str(Path(args.root).resolve()))
 
 import chip_smoke  # noqa: E402
 from video_enhancer_tpu_torch import kernels  # noqa: E402
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,  # noqa: E402
                                                     flash_attention)
+from video_enhancer_tpu_torch.ops import scan as scan_ops  # noqa: E402
+from video_enhancer_tpu_torch.ops import ssd as ssd_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops.scan import (  # noqa: E402
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain)
+
+SOURCES = {"flash": "flash", "fused_bissm": "fused", "ssd_": "ssd",
+           "scan_short": "short"}
 
 FLASH_CASES = [dict(B=2, H=3, Lq=10080, Lk=10080, Dh=128),
                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
                dict(B=2, H=3, Lq=129, Lk=1000, Dh=48)]
 FUSED_CASES = [("vsrm", chip_smoke.BISSM_SHAPE),
                ("fast_mamba_vsr", chip_smoke.BISSM_FMV_SHAPE)]
+
+
+def device_ms(fn, keys, iters: int = 10) -> dict:
+    """Device time a call of each kernel whose name holds one of ``keys``,
+    from ``torch.profiler`` (CUPTI), over ``iters`` calls after one, and
+    their sum (its own copy of ``chip_smoke.device_ms``, so that it times
+    checkouts whose ``chip_smoke`` has none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = (getattr(e, "device_time_total", None)
+             or getattr(e, "cuda_time_total", 0))
+        if t and any(k in e.key for k in keys):
+            name = e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + t / 1e3 / iters
+    out["sum"] = sum(out.values())
+    return out
+
+
+def ssd_cases(out: dict) -> bool:
+    """The SSD at vsrm's shape in bf16, forward and reverse, with the
+    device time of each of a call's launches."""
+    ok = True
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    a = chip_smoke._ssd_inputs(torch.bfloat16, gen)
+    tol = chip_smoke.TOL[("ssd_shared", "bfloat16")]
+    for reverse in (False, True):
+        got = ssd_ops.ssd_shared_kernel(*a, reverse=reverse)
+        ref = ssd_ops.ssd_shared_plain(*a, reverse=reverse)
+        torch.cuda.synchronize()
+        err, rel = chip_smoke.rel_err(got, ref)
+        ms = chip_smoke.time_ms(
+            lambda: ssd_ops.ssd_shared_kernel(*a, reverse=reverse))
+        good = rel <= tol and bool(torch.isfinite(got.float()).all())
+        ok &= good
+        key = f"ssd vsrm bf16 {'reverse' if reverse else 'forward'}"
+        out[key] = {"ms": ms, "rel": rel, "max_abs_err": err,
+                    "device": device_ms(
+                        lambda: ssd_ops.ssd_shared_kernel(*a, reverse=reverse),
+                        ("ssd_",))}
+        print(f"{key}: {out[key]} {'ok' if good else 'FAILED'}", flush=True)
+        del got, ref
+    return ok
+
+
+def short_cases(out: dict) -> bool:
+    """Rows 7 (h0 in, h_last out) and 8 at their paths' shapes in bf16;
+    row 7 also at D 95 and with x and dt column slices 3 columns in."""
+    ok = True
+    tol = 1e-2
+    fmv = chip_smoke.SCAN_SHAPES["selective_scan_short"]
+    cases = [("selective_scan_short", True, fmv, 0),
+             ("selective_scan_short_nostate", False,
+              chip_smoke.SCAN_SHAPES["selective_scan_short_nostate"], 0),
+             ("selective_scan_short D 95", True, dict(fmv, D=95), 0),
+             ("selective_scan_short offset 3", True, fmv, 3)]
+    for key, state, s, off in cases:
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 7)
+        x, dt, A, Bm, Cm, Dv = chip_smoke._scan_inputs(
+            torch.bfloat16, gen, **dict(s, D=s["D"] + off))
+        x, dt, A, Dv = x[..., off:], dt[..., off:], A[off:], Dv[off:]
+        h0 = (torch.randn((s["B"], s["D"], s["N"]), generator=gen,
+                          device="cuda") if state else None)
+        args_ = (x, dt, A, Bm, Cm, Dv)
+        y, h = scan_ops.selective_scan_pallas_short(*args_, h0=h0,
+                                                    need_state=state)
+        y_p, h_p = scan_ops.selective_scan_plain(*args_, h0=h0)
+        torch.cuda.synchronize()
+        rel = max(chip_smoke.rel_err(y, y_p)[1],
+                  chip_smoke.rel_err(h, h_p)[1] if state else 0.0)
+        good = rel <= tol and bool(torch.isfinite(y.float()).all())
+        ok &= good
+        rec = {"ms": chip_smoke.time_ms(
+            lambda: scan_ops.selective_scan_pallas_short(
+                *args_, h0=h0, need_state=state)), "rel": rel}
+        rec["device"] = device_ms(
+            lambda: scan_ops.selective_scan_pallas_short(
+                *args_, h0=h0, need_state=state), ("scan_short",))
+        name = f"{key} {tuple(s.values())} bf16"
+        out[name] = rec
+        print(f"{name}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+        del x, dt, Bm, Cm, y, y_p, h, h_p
+    return ok
 
 
 def main() -> int:
@@ -57,8 +162,7 @@ def main() -> int:
     src = None
     for line in log.splitlines():
         if "Compiling entry" in line:
-            src = ("flash" if "flash" in line else
-                   "fused" if "fused_bissm" in line else None)
+            src = next((v for k, v in SOURCES.items() if k in line), None)
         if src and any(w in line for w in ("Compiling entry", "Used", "spill")):
             print(f"  ptxas {src}: {line.strip()}")
     kernels.library()
@@ -66,7 +170,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out, ok = {}, True
     with torch.inference_mode():
-        for ci, shp in enumerate(FLASH_CASES):
+        for ci, shp in enumerate(FLASH_CASES if "flash" in ONLY else []):
             gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 2
                                                              + ci)
             q, k, v = chip_smoke._flash_inputs(torch.bfloat16, gen, **shp)
@@ -86,7 +190,7 @@ def main() -> int:
                   flush=True)
             out[key] = rec
             del q, k, v, got, ref
-        for name, shape in FUSED_CASES:
+        for name, shape in (FUSED_CASES if "fused" in ONLY else []):
             for dtype in (torch.float32, torch.bfloat16):
                 gen = torch.Generator(device="cuda").manual_seed(
                     chip_smoke.SEED + 1)
@@ -104,6 +208,10 @@ def main() -> int:
                 print(f"{key}: {out[key]} {'ok' if good else 'FAILED'}",
                       flush=True)
                 del a, got, ref
+        if "ssd" in ONLY:
+            ok &= ssd_cases(out)
+        if "short" in ONLY:
+            ok &= short_cases(out)
     print(json.dumps({"tag": args.tag, "device": smi, "ok": ok,
                       "cases": out}))
     return 0 if ok else 1

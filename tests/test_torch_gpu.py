@@ -1,10 +1,10 @@
 """Card-only tests of the port's CUDA kernels against their plain versions,
-at small shapes that reach the kernels' edges (ragged chunks, strided rows,
-narrow heads, even conv kernels, ragged query and key lengths, strided
-views of a split projection, every dtype), and the Mamba-1 scans, the
-shared bidirectional scan and the depthwise conv + SiLU also at the shapes
-the served paths give them; the exact time-sharded fast_mamba_vsr on a
-one-rank NCCL group.
+at small shapes that reach the kernels' edges (ragged chunks and runs,
+strided rows, narrow heads, even conv kernels, ragged query and key
+lengths, strided views of a split projection, every dtype), and the SSD,
+the Mamba-1 scans, the shared bidirectional scan and the depthwise conv +
+SiLU also at the shapes the served paths give them; the exact time-sharded
+fast_mamba_vsr on a one-rank NCCL group.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -32,12 +32,14 @@ from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
 from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
-    _FUSED_INSTANCES, _fused_bissm_plan, _fused_smem,
+    _FUSED_INSTANCES, _fused_bissm_plan, _fused_smem, _short_scan_plan,
+    _tile_smem,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
     selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
-from video_enhancer_tpu_torch.ops.ssd import (ssd_shared_kernel,
+from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, _ssd_smem,
+                                              ssd_shared_kernel,
                                               ssd_shared_plain)
 
 pytestmark = pytest.mark.gpu
@@ -81,6 +83,67 @@ def test_ssd_kernel_matches_plain(cuda, dtype, reverse, b, L, H, P, N):
     assert kernels.launch_counts["ssd_shared"] == before + 1
     assert got.shape == ref.shape and got.dtype == dtype
     assert _rel(got, ref) <= TOL[dtype]
+
+
+def _ssd_case(cuda, dtype, b, L, H, P, N, extra, seed):
+    """x, dt, A, B, C with x, B and C column slices of one (b, L, H*P + 2N
+    + extra) tensor: extra 0 is the served conv output (rows of 16-byte
+    multiples), 3 puts every row off the 16-byte grid."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn((b, L, H * P + 2 * N + extra), generator=gen,
+                      device=cuda).to(dtype)
+    x = xbc[..., :H * P].reshape(b, L, H, P)
+    Bm = xbc[..., H * P:H * P + N]
+    Cm = xbc[..., H * P + N:H * P + 2 * N]
+    dt = 0.001 + 0.2 * torch.rand((b, L, H), generator=gen, device=cuda)
+    A = -(0.2 + 2 * torch.rand((H,), generator=gen, device=cuda))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("extra", [0, 3])
+@pytest.mark.parametrize("b,L,H,P,N", [
+    (2, 1, 2, 64, 16), (3, 37, 2, 64, 16),       # L below the chunk
+    (1, 64 * 5 + 7, 2, 64, 16),                  # b 1, a ragged last chunk
+    (2, 64 * 300 + 5, 2, 64, 16),                # runs of two chunks
+    (2, 700, 2, 32, 16), (2, 700, 4, 32, 8),     # P 32; N 8
+    (2, 700, 1, 64, 8), (2, 700, 8, 16, 16)])    # one head; eight
+def test_ssd_tensor_core_path_matches_plain(cuda, dtype, reverse, extra, b, L,
+                                            H, P, N):
+    """The tensor-core path (bf16 / fp16) against the plain version at the
+    edges of its chunks, runs and tiles, forward and reverse, with x, B
+    and C read in place by 16-byte copies (extra 0) and by elements."""
+    x, dt, A, Bm, Cm = _ssd_case(cuda, dtype, b, L, H, P, N, extra, L + N)
+    plan = _ssd_plan(b, L, H, P, N, dtype, kernels.sm_count(x.device))
+    assert plan["route"] == "mma"
+    got = ssd_shared_kernel(x, dt, A, Bm, Cm, reverse=reverse)
+    ref = ssd_shared_plain(x, dt, A, Bm, Cm, reverse=reverse)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ssd_tensor_core_path_at_the_served_shape(cuda, reverse):
+    """vsrm's spatial SSD in bf16 (b 7, L 57600, H 2, P 64, N 16, the conv
+    output's column slices): runs of 17 chunks, against the plain version
+    and, as a control, far from the scan the other way."""
+    x, dt, A, Bm, Cm = _ssd_case(cuda, torch.bfloat16, 7, 57600, 2, 64, 16,
+                                 0, 0)
+    assert _ssd_plan(7, 57600, 2, 64, 16, torch.bfloat16,
+                     kernels.sm_count(x.device))["run"] > 1
+    got = ssd_shared_kernel(x, dt, A, Bm, Cm, reverse=reverse)
+    ref = ssd_shared_plain(x, dt, A, Bm, Cm, reverse=reverse)
+    other = ssd_shared_plain(x, dt, A, Bm, Cm, reverse=not reverse)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL[torch.bfloat16]
+    assert _rel(other, ref) > 5 * TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("H,P", [(2, 64), (1, 32), (4, 32), (8, 16)])
+def test_ssd_smem_mirrors_the_kernel(cuda, H, P):
+    assert kernels.library().vetk_ssd_tc_smem(H, P) == _ssd_smem(H, P)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -487,16 +550,16 @@ def test_fast_mamba_vsr_routes_through_fused_ssm(cuda):
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
-def _scan_inputs(cuda, dtype, B, L, D, N, seed, strided=True):
-    """x, dt, A, B, C, D; with ``strided`` x is a column slice of a wider
-    tensor and B, C column slices of one projection, as the layers pass
-    them."""
+def _scan_inputs(cuda, dtype, B, L, D, N, seed, strided=True, offset=3):
+    """x, dt, A, B, C, D; with ``strided`` x is a column slice, ``offset``
+    columns in, of a wider tensor and B, C column slices of one
+    projection, as the layers pass them."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=cuda) * scale
 
-    extra = 3 if strided else 0
+    extra = offset if strided else 0
     x = rnd(B, L, D + extra).to(dtype)[..., extra:]
     dt = torch.nn.functional.softplus(rnd(B, L, D, scale=0.5) - 2).to(dtype)
     proj = rnd(B, L, 2 * N + extra).to(dtype)
@@ -535,6 +598,50 @@ def test_scan_short_kernel_matches_plain(cuda, dtype, state, B, L, D, N):
         assert _rel(y0, y_p) > 5 * SCAN_TOL[dtype]
     else:
         assert h is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("strided,offset", [(False, 0), (True, 8),
+                                            (True, 3)])
+@pytest.mark.parametrize("B,L,D,N", [
+    (301, 1, 96, 8), (301, 2, 96, 8), (301, 15, 96, 8), (301, 16, 96, 8),
+    (301, 17, 96, 8), (301, 31, 96, 8), (301, 32, 96, 8), (301, 33, 96, 8),
+    (300, 16, 95, 8), (299, 16, 96, 4), (5, 16, 96, 8)])
+def test_scan_short_tile_kernel_matches_plain(cuda, dtype, strided, offset,
+                                              B, L, D, N):
+    """Row 7 across the tile kernel's L bounds (16, 32; 33 takes the
+    walking kernel), B odd against the sequences a block, x dense and a
+    column slice 8 columns in (16-byte copies), and at D 95 or 3 columns
+    in, where the copies cannot run and the walking kernel takes the
+    call; y and h_last from a nonzero h0, and the h0 = 0 control."""
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, dtype, B, L, D, N, seed=B + L,
+                                        strided=strided, offset=offset)
+    h0 = torch.randn((B, D, N), device=cuda)
+    item = x.element_size()
+    aligned = offset * item % 16 == 0 and D * item % 16 == 0
+    plan = _short_scan_plan(B, L, D, N, item, aligned=offset * item % 16 == 0)
+    assert plan["route"] == ("tile" if L <= 32 and aligned else "walk")
+    y, h = selective_scan_pallas_short(x, dt, A, Bm, Cm, Dv, h0=h0)
+    y_p, h_p = selective_scan_plain(x, dt, A, Bm, Cm, Dv, h0=h0)
+    y0, _ = selective_scan_pallas_short(x, dt, A, Bm, Cm, Dv,
+                                        h0=torch.zeros_like(h0))
+    torch.cuda.synchronize()
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+    assert _rel(h, h_p) <= SCAN_TOL[dtype]
+    assert _rel(y0, y_p) > 5 * SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D,N", [(16, 96, 8), (32, 95, 4), (1, 8, 1),
+                                   (7, 512, 8)])
+def test_scan_short_smem_mirrors_the_kernel(cuda, dtype, L, D, N):
+    item = torch.finfo(dtype).bits // 8
+    # the plan's sequences a block; three where it walks (D 95)
+    seqs = _short_scan_plan(1000, L, D, N, item, aligned=True)["seqs"] or 3
+    code = kernels.dtype_code(torch.empty(0, dtype=dtype))
+    assert kernels.library().vetk_selective_scan_short_smem(
+        code, L, D, N, seqs) == _tile_smem(L, D, N, item, seqs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -1,5 +1,6 @@
-"""The launch arithmetic of the port's flash-attention and fused
-bidirectional-SSM kernels, on the CPU (no card, no compiler).
+"""The launch arithmetic of the port's flash-attention, fused
+bidirectional-SSM, SSD and short-scan kernels, on the CPU (no card, no
+compiler).
 
 ``ops.attention._flash_plan`` and ``ops.scan._fused_bissm_plan`` are the
 pure functions the wrappers launch from: padded head width, grid, threads,
@@ -12,6 +13,15 @@ multiple of 16 bytes or the operand is planned as a copy, and what the
 kernels do not take raises the wrappers' ValueErrors. ``_flash_smem`` and
 ``_fused_smem`` mirror the CUDA sources' own sums; the card-only tests hold
 the two against each other.
+
+``ops.ssd._ssd_plan`` picks the SSD's path (tensor cores for bf16 / fp16
+at P a multiple of 16 up to 64, H * P <= 128, N <= 16; CUDA cores
+otherwise) and the chunks a block walks, so that the blocks fill one wave;
+``ops.scan._short_scan_plan`` picks the short scan's kernel (the tile
+kernel up to L 32, N 8 and D 512 where x and dt lie on the 16-byte grid,
+the walking kernel otherwise), its
+instance and the sequences a block. ``_ssd_smem`` and ``_tile_smem``
+mirror the CUDA sources' sums, held against them on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
                                                     _flash_plan, _flash_smem)
 from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES,
                                                _fused_bissm_plan,
-                                               _fused_instance, _fused_smem)
+                                               _fused_instance, _fused_smem,
+                                               _short_scan_plan, _tile_smem)
+from video_enhancer_tpu_torch.ops.ssd import _ssd_plan, _ssd_smem
 
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
@@ -260,3 +272,155 @@ def test_fused_plan_refuses_past_the_bounds(L, D, N, K, r):
         _fused_bissm_plan(100, L, D, N, K, r, 2, 132)
     with pytest.raises(ValueError, match=msg):
         _fused_instance(N, K, r, D, L)
+
+
+# --------------------------------------------------------------------------
+# SSD chunked scan (rows 1-2)
+# --------------------------------------------------------------------------
+
+_HALF = (torch.bfloat16, torch.float16)
+_ssd_domain = dict(b=st.integers(1, 65535), L=st.integers(1, 1 << 22),
+                   H=st.integers(1, 8), P=st.integers(1, 64),
+                   N=st.integers(1, 128),
+                   dtype=st.sampled_from([torch.bfloat16, torch.float16,
+                                          torch.float32]),
+                   sms=st.sampled_from([1, 114, 132]))
+
+
+@FAST
+@given(**_ssd_domain)
+def test_ssd_plan_fills_one_wave_over_the_domain(b, L, H, P, N, dtype, sms):
+    plan = _ssd_plan(b, L, H, P, N, dtype, sms)
+    K = -(-L // 64)
+    assert plan["chunks"] == K and plan["chunk"] == 64
+    mma = (dtype in _HALF and P % 16 == 0 and H * P <= 128 and N <= 16)
+    assert plan["route"] == ("mma" if mma else "simt")
+    if not mma:
+        assert (plan["run"], plan["runs"]) == (1, K)
+        assert plan["grid"] == (K, H, b) and plan["smem"] <= SMEM_BLOCK
+        return
+    R, M, per_sm = plan["run"], plan["runs"], plan["blocks_per_sm"]
+    assert 1 <= R <= K and M == -(-K // R) and plan["grid"] == (M, b)
+    assert plan["threads"] == 128 and plan["smem"] == _ssd_smem(H, P)
+    assert per_sm >= 1 and per_sm * (plan["smem"] + 1024) <= SMEM_SM
+    slots = per_sm * sms
+    if b <= slots:
+        # one wave, and no shorter run would give one
+        assert b * M <= slots
+        assert R == 1 or b * -(-K // (R - 1)) > slots
+    else:
+        assert R == K
+
+
+def test_ssd_plan_at_the_served_shape():
+    """vsrm's spatial SSD (b 7, L 57600, H 2, P 64, N 16) in bf16: runs of
+    17 of the 900 chunks, 53 runs a frame, 371 blocks in one wave of three
+    an SM; fp32 keeps the CUDA-core path, a block per chunk."""
+    plan = _ssd_plan(7, 57600, 2, 64, 16, torch.bfloat16, 132)
+    assert plan["route"] == "mma" and plan["smem"] == 74768
+    assert (plan["run"], plan["runs"], plan["grid"]) == (17, 53, (53, 7))
+    assert plan["blocks_per_sm"] == 3 and 7 * 53 <= 3 * 132
+    f32 = _ssd_plan(7, 57600, 2, 64, 16, torch.float32, 132)
+    assert (f32["route"], f32["grid"]) == ("simt", (900, 2, 7))
+
+
+def test_ssd_smem_is_the_kernels():
+    """Two stages of x (64 rows of H*P + 8), B and C (64 rows of 24) and
+    dt (64 x H fp32); B o e^(G-g) and C o e^g per head; the entering state
+    (16 rows of P + 8) per head and 16 rows of y for each of four warps;
+    the log decays (64 H + 2 H floats), rounded up to 16 bytes."""
+    stage = 64 * 136 * 2 + 2 * 64 * 24 * 2 + 64 * 2 * 4
+    assert _ssd_smem(2, 64) == (2 * stage + 2 * 2 * 64 * 24 * 2
+                                + 6 * 16 * 72 * 2 + 132 * 4)
+    stage = 64 * 40 * 2 + 2 * 64 * 24 * 2 + 64 * 4
+    assert _ssd_smem(1, 32) == -(-(2 * stage + 2 * 64 * 24 * 2 + 5 * 16 * 40 * 2
+                                   + 66 * 4) // 16) * 16
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 300, 2, 64, 16, torch.bfloat16), "mma"),
+    ((1, 64, 1, 32, 8, torch.float16), "mma"),
+    ((3, 1, 2, 16, 4, torch.bfloat16), "mma"),
+    ((2, 1000, 4, 48, 32, torch.bfloat16), "simt"),   # N > 16, H * P > 128
+    ((2, 1000, 2, 40, 16, torch.bfloat16), "simt"),   # P not a multiple of 16
+    ((7, 57600, 2, 64, 16, torch.float32), "simt")])
+def test_ssd_plan_picks_the_route(shape, route):
+    assert _ssd_plan(*shape, 132)["route"] == route
+
+
+@pytest.mark.parametrize("b,L,H,P,N", [(1, 64, 1, 65, 16), (1, 64, 1, 64, 129),
+                                       (65536, 64, 1, 64, 16), (1, 0, 1, 64, 16)])
+def test_ssd_plan_refuses_past_the_bounds(b, L, H, P, N):
+    with pytest.raises(ValueError, match="kernel takes P <= 64"):
+        _ssd_plan(b, L, H, P, N, torch.bfloat16, 132)
+
+
+# --------------------------------------------------------------------------
+# short scan with and without state (rows 7-8)
+# --------------------------------------------------------------------------
+
+_short_domain = dict(B=st.integers(1, 1 << 20), L=st.integers(1, 64),
+                     D=st.integers(1, 1024), N=st.integers(1, 16),
+                     item=st.sampled_from([2, 4]), aligned=st.booleans())
+
+
+@FAST
+@given(**_short_domain)
+def test_short_scan_plan_fits_a_block_over_the_domain(B, L, D, N, item,
+                                                      aligned):
+    plan = _short_scan_plan(B, L, D, N, item, aligned)
+    tps = -(-D // 2)
+    if plan["route"] == "walk":
+        assert plan["seqs"] == 0
+        assert (L > 32 or N > 8 or tps > 256 or not aligned
+                or D * item % 16 or _tile_smem(L, D, N, item, 1) > SMEM_BLOCK)
+        assert plan["threads"] <= 256 and plan["grid"][0] == B
+        assert plan["grid"][1] * plan["threads"] >= D
+        return
+    seqs = plan["seqs"]
+    assert L <= 32 and N <= 8 and 1 <= seqs <= B
+    assert aligned and D * item % 16 == 0
+    assert plan["threads"] == seqs * tps <= 256
+    assert plan["lmax"] == (16 if L <= 16 else 32) and L <= plan["lmax"]
+    assert plan["nmax"] == (4 if N <= 4 else 8) and N <= plan["nmax"]
+    assert plan["smem"] == _tile_smem(L, D, N, item, seqs) <= SMEM_BLOCK
+    assert plan["grid"] == (-(-B // seqs),)
+
+
+def test_short_scan_plan_at_the_served_shapes():
+    """Row 7 at the sharded fast_mamba_vsr's (57600, 16, 96, 8): the tile
+    kernel, two sequences (96 threads, three full warps) a block; row 8 at
+    the per-pixel (57600, 7, 128, 16) keeps the walking kernel (N 16)."""
+    fmv = _short_scan_plan(57600, 16, 96, 8, 2, True)
+    assert (fmv["route"], fmv["seqs"], fmv["threads"], fmv["grid"]) == (
+        "tile", 2, 96, (28800,))
+    assert (fmv["lmax"], fmv["nmax"], fmv["smem"]) == (16, 8, 14336)
+    pix = _short_scan_plan(57600, 7, 128, 16, 2, True)
+    assert (pix["route"], pix["grid"], pix["threads"]) == (
+        "walk", (57600, 1), 128)
+
+
+@pytest.mark.parametrize("L,D,N,route", [
+    (1, 8, 1, "tile"), (16, 96, 8, "tile"), (17, 96, 8, "tile"),
+    (32, 88, 8, "tile"), (33, 96, 8, "walk"), (16, 96, 9, "walk"),
+    (16, 512, 8, "tile"), (16, 520, 8, "walk")])
+def test_short_scan_plan_picks_the_kernel(L, D, N, route):
+    assert _short_scan_plan(1000, L, D, N, 2, True)["route"] == route
+
+
+@pytest.mark.parametrize("D,item,aligned,route", [
+    (96, 2, True, "tile"), (95, 2, True, "walk"), (92, 2, True, "walk"),
+    (92, 4, True, "tile"), (95, 4, True, "walk"), (96, 2, False, "walk"),
+    (96, 4, False, "walk")])
+def test_short_scan_plan_takes_the_tile_kernel_only_where_it_copies(
+        D, item, aligned, route):
+    """The tile kernel reads x and dt by 16-byte copies only; D not a
+    multiple of 16 bytes, or operands off the 16-byte grid, walk."""
+    assert _short_scan_plan(57600, 16, D, 8, item, aligned)["route"] == route
+
+
+@pytest.mark.parametrize("B,L,D,N", [(10, 8, 16, 17), (0, 8, 16, 4),
+                                     (10, 0, 16, 4), (10, 8, 0, 4)])
+def test_short_scan_plan_refuses_past_the_bounds(B, L, D, N):
+    with pytest.raises(ValueError, match="kernel takes N <= 16"):
+        _short_scan_plan(B, L, D, N, 2, True)

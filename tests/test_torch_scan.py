@@ -9,9 +9,18 @@ against on the card. Shapes have a ragged batch (300 against the TPU
 kernels' block of 256), lengths that are not powers of two and a nonzero
 h0. Tolerance 1e-4 absolute in fp32 (orders of sums differ), for y of
 order 1 and states of order 1.
+
+The plain versions compute their exps with torch's CPU exp, which calls
+MKL's vector math; the port sets that up on one thread when it is imported
+(``video_enhancer_tpu_torch/__init__.py``), since a first call from
+several threads at once can return some threads' chunks off by ~1e-4.
 """
 
 from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -70,6 +79,58 @@ def test_short_scan_with_state_matches_pallas(B, L, D, N):
     y0, h_zero = tscan.selective_scan_pallas_short(*_t(a))
     assert (y0 - got_y).abs().max().item() > 100 * TOL
     assert (h_zero - got_h).abs().max().item() > 100 * TOL
+
+
+@pytest.mark.parametrize("B", [300, 3000])
+def test_short_scan_port_is_the_same_at_any_thread_count(B):
+    """The port's row-7 plain version gives the same bits at 1, 3 and 8
+    torch threads (3000 sequences pass torch's grain and split across the
+    threads), so the comparison above cannot depend on a worker's thread
+    count."""
+    a = _inputs(B, 8, 16, 4, seed=B + 8)
+    before = torch.get_num_threads()
+    outs = []
+    try:
+        for n in (1, 3, 8):
+            torch.set_num_threads(n)
+            outs.append(tscan.selective_scan_pallas_short(
+                *_t(a), h0=torch.from_numpy(a["h0"])))
+    finally:
+        torch.set_num_threads(before)
+    for y, h in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(h, outs[0][1])
+
+
+# A fresh interpreter's first exp over 19,200 elements (row 7's decays at
+# (300, 16, 4)), split over eight threads, after importing the port.
+_FIRST_EXP = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import video_enhancer_tpu_torch  # noqa: F401
+import numpy as np
+import torch
+torch.set_num_threads(8)
+z = -np.random.default_rng(308).uniform(0.001, 0.3, (300, 16, 4))
+z = z.astype(np.float32)
+e = torch.exp(torch.from_numpy(z)).double().numpy()
+print(np.abs(e / np.exp(z.astype(np.float64)) - 1).max())
+"""
+
+
+def test_first_parallel_exp_after_importing_the_port_is_exact():
+    """The cause of the row-7 comparison's rare failure: the first call of
+    torch's CPU exp, made by several threads at once, could return some
+    threads' chunks off by ~1e-4 relative (in about one fresh process in
+    ten under load). Eight fresh interpreters at once, each importing the
+    port and then making that call, all get exps within 1e-6 of float64."""
+    root = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_EXP, root],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(8)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        assert float(out) <= 1e-6
 
 
 @pytest.mark.parametrize("B,L,D,N", [(300, 8, 16, 4), (1100, 5, 8, 16)])

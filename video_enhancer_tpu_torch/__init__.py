@@ -18,6 +18,16 @@ PyTorch version beside its wrapper (ops/ssd.py, ops/scan.py,
 ops/attention.py).
 """
 
+import torch
+
 from .device import resolve_device
 
 __all__ = ["resolve_device"]
+
+# torch's CPU exp, tanh, log and their kin call MKL's vector math (VML),
+# which sets itself up on its first call. When that first call comes from
+# several OpenMP threads at once (one op over more than 2048 elements),
+# some threads' chunks can come back off by up to ~1e-4 relative. One call
+# below the parallel grain, at import, makes the set-up happen on one
+# thread before any op of the port runs on the CPU.
+torch.exp(torch.zeros(1))

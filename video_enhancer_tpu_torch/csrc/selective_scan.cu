@@ -77,6 +77,7 @@
 // h_last (B, D, N) fp32 contiguous; y (B, L, D) contiguous. Scratch of row
 // 9: states (B, K, D, N) and sumdt (B, K, D) fp32, K = ceil(L / CHUNK).
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -105,33 +106,36 @@ struct Operands {
   long sbx, slx, sbdt, sldt, sbb, slb, sbc, slc;  // batch and step strides
 };
 
-// `dst` = src[0..N), zero beyond; 16-byte loads when N and src allow.
+// `dst` = src[0..N), zero beyond (up to NMAX, a multiple of 4); 16-byte
+// loads when N and src allow.
+template <int NMAX = MAX_N>
 __device__ __forceinline__ void load_row(const float* __restrict__ src, int N,
                                          float* dst) {
   if ((N & 3) == 0 && (reinterpret_cast<size_t>(src) & 15) == 0) {
 #pragma unroll
-    for (int q = 0; q < MAX_N / 4; ++q) {
+    for (int q = 0; q < NMAX / 4; ++q) {
       const float4 v = 4 * q < N ? reinterpret_cast<const float4*>(src)[q]
                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       dst[4 * q] = v.x, dst[4 * q + 1] = v.y, dst[4 * q + 2] = v.z, dst[4 * q + 3] = v.w;
     }
   } else {
 #pragma unroll
-    for (int n = 0; n < MAX_N; ++n) dst[n] = n < N ? src[n] : 0.0f;
+    for (int n = 0; n < NMAX; ++n) dst[n] = n < N ? src[n] : 0.0f;
   }
 }
 
+template <int NMAX = MAX_N>
 __device__ __forceinline__ void store_row(const float* src, int N,
                                           float* __restrict__ dst) {
   if ((N & 3) == 0 && (reinterpret_cast<size_t>(dst) & 15) == 0) {
 #pragma unroll
-    for (int q = 0; q < MAX_N / 4; ++q)
+    for (int q = 0; q < NMAX / 4; ++q)
       if (4 * q < N)
         reinterpret_cast<float4*>(dst)[q] =
             make_float4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
   } else {
 #pragma unroll
-    for (int n = 0; n < MAX_N; ++n)
+    for (int n = 0; n < NMAX; ++n)
       if (n < N) dst[n] = src[n];
   }
 }
@@ -248,6 +252,203 @@ scan_short_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
   }
   walk<T>(o, b, d, live, 0, L, L, D, N, false, a2, dd, h, y, bc);
   if (kState && live) store_row(h, N, hlast + ((size_t)b * D + d) * N);
+}
+
+// Rows 7 and 8 at L <= LMAX (16 or 32) and N <= NMAX (4 or 8): `seqs`
+// sequences a block, ceil(D / 2) threads a sequence, two adjacent channels
+// a thread. Every load of the block is issued before the first step: x and
+// dt of all L steps by 16-byte cp.async into shared memory (so x and dt
+// must be 16-byte aligned with D and their strides multiples of 16 bytes;
+// other operands keep the walking kernel: on an H100 the tile kernel with
+// element loads took 0.92 ms at (57600, 16, 95, 8) bf16, the walking kernel
+// 0.69 at D 96), A, D and h0 into
+// registers, B and C into registers eight at a time and then to shared
+// memory as fp32; the steps read x and dt as pairs from shared memory, y
+// takes x's place there and leaves in 16-byte stores. exp(dt A) is one
+// ex2.approx.ftz on A pre-scaled by log2 e. Larger N keeps the kernel that
+// walks any L (two channels a thread at N 16 held 2x the registers and ran
+// slower than it). At the sharded fast_mamba_vsr's shape the steps alone
+// take ~0.26 ms (the exps' floor is 0.19) and the loads alone ~0.22, and a
+// block's loads do not overlap its steps; a persistent version that loaded
+// the next group under the current group's steps held 104-143 registers
+// and ran slower (0.65-1.1 ms against 0.48). Grid ceil(B / seqs); blockDim
+// seqs * ceil(D / 2).
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_MAX_N = 8;
+
+__host__ __device__ inline int tile_ld(int D) { return (D + 7) / 8 * 8; }
+
+// Bytes of shared memory of the tile kernel (ops/scan.py _short_scan_plan
+// mirrors the sum): x and dt tiles (L rows of tile_ld(D)), then B and C as
+// fp32 (L rows of 2 * NMAX), a sequence after another.
+__host__ __device__ inline int tile_smem(int item, int L, int D, int nmax, int seqs) {
+  return seqs * (2 * L * tile_ld(D) * item + L * 2 * nmax * 4);
+}
+
+template <typename T> struct Pair;
+template <> struct Pair<float> {
+  static __device__ __forceinline__ float2 ld(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void st(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+template <> struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ float2 ld(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void st(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+template <> struct Pair<__half> {
+  static __device__ __forceinline__ float2 ld(const __half* p) {
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
+  }
+  static __device__ __forceinline__ void st(__half* p, float a, float b) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  }
+};
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// One step of two channels sharing B_t and C_t (fp32 at `bc`: B, then C,
+// NMAX floats each): h = exp(dt A) o h + dt x B_t; y += C_t . h.
+template <int NMAX>
+__device__ __forceinline__ void step_pair(float* h0, float* h1, const float* a0,
+                                          const float* a1, float2 dtv, float2 xv,
+                                          const float* bc, int N, float& y0,
+                                          float& y1) {
+  const float u0 = dtv.x * xv.x, u1 = dtv.y * xv.y;
+  const float4* bq = reinterpret_cast<const float4*>(bc);
+#pragma unroll
+  for (int q = 0; q < NMAX / 4; ++q) {
+    if (4 * q < N) {
+      const float4 b4 = bq[q], c4 = bq[NMAX / 4 + q];
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = 4 * q + k;
+        h0[n] = ex2_ftz(dtv.x * a0[n]) * h0[n] + u0 * bv[k];
+        h1[n] = ex2_ftz(dtv.y * a1[n]) * h1[n] + u1 * bv[k];
+        y0 += h0[n] * cv[k];
+        y1 += h1[n] * cv[k];
+      }
+    }
+  }
+}
+
+template <typename T, bool kState, int LMAX, int NMAX>
+__global__ void __launch_bounds__(TILE_THREADS)
+scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
+                       float* __restrict__ hlast, long Bsz, int L, int D, int N,
+                       int seqs) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int SEG = 16 / sizeof(T);   // elements a 16-byte copy
+  const int Dp = tile_ld(D), tps = (D + 1) / 2;
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ds = xs + (size_t)seqs * L * Dp;
+  float* bc = reinterpret_cast<float*>(ds + (size_t)seqs * L * Dp);
+  const long b0 = (long)blockIdx.x * seqs;
+  const int nseq = (int)min((long)seqs, Bsz - b0);
+  const T* __restrict__ xg = static_cast<const T*>(o.x);
+  const T* __restrict__ dg = static_cast<const T*>(o.dt);
+
+  const int segs = D / SEG;
+  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
+    const int row = i / segs, c = (i - row * segs) * SEG;
+    const int sq = row / L, t = row - sq * L;
+    const long b = b0 + sq;
+    cp_async16(xs + (size_t)row * Dp + c, xg + b * o.sbx + t * o.slx + c);
+    cp_async16(ds + (size_t)row * Dp + c, dg + b * o.sbdt + t * o.sldt + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const int sq = threadIdx.x / tps, d = 2 * (threadIdx.x - sq * tps);
+  const bool live = sq < nseq, two = d + 1 < D;
+  const long b = b0 + sq;
+  float a0[NMAX], a1[NMAX], h0r[NMAX], h1r[NMAX];
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n) a0[n] = a1[n] = h0r[n] = h1r[n] = 0.0f;
+  float dd0 = 0.0f, dd1 = 0.0f;
+  if (live) {
+    load_a<NMAX>(o.A, d, N, a0);
+    dd0 = o.D[d];
+    if (two) {
+      load_a<NMAX>(o.A, d + 1, N, a1);
+      dd1 = o.D[d + 1];
+    }
+    if (kState) {
+      load_row<NMAX>(h0 + ((size_t)b * D + d) * N, N, h0r);
+      if (two) load_row<NMAX>(h0 + ((size_t)b * D + d + 1) * N, N, h1r);
+    }
+  }
+  {
+    const T* __restrict__ Bm = static_cast<const T*>(o.B);
+    const T* __restrict__ Cm = static_cast<const T*>(o.C);
+    const int total = nseq * L * 2 * NMAX;
+    for (int i0 = threadIdx.x; i0 < total; i0 += 8 * blockDim.x) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * blockDim.x;
+        const int row = i / (2 * NMAX), j = i - row * (2 * NMAX);
+        const int rs = row / L, t = row - rs * L;
+        const int n = j < NMAX ? j : j - NMAX;
+        const long rb = b0 + rs;
+        v[u] = 0.0f;
+        if (i < total && n < N)
+          v[u] = to_f32(j < NMAX ? Bm[rb * o.sbb + t * o.slb + n]
+                                 : Cm[rb * o.sbc + t * o.slc + n]);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + u * blockDim.x < total) bc[i0 + u * blockDim.x] = v[u];
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  if (live) {
+    T* xr = xs + (size_t)sq * L * Dp + d;
+    const T* dr = ds + (size_t)sq * L * Dp + d;
+    const float* bcs = bc + (size_t)sq * L * 2 * NMAX;
+#pragma unroll
+    for (int t = 0; t < LMAX; ++t) {
+      if (t < L) {
+        const float2 xv = Pair<T>::ld(xr + t * Dp);
+        const float2 dv = Pair<T>::ld(dr + t * Dp);
+        float y0 = dd0 * xv.x, y1 = dd1 * xv.y;
+        step_pair<NMAX>(h0r, h1r, a0, a1, dv, xv, bcs + t * 2 * NMAX, N, y0, y1);
+        Pair<T>::st(xr + t * Dp, y0, y1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // y: the block's nseq * L rows are contiguous in (B, L, D)
+  T* yb = y + b0 * L * D;
+  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
+    const int row = i / segs, c = (i - row * segs) * SEG;
+    *reinterpret_cast<uint4*>(yb + (size_t)row * D + c) =
+        *reinterpret_cast<const uint4*>(xs + (size_t)row * Dp + c);
+  }
+  if (kState && live) {
+    store_row<NMAX>(h0r, N, hlast + ((size_t)b * D + d) * N);
+    if (two) store_row<NMAX>(h1r, N, hlast + ((size_t)b * D + d + 1) * N);
+  }
 }
 
 // One stateless direction of rows 6 and 10, from zero state; y gets `add`
@@ -470,22 +671,68 @@ extern "C" {
 // Chunk length of the long scan (row 9); the wrapper sizes its scratch.
 int vetk_selective_scan_chunk() { return CHUNK; }
 
+// Bytes of shared memory of the tile kernel (rows 7 and 8) at these sizes.
+int vetk_selective_scan_short_smem(int dtype, int L, int D, int N, int seqs) {
+  const int item = dtype == kFloat32 ? 4 : 2;
+  return tile_smem(item, L, D, N <= 4 ? 4 : TILE_MAX_N, seqs);
+}
+
 // Rows 7 and 8. h0 and hlast both given: row 7; both null: row 8.
 // strides (8 values, host memory): the batch and step strides, in elements,
-// of x, dt, B and C. Returns a cudaError_t (0 on success). Requires N <= 16.
+// of x, dt, B and C. seqs > 0: the tile kernel with that many sequences a
+// block (L <= SHARED_MAX_L, N <= TILE_MAX_N, seqs * ceil(D / 2) <=
+// TILE_THREADS, x and dt 16-byte aligned with D and their strides
+// multiples of 16 bytes); 0: the kernel that walks any L, a block a
+// sequence. Returns a cudaError_t (0 on success). Requires N <= 16.
 int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
                               const void* A, const void* Bm, const void* Cm,
                               const void* Dv, const void* h0, void* y, void* hlast,
                               int B, int L, int D, int N, const long* strides,
-                              void* stream) {
+                              int seqs, void* stream) {
   if (bad_shape(B, L, D, N) || (h0 == nullptr) != (hlast == nullptr))
     return (int)cudaErrorInvalidValue;
   const Operands o = operands(x, dt, A, Bm, Cm, Dv, strides);
   auto st = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(D);
-  const dim3 grid(B, blocks_for(D, threads));
   auto h0f = static_cast<const float*>(h0);
   auto hlf = static_cast<float*>(hlast);
+  if (seqs > 0) {
+    const int threads = seqs * ((D + 1) / 2);
+    if (L > SHARED_MAX_L || N > TILE_MAX_N || threads > TILE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    const int grid = (int)((B + (long)seqs - 1) / seqs);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      constexpr int SEG = 16 / sizeof(T);
+      if ((reinterpret_cast<size_t>(x) & 15) || (reinterpret_cast<size_t>(dt) & 15) ||
+          D % SEG || strides[0] % SEG || strides[1] % SEG || strides[2] % SEG ||
+          strides[3] % SEG)
+        return (int)cudaErrorInvalidValue;
+      T* yt = static_cast<T*>(y);
+      auto launch = [&](auto lmax, auto nmax) {
+        constexpr int LM = decltype(lmax)::value, NM = decltype(nmax)::value;
+        const int smem = tile_smem(sizeof(T), L, D, NM, seqs);
+        cudaError_t err;
+        if (h0) {
+          auto k = scan_short_tile_kernel<T, true, LM, NM>;
+          if ((err = allow_smem(k, smem)) != cudaSuccess) return (int)err;
+          k<<<grid, threads, smem, st>>>(o, h0f, yt, hlf, B, L, D, N, seqs);
+        } else {
+          auto k = scan_short_tile_kernel<T, false, LM, NM>;
+          if ((err = allow_smem(k, smem)) != cudaSuccess) return (int)err;
+          k<<<grid, threads, smem, st>>>(o, h0f, yt, hlf, B, L, D, N, seqs);
+        }
+        return (int)cudaGetLastError();
+      };
+      auto by_n = [&](auto lmax) {
+        if (N <= 4) return launch(lmax, std::integral_constant<int, 4>{});
+        return launch(lmax, std::integral_constant<int, TILE_MAX_N>{});
+      };
+      if (L <= 16) return by_n(std::integral_constant<int, 16>{});
+      return by_n(std::integral_constant<int, SHARED_MAX_L>{});
+    });
+  }
+  const int threads = threads_for(D);
+  const dim3 grid(B, blocks_for(D, threads));
   return by_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
     if (h0)

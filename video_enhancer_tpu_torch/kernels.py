@@ -57,8 +57,10 @@ _lib: ctypes.CDLL | None = None
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     # dtype, x, dt, A, B, C, y, states, decay, b, L, H, P, N, ldx, ldb, ldc,
-    # reverse, stream
-    "vetk_ssd_shared": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
+    # reverse, chunks a run, stream
+    "vetk_ssd_shared": [_I] + [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _I, _P],
+    # H, P
+    "vetk_ssd_tc_smem": [_I, _I],
     # dtype, u, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb, Af, Ab, Df, Db, y,
     # B, L, D, N, K, dt_rank, ldu, ldg, weight dtypes, instance, warps,
     # blocks, stream
@@ -79,8 +81,11 @@ _SIGNATURES = {
     # strides of q, k, v and o, windows a block, vec, stream
     "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12
     + [_I, _I, _P],
-    # dtype, x, dt, A, B, C, D, h0, y, h_last, B, L, D, N, strides, stream
-    "vetk_selective_scan_short": [_I] + [_P] * 9 + [_I] * 4 + [_P, _P],
+    # dtype, x, dt, A, B, C, D, h0, y, h_last, B, L, D, N, strides,
+    # sequences a block (0: the walking kernel), stream
+    "vetk_selective_scan_short": [_I] + [_P] * 9 + [_I] * 4 + [_P, _I, _P],
+    # dtype, L, D, N, sequences a block
+    "vetk_selective_scan_short_smem": [_I] * 5,
     # dtype, (x, dt, A, B, C, D) forward and backward, yf, yb, B, L, D, N,
     # strides forward and backward, stream
     "vetk_selective_scan_bidir": [_I] + [_P] * 14 + [_I] * 4 + [_P] * 3,

@@ -148,11 +148,68 @@ def _state_in(h0, x, N):
     return h0.float().contiguous()
 
 
+# The short scan's launch arithmetic (csrc/selective_scan.cu, rows 7 and 8),
+# pure Python so that the CPU tests reach it.
+_TILE_THREADS = 256        # threads a block of the tile kernel
+_TILE_MAX_L = 32           # longest L it takes (compile-time bounds 16, 32)
+_TILE_MAX_N = 8            # largest N it takes (compile-time bounds 4, 8)
+_WALK_MAX_THREADS = 256    # channels a block of the walking kernel
+
+
+def _tile_smem(L: int, D: int, N: int, itemsize: int, seqs: int) -> int:
+    """Bytes of dynamic shared memory of the tile kernel
+    (csrc/selective_scan.cu ``tile_smem``): per sequence x and dt (L rows
+    of D rounded up to 8) and B and C as fp32 (L rows of twice the N
+    bound)."""
+    nmax = 4 if N <= 4 else _TILE_MAX_N
+    return seqs * (2 * L * _up(D, 8) * itemsize + L * 2 * nmax * 4)
+
+
+def _short_scan_plan(B: int, L: int, D: int, N: int, itemsize: int,
+                     aligned: bool) -> dict:
+    """Rows 7 and 8. The tile kernel for L <= 32, N <= 8 and D <= 512 when
+    its 16-byte copies of x and dt can run (``aligned``: both start on 16
+    bytes and their batch and step strides are multiples of 16 bytes; D
+    too): its instance (L bound 16 or 32, N bound 4 or 8), two channels a
+    thread, the fewest sequences a block that fill whole warps (else the
+    best fill, at most 256 threads and B) whose shared memory fits, a
+    block per such group. The kernel that walks any L, a block a sequence,
+    otherwise. Raises ValueError for what neither takes."""
+    if min(B, L, D, N) < 1 or N > _MAX_N:
+        raise ValueError(f"kernel takes N <= {_MAX_N}, got B={B} L={L} D={D} "
+                         f"N={N}")
+    tps = -(-D // 2)
+    threads = min(_up(D, 32), _WALK_MAX_THREADS)
+    walk = {"route": "walk", "seqs": 0, "threads": threads,
+            "grid": (B, -(-D // threads)), "smem": 0}
+    if (L > _TILE_MAX_L or N > _TILE_MAX_N or tps > _TILE_THREADS
+            or not aligned or D * itemsize % 16):
+        return walk
+    cands = range(1, min(_TILE_THREADS // tps, B) + 1)
+    order = ([c for c in cands if c * tps % 32 == 0]
+             + sorted(cands, key=lambda c: (-c * tps / _up(c * tps, 32), -c)))
+    fits = [c for c in order
+            if _tile_smem(L, D, N, itemsize, c) <= _SMEM_BLOCK]
+    if not fits:
+        return walk
+    seqs = fits[0]
+    return {"route": "tile", "seqs": seqs, "threads": seqs * tps,
+            "grid": (-(-B // seqs),), "lmax": 16 if L <= 16 else _TILE_MAX_L,
+            "nmax": 4 if N <= 4 else _TILE_MAX_N,
+            "smem": _tile_smem(L, D, N, itemsize, seqs)}
+
+
 def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
     strides = _check_stream(x, dt, A, Bmat, C, D)
     Bsz, L, Dd = x.shape
     N = A.shape[1]
     stateful = h0 is not None or need_state
+    lib = kernels.library()
+    code = kernels.dtype_code(x)
+    item = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) * item % 16 == 0
+                  and t.stride(1) * item % 16 == 0 for t in (x, dt))
+    plan = _short_scan_plan(Bsz, L, Dd, N, item, aligned)
     if stateful:
         h0 = (torch.zeros((Bsz, Dd, N), device=x.device) if h0 is None
               else _state_in(h0, x, N))
@@ -161,14 +218,13 @@ def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
     y = torch.empty((Bsz, L, Dd), dtype=x.dtype, device=x.device)
     A32, D32 = A.float().contiguous(), D.float().contiguous()
     key = "selective_scan_short" if stateful else "selective_scan_short_nostate"
-    lib = kernels.library()
     with torch.cuda.device(x.device):
         err = lib.vetk_selective_scan_short(
-            kernels.dtype_code(x), x.data_ptr(), dt.data_ptr(),
+            code, x.data_ptr(), dt.data_ptr(),
             A32.data_ptr(), Bmat.data_ptr(), C.data_ptr(), D32.data_ptr(),
             h0.data_ptr() if stateful else None, y.data_ptr(),
             h_last.data_ptr() if stateful else None, Bsz, L, Dd, N, strides,
-            kernels.stream_of(x))
+            plan["seqs"], kernels.stream_of(x))
         kernels.launch_counts[key] += 1
     kernels.check(err, key)
     return y, h_last

@@ -20,6 +20,8 @@ any D*x skip).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
@@ -105,6 +107,79 @@ def ssd_shared_plain(x, dt, A, Bm, Cm, chunk: int = 256,
     return _ssd_forward_plain(x, dt, A, Bm, Cm, chunk)
 
 
+# The CUDA kernel's launch arithmetic (csrc/ssd_shared.cu), pure Python so
+# that the CPU tests reach it.
+_SSD_Q = 64                  # chunk length of both CUDA paths
+_SSD_TC_THREADS = 128        # four warps a block of the tensor-core path
+_SSD_TC_MIN_BLOCKS = 3       # its __launch_bounds__: blocks an SM by registers
+_SSD_TC_MAX_HP = 128         # H * P a block of it holds
+_SSD_SIMT_THREADS = 256
+_SMEM_BLOCK = 232448         # dynamic shared memory a block may use (H100)
+_SMEM_SM = 233472            # shared memory of an SM; each block takes 1 KB more
+
+
+def _ssd_smem(H: int, P: int) -> int:
+    """Bytes of dynamic shared memory of the tensor-core kernels
+    (csrc/ssd_shared.cu ``tc_layout``): two stages of x (rows of H*P + 8),
+    B and C (rows of 24) and dt (fp32), then B o e^(G-g) and C o e^g per
+    head, the entering state (16 rows of P + 8) per head, 16 rows of y for
+    each of the four warps and the log decays."""
+    q, bc = _SSD_Q, 24
+    stage = q * (H * P + 8) * 2 + 2 * q * bc * 2 + q * H * 4
+    total = (2 * stage + 2 * H * q * bc * 2 + (H + 4) * 16 * (P + 8) * 2
+             + (H * q + 2 * H) * 4)
+    return -(-total // 16) * 16
+
+
+def _ssd_simt_smem(P: int, N: int) -> int:
+    """Bytes of dynamic shared memory of the CUDA-core output kernel, the
+    larger of that path's two."""
+    q = _SSD_Q
+    return 4 * (2 * q + 2 * q * N + q * (q + N) + (q + N) * P)
+
+
+def _ssd_route(dtype: torch.dtype, H: int, P: int, N: int) -> str:
+    """``"mma"`` (the tensor-core path) for bf16 / fp16 with P a multiple
+    of 16 up to 64, H * P <= 128 and N <= 16; ``"simt"`` (the CUDA-core
+    path) otherwise."""
+    if (dtype in _HALF and P % 16 == 0 and 16 <= P <= 64
+            and H * P <= _SSD_TC_MAX_HP and N <= 16):
+        return "mma"
+    return "simt"
+
+
+@functools.lru_cache(maxsize=64)
+def _ssd_plan(b: int, L: int, H: int, P: int, N: int, dtype: torch.dtype,
+              sms: int) -> dict:
+    """The kernel's launches: the route (the kernel takes the same from
+    dtype and shape), the K chunks of 64 steps, and on the tensor-core
+    path the R chunks a block walks (a run) and the M = ceil(K / R) runs,
+    with R the least that puts the b * M blocks in one wave of the card
+    (blocks an SM by shared memory, capped by what the kernel's launch
+    bound guarantees by registers). Raises ValueError for what the kernel
+    does not take."""
+    if min(b, L, H, P, N) < 1 or P > 64 or N > 128 or b > 65535:
+        raise ValueError(f"kernel takes P <= 64, N <= 128 and b <= 65535, "
+                         f"got b={b} L={L} H={H} P={P} N={N}")
+    K = -(-L // _SSD_Q)
+    if _ssd_route(dtype, H, P, N) == "simt":
+        if H > 65535:
+            raise ValueError(f"kernel takes H <= 65535, got H={H}")
+        return {"route": "simt", "chunk": _SSD_Q, "chunks": K, "run": 1,
+                "runs": K, "grid": (K, H, b), "threads": _SSD_SIMT_THREADS,
+                "smem": _ssd_simt_smem(P, N)}
+    smem = _ssd_smem(H, P)
+    per_sm = min(_SSD_TC_MIN_BLOCKS, _SMEM_SM // (smem + 1024))
+    slots = per_sm * sms
+    run = min(K, max(1, -(-b * K // slots)))
+    while run < K and b * -(-K // run) > slots:
+        run += 1
+    runs = -(-K // run)
+    return {"route": "mma", "chunk": _SSD_Q, "chunks": K, "run": run,
+            "runs": runs, "grid": (runs, b), "threads": _SSD_TC_THREADS,
+            "smem": smem, "blocks_per_sm": per_sm}
+
+
 def _ssd_shared_cuda(x, dt, A, Bm, Cm, reverse):
     b, L, H, P = x.shape
     N = Bm.shape[-1]
@@ -124,20 +199,20 @@ def _ssd_shared_cuda(x, dt, A, Bm, Cm, reverse):
             raise ValueError("all operands must be on one device")
     ldx = kernels.row_stride(x.flatten(2), "x")
     ldb, ldc = kernels.row_stride(Bm, "Bm"), kernels.row_stride(Cm, "Cm")
+    plan = _ssd_plan(b, L, H, P, N, x.dtype, kernels.sm_count(x.device))
     dt32 = dt.float().contiguous()
     A32 = A.float().contiguous()
     lib = kernels.library()
-    Q = lib.vetk_ssd_chunk()
-    K = -(-L // Q)
+    M = plan["runs"]
     y = torch.empty((b, L, H, P), dtype=x.dtype, device=x.device)
-    states = torch.empty((b, H, K, N, P), dtype=torch.float32, device=x.device)
-    decay = torch.empty((b, H, K), dtype=torch.float32, device=x.device)
+    states = torch.empty((b, H, M, N, P), dtype=torch.float32, device=x.device)
+    decay = torch.empty((b, H, M), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.vetk_ssd_shared(
             kernels.dtype_code(x), x.data_ptr(), dt32.data_ptr(),
             A32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
             states.data_ptr(), decay.data_ptr(), b, L, H, P, N, ldx, ldb, ldc,
-            int(reverse), kernels.stream_of(x))
+            int(reverse), plan["run"], kernels.stream_of(x))
         kernels.launch_counts["ssd_shared"] += 1
     kernels.check(err, "ssd_shared")
     return y
