@@ -23,9 +23,10 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    and of the PyTorch library call that computes the same function where
    there is one; the device time of each of the SSD's three launches in
    one call (``torch.profiler``), on its tensor-core path (bf16) and its
-   CUDA-core path (fp32), and ptxas's
-   registers and spills of the SSD's run kernels and the short scan's tile
-   kernels;
+   CUDA-core path (fp32), and of the long scan's three launches (row 9)
+   and the window kernel (row 5); ptxas's registers and spills of the
+   SSD's run kernels, the short scan's tile kernels, the long scan's chunk
+   walks and the window kernel's tensor-core kernels;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -268,8 +269,10 @@ def build() -> str:
     return log
 
 
-# the kernels the SSD and short-scan redesign added (rows 1-2 and 7)
-REDESIGNED = ("ssd_run_kernel", "scan_short_tile_kernel")
+# the kernels the redesigns of rows 1-2 and 7 (SSD, short scan) and 5
+# (window attention) added or rewrote, and row 9's chunk walks
+REDESIGNED = ("ssd_run_kernel", "scan_short_tile_kernel", "scan_chunk_kernel",
+              "window_attn_mma")
 
 
 def ptxas_summary(log: str, names=REDESIGNED) -> list[str]:
@@ -486,10 +489,13 @@ def window_vs_plain() -> dict:
         nbytes, flops = _window_cost(dtype, **s)
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
         bound = max(nbytes / H100_BYTES_PER_S, flops / peak) * 1e3
+        dev = device_ms(lambda: window_attention(q, k, v, bias),
+                        ("window_attn",))
         print(f"window_attention {s} {dtype}: max_abs_err {err:.3e} rel "
-              f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, scaled_dot_product_attention with the "
-              f"bias mask {lib_ms:.4f} ms, bound {bound:.4f} ms")
+              f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms (device ms "
+              f"{dev}), plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention with the bias mask "
+              f"{lib_ms:.4f} ms, bound {bound:.4f} ms")
         check(rel <= tol, f"window_attention {dtype}: rel {rel} > {tol}")
         for what, wrong in WINDOW_CONTROLS.items():
             _, c_rel = rel_err(got, window_attention_plain(q, k, v,
@@ -611,6 +617,10 @@ def scans_vs_plain() -> dict:
                         flops / H100_FP32_FLOPS) * 1e3
             print(f"{key} {dtype}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            if key == "selective_scan_long":
+                # its three launches: chunk states, the pass, outputs
+                print(f"{key} {dtype}: device ms "
+                      f"{device_ms(run, ('scan_chunk', 'scan_state_pass'))}")
             if dtype == torch.bfloat16:
                 plain_ms = time_ms(plain, warmup=1, iters=3)
                 print(f"{key} {dtype}: plain {plain_ms:.3f} ms")

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The redesigned kernels of the PyTorch/CUDA port at the paths' shapes:
 flash attention (TPU kernel row 4), the fused bidirectional SSM (row 3),
-the SSD chunked scan (rows 1-2) and the short scan with and without state
-(rows 7-8), for an A/B of two checkouts in one call.
+the SSD chunked scan (rows 1-2), the short scan with and without state
+(rows 7-8), the long scan (row 9) and window attention (row 5), for an A/B
+of two checkouts in one call.
 
     python3 scripts/torch_profile_kernels.py [--root DIR] [--tag NAME]
-        [--only flash,fused,ssd,short]
+        [--only flash,fused,ssd,short,long,window]
 
 Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 (this checkout by default), builds the kernels with ``ptxas -v`` and
@@ -22,9 +23,14 @@ shapes; the SSD forward and reverse in bf16 at vsrm's shape (b 7, L
 at the sharded fast_mamba_vsr's (57600, 16, 96, N 8, h0) and the
 per-pixel (57600, 7, 128, N 16) shapes in bf16, and row 7 at D 95 and on
 x and dt sliced 3 columns in (operands the tile kernel leaves to the
-walking kernel). Beside each SSD and short-scan time, the device time a
-call of each kernel it launches, from ``torch.profiler``. The last line is one JSON object: the
-tag, the card, each case's ms and error.
+walking kernel); row 9 in bf16 and fp32 at one window's rasters (B 7, L
+57600, D 128, N 16, h0 in), y and h_last against ``selective_scan_assoc``;
+row 5 in bf16 at rvrt's shape (nW 3680, H 4, N 128, Dh 16, views of one
+qkv projection) against ``window_attention_plain``, beside
+``scaled_dot_product_attention`` with the bias as a mask. Beside each SSD,
+scan and window time, the device time a call of each kernel it launches,
+from ``torch.profiler``. The last line is one JSON object: the tag, the
+card, each case's ms and error.
 """
 
 from __future__ import annotations
@@ -39,22 +45,23 @@ import torch
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("--tag", default="")
-ap.add_argument("--only", default="flash,fused,ssd,short")
+ap.add_argument("--only", default="flash,fused,ssd,short,long,window")
 args = ap.parse_args()
 ONLY = set(args.only.split(","))
 sys.path.insert(0, str(Path(args.root).resolve()))
 
 import chip_smoke  # noqa: E402
 from video_enhancer_tpu_torch import kernels  # noqa: E402
-from video_enhancer_tpu_torch.ops.attention import (attention_ref,  # noqa: E402
-                                                    flash_attention)
+from video_enhancer_tpu_torch.ops.attention import (  # noqa: E402
+    attention_ref, flash_attention, window_attention, window_attention_plain)
 from video_enhancer_tpu_torch.ops import scan as scan_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops import ssd as ssd_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops.scan import (  # noqa: E402
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain)
 
 SOURCES = {"flash": "flash", "fused_bissm": "fused", "ssd_": "ssd",
-           "scan_short": "short"}
+           "scan_short": "short", "scan_chunk": "long",
+           "scan_state_pass": "long", "window_attn": "window"}
 
 FLASH_CASES = [dict(B=2, H=3, Lq=10080, Lk=10080, Dh=128),
                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
@@ -153,6 +160,63 @@ def short_cases(out: dict) -> bool:
     return ok
 
 
+def long_cases(out: dict) -> bool:
+    """Row 9 at one window's rasters with h0, bf16 and fp32: y and h_last
+    against the associative scan, and the device time a call of each
+    kernel it launches."""
+    ok = True
+    s = chip_smoke.SCAN_SHAPES["selective_scan_long"]
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 7)
+        a = chip_smoke._scan_inputs(dtype, gen, **s)
+        h0 = torch.randn((s["B"], s["D"], s["N"]), generator=gen,
+                         device="cuda")
+        y, h = scan_ops.selective_scan_pallas(*a, h0=h0)
+        y_p, h_p = scan_ops.selective_scan_assoc(*a, h0=h0)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[1]
+        tol = chip_smoke.TOL[("selective_scan_long", dt)]
+        rel = max(chip_smoke.rel_err(y, y_p)[1], chip_smoke.rel_err(h, h_p)[1])
+        good = rel <= tol and bool(torch.isfinite(y.float()).all())
+        ok &= good
+        del y_p, h_p
+        torch.cuda.empty_cache()
+        run = lambda: scan_ops.selective_scan_pallas(*a, h0=h0)  # noqa: E731
+        rec = {"ms": chip_smoke.time_ms(run), "rel": rel,
+               "device": device_ms(run, ("scan_chunk", "scan_state_pass"))}
+        key = f"selective_scan_long {tuple(s.values())} {dt} h0"
+        out[key] = rec
+        print(f"{key}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+        del a, h0, y, h
+        torch.cuda.empty_cache()
+    return ok
+
+
+def window_cases(out: dict) -> bool:
+    """Row 5 at rvrt's shape in bf16 against its plain version, beside
+    SDPA with the bias as a mask, with the kernel's device time."""
+    s = chip_smoke.WINDOW_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 5)
+    q, k, v, bias = chip_smoke._window_inputs(torch.bfloat16, gen, **s)
+    got = window_attention(q, k, v, bias)
+    ref = window_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    err, rel = chip_smoke.rel_err(got, ref)
+    good = (rel <= chip_smoke.TOL[("window_attention", "bfloat16")]
+            and bool(torch.isfinite(got.float()).all()))
+    run = lambda: window_attention(q, k, v, bias)  # noqa: E731
+    mask = bias[None].expand(s["nW"], -1, -1, -1).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {"ms": chip_smoke.time_ms(run), "rel": rel, "max_abs_err": err,
+           "sdpa_ms": chip_smoke.time_ms(lambda: sdpa(q, k, v,
+                                                      attn_mask=mask)),
+           "device": device_ms(run, ("window_attn",))}
+    key = f"window_attention {tuple(s.values())} bf16"
+    out[key] = rec
+    print(f"{key}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+    return good
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_kernels: needs a CUDA card", file=sys.stderr)
@@ -212,6 +276,10 @@ def main() -> int:
             ok &= ssd_cases(out)
         if "short" in ONLY:
             ok &= short_cases(out)
+        if "long" in ONLY:
+            ok &= long_cases(out)
+        if "window" in ONLY:
+            ok &= window_cases(out)
     print(json.dumps({"tag": args.tag, "device": smi, "ok": ok,
                       "cases": out}))
     return 0 if ok else 1

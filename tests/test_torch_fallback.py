@@ -5,12 +5,14 @@ host-memory floor."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import pytest
 
 from video_enhancer_tpu.runtime import fallback as jfallback
 from video_enhancer_tpu.runtime import registry as jregistry
+from video_enhancer_tpu_torch.config import default_policy
 from video_enhancer_tpu_torch.runtime import fallback as tfallback
 from video_enhancer_tpu_torch.runtime import registry
 
@@ -99,3 +101,81 @@ def test_memory_floor_and_exhaustion(monkeypatch):
     with pytest.raises(RuntimeError, match="no model available for rvrt"):
         tm.load_model_with_fallbacks("rvrt")
     assert [ok for _, _, ok in _attempts(tm)] == [False] * 4
+
+
+# A variant the JAX registry serves (registry.py:170-173, 196-201) and the
+# port does not have yet raises at build_handler, never serving the default
+# model in its place.
+def _policy_with(name, **extra):
+    policy = default_policy()
+    entry = policy.models[name]
+    models = dict(policy.models)
+    models[name] = dataclasses.replace(entry, extra={**entry.extra, **extra})
+    return dataclasses.replace(policy, models=models)
+
+
+@pytest.mark.parametrize("value", ["attentive", "MambaIRv2"])
+def test_preferred_backbone_env_refuses_vsrm(monkeypatch, value):
+    """The variable picks vsrm's attentive mixer in the JAX registry; the
+    port raises, also with a default vsrm handler already in its cache
+    (the variable is not part of the cache's key)."""
+    monkeypatch.delenv("VETPU_PREFERRED_BACKBONE", raising=False)
+    registry.build_handler("vsrm", device="cpu")
+    monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", value)
+    with pytest.raises(NotImplementedError,
+                       match=f"vsrm with backbone='{value.lower()}' is not "
+                             f"ported yet"):
+        registry.build_handler("vsrm", device="cpu")
+
+
+@pytest.mark.parametrize("backbone", ["mambairv2", "Attentive"])
+def test_policy_backbone_refuses_vsrm(monkeypatch, backbone):
+    """``extra.backbone`` on the policy's entry wins over the variable."""
+    monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", "eamamba")
+    with pytest.raises(NotImplementedError, match="backbone="):
+        registry.build_handler("vsrm", _policy_with("vsrm", backbone=backbone),
+                               device="cpu")
+
+
+def test_temporal_mixer_ssd_refuses_fast_mamba_vsr():
+    with pytest.raises(NotImplementedError,
+                       match="fast_mamba_vsr with temporal_mixer='ssd' is "
+                             "not ported yet"):
+        registry.build_handler(
+            "fast_mamba_vsr", _policy_with("fast_mamba_vsr",
+                                           temporal_mixer="ssd"),
+            device="cpu")
+
+
+def test_fallback_records_an_unported_variant_and_moves_on(monkeypatch):
+    """vsrm's build fails on the variable and rvrt, its next candidate,
+    serves; fast_mamba_vsr on the ssd mixer falls to cnn_upscaler (the
+    port has no realesrgan either)."""
+    monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", "attentive")
+    tm = tfallback.ModelFallbackManager(device="cpu")
+    handler, name = tm.load_model_with_fallbacks("vsrm")
+    assert name == "rvrt" and handler.name == "rvrt"
+    assert _attempts(tm) == [("vsrm", "vsrm", False), ("vsrm", "rvrt", True)]
+    assert "not ported yet" in tm.get_history()[0]["error"]
+    tm = tfallback.ModelFallbackManager(
+        _policy_with("fast_mamba_vsr", temporal_mixer="ssd"), device="cpu")
+    handler, name = tm.load_model_with_fallbacks("fast_mamba_vsr")
+    assert name == "cnn_upscaler"
+    assert _attempts(tm)[0] == ("fast_mamba_vsr", "fast_mamba_vsr", False)
+    assert "temporal_mixer='ssd'" in tm.get_history()[0]["error"]
+
+
+@pytest.mark.parametrize("name,extra,env", [
+    ("vsrm", {}, None), ("vsrm", {}, "eamamba"),
+    ("vsrm", {"backbone": "eamamba"}, "attentive"),
+    ("fast_mamba_vsr", {}, None),
+    ("fast_mamba_vsr", {"temporal_mixer": "ssm"}, "attentive"),
+    ("rvrt", {}, "attentive"), ("cnn_upscaler", {}, "attentive")])
+def test_default_variants_still_build(monkeypatch, name, extra, env):
+    if env is None:
+        monkeypatch.delenv("VETPU_PREFERRED_BACKBONE", raising=False)
+    else:
+        monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", env)
+    handler = registry.build_handler(name, _policy_with(name, **extra),
+                                     device="cpu")
+    assert handler.name == name

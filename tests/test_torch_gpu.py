@@ -25,6 +25,7 @@ from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
                                                     _flash_plan, _flash_smem,
+                                                    _window_plan,
                                                     attention, attention_ref,
                                                     flash_attention,
                                                     window_attention,
@@ -500,6 +501,50 @@ def test_window_kernel_scale_bf16_bias_and_large_logits(cuda, dtype):
     assert _rel(got, ref) <= WINDOW_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["split", "odd"])
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64])
+@pytest.mark.parametrize("N", [64, 98, 128])
+def test_window_kernel_ring_matches_plain(cuda, dtype, layout, N, Dh):
+    """The two-stage ring of the half-type kernel: 301 windows of 4 heads
+    (not a multiple of the windows a block, so the last block's run is
+    short), views of one qkv projection on the 16-byte grid (cp.async)
+    and one element off it (loaded synchronously), N and Dh that pad."""
+    nW, H = 301, 4
+    assert nW % _window_plan(nW, H, Dh, kernels.sm_count(cuda))["wpb"]
+    q, k, v, bias = _window_inputs(cuda, dtype, nW, H, N, Dh, layout,
+                                   seed=N + Dh)
+    before = kernels.launch_counts["window_attention"]
+    got = window_attention(q, k, v, bias)
+    ref = window_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["window_attention"] == before + 1
+    assert got.shape == (nW, H, N, Dh) and torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= WINDOW_TOL[dtype]
+    # a kernel that read the bias of another head would fail the check
+    assert _rel(window_attention_plain(q, k, v, bias.roll(1, dims=0)),
+                ref) > 5 * WINDOW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["split", "odd"])
+def test_window_kernel_ring_with_large_logits(cuda, dtype, layout):
+    """Logits far from 0 (q x 30, bias x 20) stay finite and agree at
+    rvrt's window, through both load paths."""
+    q, k, v, bias = _window_inputs(cuda, dtype, 300, 4, 128, 16, layout, 7)
+    got = window_attention(q * 30, k, v, bias * 20)
+    ref = window_attention_plain(q * 30, k, v, bias * 20)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, ref) <= WINDOW_TOL[dtype]
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32, 48, 64])
+def test_window_smem_mirrors_the_kernel(cuda, Dh):
+    assert kernels.library().vetk_window_attention_smem(Dh) == \
+        _window_plan(100, 4, Dh, 132)["smem"]
+
+
 def test_window_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.randn((2, 2, 129, 16), device=cuda)
     with pytest.raises(ValueError, match="N <= 128"):
@@ -687,6 +732,37 @@ def test_scan_long_kernel_matches_plain(cuda, dtype, state, B, L, D, N):
     assert y.dtype == dtype and h.shape == (B, D, N)
     assert _rel(y, y_p) <= SCAN_TOL[dtype]
     assert _rel(h, h_p) <= SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [True, False])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("B,L,D,N", [
+    (2, 33, 95, 1), (3, 1000, 130, 3), (2, 1000, 128, 16), (1, 1000, 95, 9),
+    (3, 4099, 130, 16), (1, 777, 128, 6), (2, 57600, 128, 16)])
+def test_scan_long_kernel_edges_match_plain(cuda, dtype, state, offset, B, L,
+                                            D, N):
+    """Row 9: L of one staging round of 32 steps and one more (33), ragged
+    last chunks of 128 steps (1000, 4099, 777) and the served 57600; D of 95, 128 and 130 (a
+    ragged last block of channels); N of 1, 3, 6, 9 and 16; x, B and C
+    dense or column slices 3 columns in; h0 absent and present; y and
+    h_last."""
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + N,
+                                        strided=offset > 0, offset=offset)
+    h0 = torch.randn((B, D, N), device=cuda) if state else None
+    before = kernels.launch_counts["selective_scan_long"]
+    y, h = selective_scan_pallas(x, dt, A, Bm, Cm, Dv, h0=h0)
+    y_p, h_p = selective_scan_assoc(x, dt, A, Bm, Cm, Dv, h0=h0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_long"] == before + 1
+    assert y.dtype == dtype and y.shape == (B, L, D)
+    assert h.dtype == torch.float32 and h.shape == (B, D, N)
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+    assert _rel(h, h_p) <= SCAN_TOL[dtype]
+    if state:
+        # the first steps are h0's: a kernel that ignored it would fail
+        y0, _ = selective_scan_assoc(x, dt, A, Bm, Cm, Dv)
+        assert _rel(y0[:, :8], y_p[:, :8]) > 5 * SCAN_TOL[dtype]
 
 
 def test_scan_kernels_reject_what_they_do_not_take(cuda):

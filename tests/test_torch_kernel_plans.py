@@ -22,6 +22,10 @@ kernel up to L 32, N 8 and D 512 where x and dt lie on the 16-byte grid,
 the walking kernel otherwise), its
 instance and the sequences a block. ``_ssd_smem`` and ``_tile_smem``
 mirror the CUDA sources' sums, held against them on the card.
+
+``ops.attention._window_plan`` is the window kernel's launch (padded head
+width, shared memory of the bias and a two-stage ring, blocks an SM and
+windows a block); its sum is held against the CUDA source on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
-                                                    _flash_plan, _flash_smem)
+                                                    _flash_plan, _flash_smem,
+                                                    _window_plan)
 from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES,
                                                _fused_bissm_plan,
                                                _fused_instance, _fused_smem,
@@ -424,3 +429,37 @@ def test_short_scan_plan_takes_the_tile_kernel_only_where_it_copies(
 def test_short_scan_plan_refuses_past_the_bounds(B, L, D, N):
     with pytest.raises(ValueError, match="kernel takes N <= 16"):
         _short_scan_plan(B, L, D, N, 2, True)
+
+
+# --------------------------------------------------------------------------
+# window attention (row 5)
+# --------------------------------------------------------------------------
+
+@FAST
+@given(nW=st.integers(1, 1 << 20), H=st.integers(1, 65535),
+       Dh=st.integers(1, 64), sms=st.sampled_from([1, 114, 132]))
+def test_window_plan_fits_an_sm_over_the_domain(nW, H, Dh, sms):
+    """The bias and the two-stage ring fit the blocks an SM the plan
+    counts on (two at Dh <= 16), the grid covers every window of every
+    head, and with a window a block or more of work a block the blocks
+    make one wave."""
+    plan = _window_plan(nW, H, Dh, sms)
+    dp, per_sm, wpb = plan["dp"], plan["blocks_per_sm"], plan["wpb"]
+    assert dp in (16, 32, 64) and Dh <= dp and (dp == 16 or dp // 2 < Dh)
+    assert plan["smem"] == 128 * 128 * 4 + 2 * 3 * 128 * (dp + 8) * 2
+    assert plan["smem"] <= SMEM_BLOCK
+    assert per_sm == (2 if dp == 16 else 1)
+    assert per_sm * (plan["smem"] + 1024) <= SMEM_SM
+    gx, gy = plan["grid"]
+    assert gy == H and (gx - 1) * wpb < nW <= gx * wpb
+    if nW * H >= per_sm * sms:
+        assert gx * gy <= per_sm * sms + H
+
+
+def test_window_plan_at_rvrt_shape():
+    """rvrt at 180x320 (nW 3680, H 4, Dh 16): 56 windows a block, 66 x 4
+    blocks, two an SM of 102,400 bytes each (64 KB of bias, 2 x 18 KB of
+    ring)."""
+    plan = _window_plan(3680, 4, 16, 132)
+    assert (plan["dp"], plan["wpb"], plan["grid"]) == (16, 56, (66, 4))
+    assert (plan["smem"], plan["blocks_per_sm"]) == (102400, 2)

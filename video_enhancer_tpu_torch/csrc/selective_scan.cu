@@ -53,8 +53,17 @@
 //        state entering it (decay exp(A * sum dt)), and writes h_last;
 //     3. chunk_output: each chunk scans again from its entering state and
 //        writes y.
-//   The price is the inputs read twice and the chunk states (B, K, D, N)
-//   fp32 round-tripping device memory.
+//   The price is the inputs read twice, each exp computed twice (826 M a
+//   walk at the served shape) and the chunk states (B, K, D, N) fp32
+//   round-tripping device memory. The state walk reads no C and writes no
+//   y. A single pass was measured against this on an H100 and lost: a
+//   block a sequence walking L in tiles of 64 steps with its states in
+//   registers, the runs of a tile joined by a warp scan, each exp once and
+//   no scratch, took 1.30 ms (bf16) against 0.88 for these three launches,
+//   and 0.69 even with its loads left out. What bounds both is issue, not
+//   the exps: the scan's joins and the states split across warps (for
+//   enough warps an SM) cost ~16 instructions an element, the walks ~5.5
+//   each (PERF.md, PR 11).
 // - row 10: as row 6, but B_t and C_t of all L steps are staged once for
 //   both directions, u is read from device memory once (the backward pass
 //   reads the block's few-KB slab again from L1), and the forward pass keeps
@@ -148,10 +157,19 @@ __device__ __forceinline__ void load_a(const float* __restrict__ A, int d, int N
   for (int n = 0; n < NMAX; ++n) a2[n] = n < N ? A[(size_t)d * N + n] * LOG2E : 0.0f;
 }
 
+// 2^x on the special-function unit, one instruction (exp2f adds a range
+// fix for results below the smallest normal float; ftz flushes them to 0).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // One step of a channel: h = exp(dt A) o h + dt x B_t, from B_t and C_t
 // staged as fp32 at `bcs` (B, then C, MAX_N floats each); returns y0 +
-// C_t . h. NMAX (a multiple of 4, >= N) bounds the unrolled states.
-template <int NMAX = MAX_N>
+// C_t . h (y0 without kC, which needs no C). NMAX (a multiple of 4, >= N)
+// bounds the unrolled states.
+template <int NMAX = MAX_N, bool kC = true>
 __device__ __forceinline__ float step(float* h, const float* a2, float dtv, float xv,
                                       const float* bcs, int N, float y0) {
   const float drive = dtv * xv;
@@ -160,14 +178,15 @@ __device__ __forceinline__ float step(float* h, const float* a2, float dtv, floa
 #pragma unroll
   for (int q = 0; q < NMAX / 4; ++q) {
     if (4 * q < N) {
-      const float4 b4 = bq[q], c4 = bq[MAX_N / 4 + q];
+      const float4 b4 = bq[q];
+      const float4 c4 = kC ? bq[MAX_N / 4 + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
       const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int n = 4 * q + k;
-        h[n] = exp2f(dtv * a2[n]) * h[n] + drive * bv[k];
-        yv += h[n] * cv[k];
+        h[n] = ex2_ftz(dtv * a2[n]) * h[n] + drive * bv[k];
+        if (kC) yv += h[n] * cv[k];
       }
     }
   }
@@ -175,32 +194,34 @@ __device__ __forceinline__ float step(float* h, const float* a2, float dtv, floa
 }
 
 // Stages B_t and C_t of `steps` steps from s0 of sequence b into `bc` as
-// fp32, 2 * MAX_N floats a step (B, then C, zeros beyond N). Every thread of
-// the block takes part; the caller synchronises.
-template <typename T>
+// fp32, 2 * MAX_N floats a step (B, then C, zeros beyond N; without kC, B
+// only). Every thread of the block takes part; the caller synchronises.
+template <typename T, bool kC = true>
 __device__ __forceinline__ void stage_bc(const Operands& o, long b, int s0, int steps,
                                          int N, float* bc) {
   const T* __restrict__ Bm = static_cast<const T*>(o.B) + b * o.sbb;
   const T* __restrict__ Cm = static_cast<const T*>(o.C) + b * o.sbc;
-  for (int i = threadIdx.x; i < steps * 2 * MAX_N; i += blockDim.x) {
-    const int s = i / (2 * MAX_N), j = i - s * (2 * MAX_N);
+  constexpr int W = kC ? 2 * MAX_N : MAX_N;   // floats staged a step
+  for (int i = threadIdx.x; i < steps * W; i += blockDim.x) {
+    const int s = i / W, j = i - s * W;
     const int n = j < MAX_N ? j : j - MAX_N;
     float v = 0.0f;
     if (n < N) {
       const long t = s0 + s;
       v = to_f32(j < MAX_N ? Bm[t * o.slb + n] : Cm[t * o.slc + n]);
     }
-    bc[i] = v;
+    bc[s * 2 * MAX_N + j] = v;
   }
 }
 
 // Walks steps [t_begin, t_end) of sequence b for channel d (back to front
 // when `reverse`), advancing the N states h from and into registers, and
 // writes y (plus `add` at the same place, when not null) unless y is null;
-// returns the sum of dt over the steps. Every thread of the block calls it
+// returns the sum of dt over the steps. Without kY it writes no y and
+// neither stages nor reads C. Every thread of the block calls it
 // (B_t and C_t of the block's sequence are staged in shared memory `bc`,
 // STAGE steps at a time); `live` says whether this thread's channel exists.
-template <typename T, typename TY = T>
+template <typename T, typename TY = T, bool kY = true>
 __device__ __forceinline__ float walk(const Operands& o, long b, int d, bool live,
                                       int t_begin, int t_end, int L, int D, int N,
                                       bool reverse, const float* a2, float dd,
@@ -213,7 +234,7 @@ __device__ __forceinline__ float walk(const Operands& o, long b, int d, bool liv
     const int steps = min(STAGE, t_end - t_begin - c0);
     const int s0 = reverse ? t_end - c0 - steps : t_begin + c0;
     __syncthreads();  // the previous stage has been read
-    stage_bc<T>(o, b, s0, steps, N, bc);
+    stage_bc<T, kY>(o, b, s0, steps, N, bc);
     __syncthreads();
     if (!live) continue;
     for (int u = 0; u < steps; ++u) {
@@ -221,8 +242,8 @@ __device__ __forceinline__ float walk(const Operands& o, long b, int d, bool liv
       const long t = s0 + s;
       const float xv = to_f32(x[t * o.slx]);
       const float dtv = to_f32(dt[t * o.sldt]);
-      const float yv = step(h, a2, dtv, xv, bc + s * 2 * MAX_N, N, dd * xv);
-      if (y) {
+      const float yv = step<MAX_N, kY>(h, a2, dtv, xv, bc + s * 2 * MAX_N, N, dd * xv);
+      if (kY && y) {
         const size_t e = ((size_t)b * L + t) * D + d;
         y[e] = from_f32<TY>(add ? add[e] + yv : yv);
       }
@@ -310,12 +331,6 @@ template <> struct Pair<__half> {
     *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
   }
 };
-
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -573,8 +588,8 @@ scan_chunk_kernel(Operands o, float* __restrict__ states, float* __restrict__ su
     dd = o.D[d];
   }
   const int t0 = k * CHUNK, t1 = min(t0 + CHUNK, L);
-  const float dsum = walk<T>(o, b, d, live, t0, t1, L, D, N, false, a2, dd, h,
-                             kOutput ? y : nullptr, bc);
+  const float dsum = walk<T, T, kOutput>(o, b, d, live, t0, t1, L, D, N, false, a2,
+                                         dd, h, kOutput ? y : nullptr, bc);
   if (!kOutput && live) {
     store_row(h, N, st);
     sumdt[((size_t)b * K + k) * D + d] = dsum;

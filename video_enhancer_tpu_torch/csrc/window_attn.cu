@@ -13,30 +13,42 @@
 // Dh = 16, bf16) reading q, k, v and writing o moves 4 * 14720 * 128 * 16 * 2 B
 // = 241 MB, 0.072 ms at 3.35 TB/s; its 4 nW H N^2 Dh = 15.4 GFLOP take 0.016 ms
 // at the bf16 tensor-core rate, so bytes bound the work. In fp32 on CUDA cores
-// the same operations need 0.23 ms at 67 TFLOP/s.
+// the same operations need 0.23 ms at 67 TFLOP/s. Its 241 M exps take
+// 0.058 ms of the special-function units. Measured on an H100 (PERF.md, PR
+// 11), the half-type kernel's products and softmax alone take ~0.19 ms and
+// its loads alone ~0.11: the latency of each warp's chain (ldmatrix, mma,
+// the row max across a quad, ex2, mma) at 16 warps an SM, not a pipe, sets
+// its pace.
 //
 // The TPU kernel held a group of whole windows' (N, N) logits in VMEM; here
 // they live in registers, a row block at a time. Two kernels, by the input
 // type:
 //
 // - bf16 and fp16 (the served path): window_attn_mma, 8 warps of 16 query
-//   rows. A block takes one head and a run of `wpb` consecutive windows, 2
-//   blocks an SM, launched as about one wave (wpb from the wrapper). The
-//   block first copies its head's bias (times log2 e) into
-//   shared memory in the order of the mma accumulator fragments, so that a
-//   thread reads the bias of its 4 logits of an n-tile as one float4 with
-//   no bank conflict; all its windows reuse it. Per window, Q, K and V tiles
-//   (128 x Dh, zero-padded to 16, 32 or 64, rows padded by 8 elements so
-//   that ldmatrix reads them without bank conflicts) are loaded
-//   synchronously into shared memory, 16 bytes a thread when aligned; each
-//   warp computes its 16-row block of S = QK^T a tile of 64 keys at a time
-//   with mma.sync m16n8k16 (fp32 accumulate), scales it and adds the bias,
-//   keeps an online softmax (quad shuffles for the row max and sum), rounds
-//   P to the input type as the A fragment of PV (V through ldmatrix.trans)
-//   and divides by the row sum at the end. The plain version rounds the
-//   normalised probabilities instead; both round P once. Keeping the whole
-//   128-key row of S in registers took 253 registers and one block an SM;
-//   tiles of 64 keys take 119 and two.
+//   rows. A block takes one head and a run of `wpb` consecutive windows,
+//   launched as about one wave (wpb from the wrapper: 2 blocks an SM at Dh
+//   <= 16, 1 above). The block first copies its head's bias (times log2 e)
+//   into shared memory in the order of the mma accumulator fragments, so
+//   that a thread reads the bias of its 4 logits of an n-tile as one float4
+//   with no bank conflict; all its windows reuse it. Q, K and V tiles (128
+//   x Dh, zero-padded to 16, 32 or 64, rows padded by 8 elements so that
+//   ldmatrix reads them without bank conflicts) pass through a ring of two
+//   stages: while the warps work on window w, the 16-byte cp.async copies
+//   of window w + 1 are in flight (the first window's under the bias copy),
+//   so loads and tensor-core work overlap; a wait on the copy group and one
+//   barrier open a stage, a second barrier frees it for the window after
+//   next. Operands off the 16-byte grid (`vec` 0) are loaded synchronously
+//   into the same ring. Each warp computes its 16-row block of S = QK^T a
+//   tile of 64 keys at a time with mma.sync m16n8k16 (fp32 accumulate),
+//   scales it and adds the bias, keeps an online softmax (quad shuffles for
+//   the row max and sum), rounds P to the input type as the A fragment of
+//   PV (V through ldmatrix.trans) and divides by the row sum at the end.
+//   The plain version rounds the normalised probabilities instead; both
+//   round P once. Keeping the whole 128-key row of S in registers took 253
+//   registers and one block an SM; tiles of 64 keys take 128 and two
+//   (unrolling the two tiles spilled and ran slower). The
+//   block's shared memory is the bias (64 KB) and the ring (2 x 18 KB at
+//   Dh 16); a deeper ring would need the bias out of shared memory.
 // - fp32: window_attn_simt, the products on CUDA cores in fp32. A block of
 //   128 threads takes one (window, head), one query row a thread: K and V staged in shared memory as fp32,
 //   q in registers, an online softmax over the keys in chunks of 16 (one
@@ -158,6 +170,14 @@ window_attn_simt(const float* __restrict__ q, const float* __restrict__ k,
 // Tensor-core kernel (bf16, fp16)
 // ---------------------------------------------------------------------------
 
+// 2^x on the special-function unit (the logits are in log2 units; a
+// result below the smallest normal float is flushed to 0).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <typename T> struct Pack;
 template <> struct Pack<__nv_bfloat16> {
   static __device__ __forceinline__ uint32_t two(float lo, float hi) {
@@ -233,10 +253,31 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long ld, int N,
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// As load_tile with 16-byte operands (`vec`), but by cp.async: rows past N
+// and chunks past Dh read nothing and are zero-filled.
+template <typename T, int DP>
+__device__ __forceinline__ void issue_tile(T* dst, const T* src, long ld, int N, int Dh) {
+  constexpr int LD = DP + 8;
+  constexpr int CH = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = r < N && c < Dh;
+    cp_async16(dst + r * LD + c, in ? src + r * ld + c : src, in ? 16 : 0);
+  }
+}
+
 template <int DP>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
-  // the head's bias in fragment order (fp32), then the Q, K and V tiles
-  return ROWS * ROWS * sizeof(float) + 3 * ROWS * (DP + 8) * sizeof(uint16_t);
+  // the head's bias in fragment order (fp32), then two stages of the Q, K
+  // and V tiles
+  return ROWS * ROWS * sizeof(float) + 2 * 3 * ROWS * (DP + 8) * sizeof(uint16_t);
 }
 
 // Where bias[row][col] lands in the fragment-ordered copy: the float4 of
@@ -261,9 +302,7 @@ window_attn_mma(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NO = DP / 8;           // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Bs = reinterpret_cast<float*>(smem_raw);   // bias * log2(e)
-  T* Qs = reinterpret_cast<T*>(Bs + ROWS * ROWS);
-  T* Ks = Qs + ROWS * LD;
-  T* Vs = Ks + ROWS * LD;
+  T* ring = reinterpret_cast<T*>(Bs + ROWS * ROWS);  // [2][Q, K, V][ROWS * LD]
 
   const int h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -274,117 +313,151 @@ window_attn_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int w0 = blockIdx.x * wpb;
   const int w1 = min(w0 + wpb, nW);
 
+  // window w's Q, K and V into ring stage `st`, as one cp.async group
+  auto load = [&](int w, int st) {
+    T* dst = ring + st * 3 * ROWS * LD;
+    const T* src[3] = {q + w * qs.w + h * qs.h, k + w * ks.w + h * ks.h,
+                       v + w * vs.w + h * vs.h};
+    const long ld[3] = {qs.r, ks.r, vs.r};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (vec)
+        issue_tile<T, DP>(dst + i * ROWS * LD, src[i], ld[i], N, Dh);
+      else
+        load_tile<T, DP>(dst + i * ROWS * LD, src[i], ld[i], N, Dh, false);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (w0 < w1) load(w0, 0);
+
   // the head's bias, read once for all the block's windows
   const float* bh = bias + (long)h * N * N;
   for (int i = threadIdx.x; i < N * N; i += MMA_THREADS)
     Bs[frag_index(i / N, i % N)] = bh[i] * kLog2e;
   const float4* Bf = reinterpret_cast<const float4*>(Bs) + warp * (ROWS / 8) * 32 + lane;
 
-  for (int w = w0; w < w1; ++w) {
-    __syncthreads();                          // the last window is spent
-    load_tile<T, DP>(Qs, q + w * qs.w + h * qs.h, qs.r, N, Dh, vec);
-    load_tile<T, DP>(Ks, k + w * ks.w + h * ks.h, ks.r, N, Dh, vec);
-    load_tile<T, DP>(Vs, v + w * vs.w + h * vs.h, vs.r, N, Dh, vec);
-    __syncthreads();
-    if (wr >= N) continue;                    // every thread syncs alike
+  for (int w = w0, st = 0; w < w1; ++w, st ^= 1) {
+    if (w + 1 < w1) {
+      load(w + 1, st ^ 1);                    // in flight under this window
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();                          // window w (and the bias) is in
+    const T* Qs = ring + st * 3 * ROWS * LD;
+    const T* Ks = Qs + ROWS * LD;
+    const T* Vs = Ks + ROWS * LD;
+    if (wr < N) {
+      uint32_t qf[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4<false>(qf[kk], Qs + (wr + rr + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8);
+      float acc[NO][4];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+      float m[2] = {kNegInf, kNegInf};   // running max of rows g, g + 8 (log2 units)
+      float l[2] = {0.0f, 0.0f};         // this thread's share of their sums
 
-    uint32_t qf[KS][4];
+      // keys in tiles of KT with an online softmax: S of one tile, 16 x KT,
+      // in registers
+      for (int k0 = 0; k0 < N; k0 += KT) {
+        float s[KT / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      ldmatrix_x4<false>(qf[kk], Qs + (wr + rr + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8);
-    float acc[NO][4];
+        for (int n = 0; n < KT / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    float m[2] = {kNegInf, kNegInf};   // running max of rows g, g + 8 (log2 units)
-    float l[2] = {0.0f, 0.0f};         // this thread's share of their sums
-
-    // keys in tiles of KT with an online softmax: S of one tile, 16 x KT,
-    // in registers
-    for (int k0 = 0; k0 < N; k0 += KT) {
-      float s[KT / 8][4];
+        for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-      for (int n = 0; n < KT / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+          for (int p = 0; p < KT / 16; ++p) {
+            uint32_t bk[4];
+            ldmatrix_x4<false>(bk, Ks + (k0 + p * 16 + rr + (mi >> 1) * 8) * LD + kk * 16 + (mi & 1) * 8);
+            mma16816<T>(s[2 * p], qf[kk], bk[0], bk[1]);
+            mma16816<T>(s[2 * p + 1], qf[kk], bk[2], bk[3]);
+          }
+        }
+        // logits = S * scale + bias in log2 units; keys past N are masked
+        // (only a tile that reaches past N compares)
+        float mx[2] = {kNegInf, kNegInf};
+        const bool ragged = k0 + KT > N;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
+        for (int n = 0; n < KT / 8; ++n) {
+          const float4 b = Bf[(k0 / 8 + n) * 32];
+          const float bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int p = 0; p < KT / 16; ++p) {
-          uint32_t bk[4];
-          ldmatrix_x4<false>(bk, Ks + (k0 + p * 16 + rr + (mi >> 1) * 8) * LD + kk * 16 + (mi & 1) * 8);
-          mma16816<T>(s[2 * p], qf[kk], bk[0], bk[1]);
-          mma16816<T>(s[2 * p + 1], qf[kk], bk[2], bk[3]);
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[n][e];
+            x = fmaf(x, sl2, bb[e]);
+            if (ragged && k0 + n * 8 + 2 * t + (e & 1) >= N) x = kNegInf;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // the 4 threads of a quad hold one row's scores
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m[i], mx[i]);
+          alpha[i] = ex2_ftz(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= alpha[i];
+        }
+#pragma unroll
+        for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] = ex2_ftz(s[n][e] - m[e >> 1]);
+            l[e >> 1] += s[n][e];
+          }
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; ++kk) {  // keys k0 + 16 kk .. + 15
+          uint32_t pa[4];
+          pa[0] = Pack<T>::two(s[2 * kk][0], s[2 * kk][1]);
+          pa[1] = Pack<T>::two(s[2 * kk][2], s[2 * kk][3]);
+          pa[2] = Pack<T>::two(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[3] = Pack<T>::two(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t bv[4];
+            ldmatrix_x4<true>(bv, Vs + (k0 + kk * 16 + rr + (mi & 1) * 8) * LD + np * 16 + (mi >> 1) * 8);
+            mma16816<T>(acc[2 * np], pa, bv[0], bv[1]);
+            mma16816<T>(acc[2 * np + 1], pa, bv[2], bv[3]);
+          }
         }
       }
-      // logits = S * scale + bias in log2 units; keys past N are masked
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < KT / 8; ++n) {
-        const float4 b = Bf[(k0 / 8 + n) * 32];
-        const float bb[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          float& x = s[n][e];
-          x = col < N ? fmaf(x, sl2, bb[e]) : kNegInf;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float alpha[2];
+
+      T* ob = o + w * os.w + h * os.h;
+      // o's pairs of columns are 4-byte aligned when its base and strides are
+      const bool pair = ((reinterpret_cast<size_t>(o) | os.w | os.h | os.r) & 1) == 0 &&
+                        (reinterpret_cast<size_t>(o) & 3) == 0;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        // the 4 threads of a quad hold one row's scores
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= alpha[i];
-      }
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        const int row = wr + lane / 4 + 8 * i;
+        if (row >= N) continue;
+        const float inv = 1.0f / l[i];
 #pragma unroll
-      for (int n = 0; n < KT / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-          l[e >> 1] += s[n][e];
-        }
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < KT / 16; ++kk) {  // keys k0 + 16 kk .. + 15
-        uint32_t pa[4];
-        pa[0] = Pack<T>::two(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = Pack<T>::two(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = Pack<T>::two(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = Pack<T>::two(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int np = 0; np < NO / 2; ++np) {
-          uint32_t bv[4];
-          ldmatrix_x4<true>(bv, Vs + (k0 + kk * 16 + rr + (mi & 1) * 8) * LD + np * 16 + (mi >> 1) * 8);
-          mma16816<T>(acc[2 * np], pa, bv[0], bv[1]);
-          mma16816<T>(acc[2 * np + 1], pa, bv[2], bv[3]);
+        for (int n = 0; n < NO; ++n) {
+          const int col = n * 8 + 2 * t;
+          T* out = ob + row * os.r + col;
+          if (col + 1 < Dh && pair) {           // one 4-byte store
+            *reinterpret_cast<uint32_t*>(out) =
+                Pack<T>::two(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+          } else {
+            if (col < Dh) out[0] = from_f32<T>(acc[n][2 * i] * inv);
+            if (col + 1 < Dh) out[1] = from_f32<T>(acc[n][2 * i + 1] * inv);
+          }
         }
       }
     }
-
-    T* ob = o + w * os.w + h * os.h;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      const int row = wr + lane / 4 + 8 * i;
-      if (row >= N) continue;
-      const float inv = 1.0f / l[i];
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int col = n * 8 + 2 * t;
-        if (col < Dh) ob[row * os.r + col] = from_f32<T>(acc[n][2 * i] * inv);
-        if (col + 1 < Dh) ob[row * os.r + col + 1] = from_f32<T>(acc[n][2 * i + 1] * inv);
-      }
-    }
+    __syncthreads();                          // stage st is spent: refilled at w + 2
   }
 }
 
@@ -475,6 +548,14 @@ int vetk_window_attention(int dtype, const void* q, const void* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Bytes of dynamic shared memory of a block of the half-type kernel for a
+// head width of Dh.
+int vetk_window_attention_smem(int Dh) {
+  if (Dh <= 16) return (int)mma_smem_bytes<16>();
+  if (Dh <= 32) return (int)mma_smem_bytes<32>();
+  return (int)mma_smem_bytes<64>();
 }
 
 }  // extern "C"

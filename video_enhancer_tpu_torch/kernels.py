@@ -77,6 +77,8 @@ _SIGNATURES = {
     + [_I, _P],
     # padded head width
     "vetk_flash_smem": [_I],
+    # head width
+    "vetk_window_attention_smem": [_I],
     # dtype, q, k, v, bias, o, nW, H, N, Dh, scale, (window, head, row)
     # strides of q, k, v and o, windows a block, vec, stream
     "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12

@@ -219,12 +219,30 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_ref(q, k, v, bias=bias[None], scale=scale)
 
 
-def _window_blocks(device: torch.device, nW: int, H: int) -> int:
-    """Windows a block of the tensor-core kernel (half types), which stages
-    its head's bias once a block: one wave of 2 blocks an SM (56 windows a
-    block at rvrt's shape, the fastest of those tried, PERF.md). The fp32
-    kernel takes one window a block and ignores it."""
-    return max(1, -(-nW * H // (2 * kernels.sm_count(device))))
+_WIN_ROWS = 128                # rows of a window tile (csrc/window_attn.cu ROWS)
+_SMEM_SM = 233472              # shared memory of an H100 SM; 1 KB more a block
+
+
+def _window_smem(dp: int) -> int:
+    """Dynamic shared memory of a block of the tensor-core kernel
+    (csrc/window_attn.cu ``mma_smem_bytes``): the head's fp32 bias, then
+    two ring stages of Q, K and V tiles of (128, dp + 8) half values."""
+    return _WIN_ROWS * _WIN_ROWS * 4 + 2 * 3 * _WIN_ROWS * (dp + 8) * 2
+
+
+def _window_plan(nW: int, H: int, Dh: int, sms: int) -> dict:
+    """The half-type kernel's launch: the padded head width (16, 32 or 64),
+    its shared memory, the blocks an SM holds by it (2 at Dh <= 16, 1
+    above, at most 2 by the kernel's launch bounds), and the windows a
+    block (``wpb``), which it stages its head's bias once for: one wave of
+    blocks (56 windows a block at rvrt's shape, the fastest of those tried,
+    PERF.md). The fp32 kernel takes one window a block and ignores it."""
+    dp = 16 if Dh <= 16 else (32 if Dh <= 32 else 64)
+    smem = _window_smem(dp)
+    per_sm = min(2, _SMEM_SM // (smem + 1024))
+    wpb = max(1, -(-nW * H // (per_sm * sms)))
+    return {"dp": dp, "smem": smem, "blocks_per_sm": per_sm, "wpb": wpb,
+            "grid": (-(-nW // wpb), H)}
 
 
 def _window_cuda(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -258,7 +276,8 @@ def _window_cuda(q, k, v, bias, scale: float) -> torch.Tensor:
         err = lib.vetk_window_attention(
             kernels.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             b32.data_ptr(), o.data_ptr(), nW, H, N, Dh, float(scale),
-            *strides, _window_blocks(q.device, nW, H), int(vec),
+            *strides, _window_plan(nW, H, Dh, kernels.sm_count(q.device))[
+                "wpb"], int(vec),
             kernels.stream_of(q))
         kernels.launch_counts["window_attention"] += 1
     kernels.check(err, "window_attention")

@@ -14,6 +14,7 @@ built for one device or entry is never handed to a caller of another.
 
 from __future__ import annotations
 
+import os
 import threading
 import zlib
 from pathlib import Path
@@ -131,11 +132,19 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
     out again (``clear_cache`` forgets them); a build that raises caches
     nothing. The build runs outside the cache's lock, so a slow build does
     not hold up others (two callers of one key may both build; the first
-    stored is kept)."""
+    stored is kept). A variant the port does not serve yet (fast_mamba_vsr's
+    ``temporal_mixer``, vsrm's ``backbone`` or
+    ``$VETPU_PREFERRED_BACKBONE``) raises NotImplementedError."""
     policy = policy or default_policy()
     entry = policy.models.get(name)
     if name not in MODELS or entry is None:
         raise KeyError(f"the port serves {sorted(MODELS)}, not {name!r}")
+    # before the cache: the environment is not part of its key
+    variant = _unported_variant(name, entry)
+    if variant is not None:
+        raise NotImplementedError(
+            f"{name} with {variant} is not ported yet; the port serves only "
+            f"its default variant")
     dev = resolve_device(device)
     mesh = (None if name in ("cnn_upscaler", "bicubic")
             else _serving_mesh(policy, dev))
@@ -147,6 +156,25 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
         with _lock:
             handler = _cache.setdefault(key, handler)
     return handler
+
+
+def _unported_variant(name: str, entry: ModelEntry) -> str | None:
+    """The variant ``entry`` (or the environment) selects that the port does
+    not serve yet, by the JAX registry's rule (registry.py:170-173,
+    196-201): fast_mamba_vsr's ``extra.temporal_mixer`` other than "ssm";
+    vsrm's ``extra.backbone``, else ``$VETPU_PREFERRED_BACKBONE``, of
+    "mambairv2" or "attentive". None when the default variant is asked
+    for."""
+    if name == "fast_mamba_vsr":
+        mixer = str(entry.extra.get("temporal_mixer", "ssm"))
+        return None if mixer == "ssm" else f"temporal_mixer={mixer!r}"
+    if name == "vsrm":
+        backbone = str(entry.extra.get("backbone")
+                       or os.environ.get("VETPU_PREFERRED_BACKBONE", "eamamba")
+                       ).lower()
+        if backbone in ("mambairv2", "attentive"):
+            return f"backbone={backbone!r}"
+    return None
 
 
 def _build(name: str, entry: ModelEntry, device: torch.device, mesh):
