@@ -19,14 +19,18 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    plain version), the shared bidirectional scan (row 10) at vsrm's and
    fast_mamba_vsr's temporal shapes and past its register bound (also
    against row 6, which computes the same sum), the depthwise conv + SiLU
-   (row 11) on vsrm's strided in_proj slice at K = 5 and 4; time of each,
+   (row 11) on vsrm's strided in_proj slice at K = 5 and 4 (each of rows 6
+   and 11 with its device time beside its bound, and a check that the
+   served shape takes the redesigned route: row 6's tile kernel reading u,
+   B and C once, row 11 two channels a thread in bf16); time of each,
    and of the PyTorch library call that computes the same function where
    there is one; the device time of each of the SSD's three launches in
    one call (``torch.profiler``), on its tensor-core path (bf16) and its
    CUDA-core path (fp32), and of the long scan's three launches (row 9)
    and the window kernel (row 5); ptxas's registers and spills of the
    SSD's run kernels, the short scan's tile kernels, the long scan's chunk
-   walks and the window kernel's tensor-core kernels;
+   walks, the window kernel's tensor-core kernels, the conv kernel and row
+   6's tile kernel;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -63,7 +67,9 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    and over 7 rasters (two long-scan launches), ``bissm_apply(impl=
    "composed")`` on vsrm's block-0 temporal input from phase 4's clip (one
    bidirectional scan launch; also against the fused kernel), ``ssm_apply``
-   per pixel (one stateless short-scan launch), each against its plain form;
+   per pixel (one stateless short-scan launch), each against its plain form,
+   with the route row 6 takes on each (the walking kernel at N 16, the tile
+   kernel on the composed bissm);
 10. the opt-in kernels and the mesh code: (a) one vsrm window (phase 4's
    handler and clip) with ``vsrm.bissd_apply`` rebound to
    ``conv_impl="pallas"`` (6 conv launches, 12 SSD, 6 fused SSM, no other)
@@ -107,9 +113,11 @@ from video_enhancer_tpu_torch.ops.attention import (attention_ref,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
-from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
+from video_enhancer_tpu_torch.ops.conv import (_dwconv_plan,
+                                               depthwise_conv1d_silu,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
+    _bidir_plan, _on_16_byte_grid, _same_view,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, scan_flops,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
@@ -269,10 +277,12 @@ def build() -> str:
     return log
 
 
-# the kernels the redesigns of rows 1-2 and 7 (SSD, short scan) and 5
-# (window attention) added or rewrote, and row 9's chunk walks
+# the kernels the redesigns of rows 1-2 and 7 (SSD, short scan), 5 (window
+# attention), 11 (conv) and 6 (bidirectional scan) added or rewrote, and
+# row 9's chunk walks
 REDESIGNED = ("ssd_run_kernel", "scan_short_tile_kernel", "scan_chunk_kernel",
-              "window_attn_mma")
+              "window_attn_mma", "dwconv_silu_tile_kernel",
+              "scan_bidir_tile_kernel")
 
 
 def ptxas_summary(log: str, names=REDESIGNED) -> list[str]:
@@ -556,6 +566,16 @@ def scans_vs_plain() -> dict:
                     - 2.0).to(dtype)
                 Ab, Db = A.flip(1), Dv.flip(0)
                 args = (x, dt, A, Bm, Cm, Dv, x, dtb, Ab, Bm, Cm, Db)
+                # the served shape takes the tile kernel, x, B, C read once
+                # (the wrapper's own tests of the operands)
+                plan = _bidir_plan(
+                    s["B"], s["L"], s["D"], s["N"], x.element_size(),
+                    _on_16_byte_grid(*args[:2], *args[6:8]),
+                    all(_same_view(args[i], args[i + 6]) for i in (0, 3, 4)))
+                print(f"{key} {dtype}: route {plan['route']}, sequences a "
+                      f"block {plan['seqs']}, shared {plan['shared']}")
+                check(plan["route"] == "tile" and plan["shared"],
+                      f"{key}: the served shape takes {plan}")
                 shared = selective_scan_bidir_shared(x, dt, dtb, A, Ab, Bm,
                                                      Cm, Dv, Db)
                 run = lambda: selective_scan_bidir(*args)        # noqa: E731
@@ -621,6 +641,10 @@ def scans_vs_plain() -> dict:
                 # its three launches: chunk states, the pass, outputs
                 print(f"{key} {dtype}: device ms "
                       f"{device_ms(run, ('scan_chunk', 'scan_state_pass'))}")
+            if key == "selective_scan_bidir":
+                print(f"{key} {dtype}: device ms "
+                      f"{device_ms(run, ('scan_bidir',))} (bound "
+                      f"{bound:.4f} ms)")
             if dtype == torch.bfloat16:
                 plain_ms = time_ms(plain, warmup=1, iters=3)
                 print(f"{key} {dtype}: plain {plain_ms:.3f} ms")
@@ -725,6 +749,13 @@ def dwconv_vs_plain() -> dict:
             tol = TOL[("dwconv_silu", str(dtype).split(".")[1])]
             err, rel = rel_err(got, ref)
             ms = time_ms(lambda: depthwise_conv1d_silu(x, w, b))
+            plan = _dwconv_plan(s["B"], s["L"], s["C"], K, s["ld"],
+                                x.element_size(), x.data_ptr(),
+                                kernels.sm_count(x.device))
+            # vsrm's rows (580 bytes apart in bf16) are read two channels a
+            # thread; fp32 one
+            check(plan["vec"] == (2 if dtype == torch.bfloat16 else 1),
+                  f"dwconv_silu {dtype}: plan {plan}")
             item = x.element_size()
             n = s["B"] * s["L"] * s["C"]
             nbytes = 2 * n * item + w.numel() * item + b.numel() * 4
@@ -733,7 +764,11 @@ def dwconv_vs_plain() -> dict:
                         flops / H100_FP32_FLOPS) * 1e3
             print(f"dwconv_silu {s} K={K} {dtype}: max_abs_err {err:.3e} rel "
                   f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB); device ms "
+                  f"{device_ms(lambda: depthwise_conv1d_silu(x, w, b), ('dwconv',))}"
+                  f"; plan: {plan['vec']} channels a thread, "
+                  f"{plan['rows']} rows a tile, "
+                  f"{plan['smem']} B, grid {plan['grid']}")
             check(rel <= tol, f"dwconv_silu K={K} {dtype}: rel {rel} > {tol}")
             if dtype == torch.bfloat16:
                 plain_ms = time_ms(lambda: depthwise_conv1d_silu_plain(
@@ -1276,9 +1311,19 @@ def layers() -> dict:
              lambda: bimamba_apply(pb, rasters, impl="assoc"),
              dict(selective_scan_long=2)),
         ]
+        # row 6's route on each layer (both streams dense and bf16 here)
+        routes = {name: _bidir_plan(x.shape[0], x.shape[1], *a.shape, 2,
+                                    True, shared)["route"]
+                  for name, x, a, shared in (
+                      ("bimamba_apply per pixel", pixels,
+                       pb["fwd"]["A_log"], False),
+                      ("bissm_apply(impl='composed') on vsrm's block 0", seq,
+                       tp["A_log_f"], True))}
         for name, run, plain, want in cases:
             got, c, secs = _counted(run)
-            print(f"{name}: launches {c}, {1000 * secs:.2f} ms")
+            print(f"{name}: launches {c}, {1000 * secs:.2f} ms"
+                  + (f"; row 6 route {routes[name]}" if name in routes
+                     else ""))
             check(c == _only(**want), f"{name}: launches {c} != {want}")
             for k, v in want.items():
                 counts[k] = counts.get(k, 0) + v

@@ -2,11 +2,12 @@
 """The redesigned kernels of the PyTorch/CUDA port at the paths' shapes:
 flash attention (TPU kernel row 4), the fused bidirectional SSM (row 3),
 the SSD chunked scan (rows 1-2), the short scan with and without state
-(rows 7-8), the long scan (row 9) and window attention (row 5), for an A/B
-of two checkouts in one call.
+(rows 7-8), the long scan (row 9), window attention (row 5), the
+depthwise conv + SiLU (row 11) and the bidirectional scan (row 6), for an
+A/B of two checkouts in one call.
 
     python3 scripts/torch_profile_kernels.py [--root DIR] [--tag NAME]
-        [--only flash,fused,ssd,short,long,window]
+        [--only flash,fused,ssd,short,long,window,conv,bidir]
 
 Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 (this checkout by default), builds the kernels with ``ptxas -v`` and
@@ -27,10 +28,17 @@ walking kernel); row 9 in bf16 and fp32 at one window's rasters (B 7, L
 57600, D 128, N 16, h0 in), y and h_last against ``selective_scan_assoc``;
 row 5 in bf16 at rvrt's shape (nW 3680, H 4, N 128, Dh 16, views of one
 qkv projection) against ``window_attention_plain``, beside
-``scaled_dot_product_attention`` with the bias as a mask. Beside each SSD,
-scan and window time, the device time a call of each kernel it launches,
-from ``torch.profiler``. The last line is one JSON object: the tag, the
-card, each case's ms and error.
+``scaled_dot_product_attention`` with the bias as a mask; row 11 at vsrm's
+strided in_proj slice (7, 57600, 160, rows of 290) with K 5 and 4 in bf16
+and K 5 in fp32, beside ``F.conv1d(groups=C)`` then ``F.silu``; row 6 at
+vsrm's composed bissm shape (57600, 7, 128, N 4) with u, B and C shared by
+the two streams (bf16 and fp32) and with separate streams, and at the
+per-pixel bimamba's (57600, 7, 128, N 16), separate streams. Beside each
+SSD, scan, window, conv and bidirectional time, the device time a call of
+each kernel it launches, from ``torch.profiler``, and for rows 11 and 6
+the bound (bytes at 3.35 TB/s) and, where the checkout has its plan, the
+route. The last line is one JSON object: the tag, the card, each case's
+ms and error.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ import torch
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("--tag", default="")
-ap.add_argument("--only", default="flash,fused,ssd,short,long,window")
+ap.add_argument("--only",
+                default="flash,fused,ssd,short,long,window,conv,bidir")
 args = ap.parse_args()
 ONLY = set(args.only.split(","))
 sys.path.insert(0, str(Path(args.root).resolve()))
@@ -54,6 +63,7 @@ import chip_smoke  # noqa: E402
 from video_enhancer_tpu_torch import kernels  # noqa: E402
 from video_enhancer_tpu_torch.ops.attention import (  # noqa: E402
     attention_ref, flash_attention, window_attention, window_attention_plain)
+from video_enhancer_tpu_torch.ops import conv as conv_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops import scan as scan_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops import ssd as ssd_ops  # noqa: E402
 from video_enhancer_tpu_torch.ops.scan import (  # noqa: E402
@@ -61,7 +71,9 @@ from video_enhancer_tpu_torch.ops.scan import (  # noqa: E402
 
 SOURCES = {"flash": "flash", "fused_bissm": "fused", "ssd_": "ssd",
            "scan_short": "short", "scan_chunk": "long",
-           "scan_state_pass": "long", "window_attn": "window"}
+           "scan_state_pass": "long", "window_attn": "window",
+           "dwconv_silu": "conv", "scan_bidir_kernel": "bidir",
+           "scan_bidir_tile": "bidir"}
 
 FLASH_CASES = [dict(B=2, H=3, Lq=10080, Lk=10080, Dh=128),
                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
@@ -217,6 +229,93 @@ def window_cases(out: dict) -> bool:
     return good
 
 
+def conv_cases(out: dict) -> bool:
+    """Row 11 at vsrm's strided in_proj slice: K 5 and 4 in bf16, K 5 in
+    fp32, against its plain version, beside ``F.conv1d(groups=C)`` then
+    ``F.silu`` on the channels-first view, with the kernel's device time
+    and bound."""
+    ok = True
+    s = chip_smoke.DWCONV_SHAPE
+    F = torch.nn.functional
+    plan_of = getattr(conv_ops, "_dwconv_plan", None)
+    for K, dtype in ((5, torch.bfloat16), (4, torch.bfloat16),
+                     (5, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 20
+                                                         + K)
+        x, w, b = chip_smoke._dwconv_inputs(dtype, gen, K)
+        got = conv_ops.depthwise_conv1d_silu(x, w, b)
+        ref = conv_ops.depthwise_conv1d_silu_plain(x, w, b)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[1]
+        err, rel = chip_smoke.rel_err(got, ref)
+        good = (rel <= chip_smoke.TOL[("dwconv_silu", dt)]
+                and bool(torch.isfinite(got.float()).all()))
+        ok &= good
+        run = lambda: conv_ops.depthwise_conv1d_silu(x, w, b)  # noqa: E731
+        nbytes = 2 * x.numel() * x.element_size()
+        rec = {"ms": chip_smoke.time_ms(run), "rel": rel, "max_abs_err": err,
+               "bound_ms": nbytes / chip_smoke.H100_BYTES_PER_S * 1e3,
+               "device": device_ms(run, ("dwconv",))}
+        if plan_of:
+            rec["plan"] = {k: v for k, v in plan_of(
+                s["B"], s["L"], s["C"], K, s["ld"], x.element_size(),
+                x.data_ptr(), kernels.sm_count(x.device)).items()
+                if k in ("vec", "runs", "smem", "grid")}
+        if K % 2:
+            xt = x.transpose(1, 2)
+            bd = b.to(dtype)
+            rec["library_ms"] = chip_smoke.time_ms(lambda: F.silu(F.conv1d(
+                xt, w, bd, padding=(K - 1) // 2, groups=s["C"])))
+        key = f"dwconv_silu (7, 57600, 160) ld 290 K {K} {dt}"
+        out[key] = rec
+        print(f"{key}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+        del x, w, b, got, ref
+    return ok
+
+
+def bidir_cases(out: dict) -> bool:
+    """Row 6 against its plain version: at vsrm's composed shape with u, B
+    and C shared by the streams (bf16, fp32) and with separate streams
+    (bf16), and at the per-pixel bimamba's N 16 with separate streams;
+    device time, bound and, where the checkout has its plan, the route."""
+    ok = True
+    s4 = chip_smoke.SCAN_SHAPES["selective_scan_bidir"]
+    cases = [("shared", s4, torch.bfloat16), ("shared", s4, torch.float32),
+             ("separate", s4, torch.bfloat16),
+             ("separate", dict(s4, N=16), torch.bfloat16)]
+    plan_of = getattr(scan_ops, "_bidir_plan", None)
+    for kind, s, dtype in cases:
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 7)
+        f = chip_smoke._scan_inputs(dtype, gen, **s)
+        b = chip_smoke._scan_inputs(dtype, gen, **s)
+        if kind == "shared":
+            b = (f[0], b[1], f[2].flip(1), f[3], f[4], f[5].flip(0))
+        a = (*f, *b)
+        got = scan_ops.selective_scan_bidir(*a)
+        ref = scan_ops.selective_scan_bidir_plain(*a)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[1]
+        rel = max(chip_smoke.rel_err(g, r)[1] for g, r in zip(got, ref))
+        good = (rel <= chip_smoke.TOL[("selective_scan_bidir", dt)]
+                and all(bool(torch.isfinite(g.float()).all()) for g in got))
+        ok &= good
+        run = lambda: scan_ops.selective_scan_bidir(*a)  # noqa: E731
+        nbytes = chip_smoke._nbytes(*a) + 2 * f[0].numel() * f[0].element_size()
+        rec = {"ms": chip_smoke.time_ms(run), "rel": rel,
+               "bound_ms": nbytes / chip_smoke.H100_BYTES_PER_S * 1e3,
+               "device": device_ms(run, ("scan_bidir",))}
+        if plan_of:
+            rec["route"] = plan_of(s["B"], s["L"], s["D"], s["N"],
+                                   f[0].element_size(), True,
+                                   kind == "shared")["route"]
+        key = f"selective_scan_bidir {kind} {tuple(s.values())} {dt}"
+        out[key] = rec
+        print(f"{key}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+        del f, b, a, got, ref
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_kernels: needs a CUDA card", file=sys.stderr)
@@ -280,6 +379,10 @@ def main() -> int:
             ok &= long_cases(out)
         if "window" in ONLY:
             ok &= window_cases(out)
+        if "conv" in ONLY:
+            ok &= conv_cases(out)
+        if "bidir" in ONLY:
+            ok &= bidir_cases(out)
     print(json.dumps({"tag": args.tag, "device": smi, "ok": ok,
                       "cases": out}))
     return 0 if ok else 1

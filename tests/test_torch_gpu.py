@@ -30,11 +30,12 @@ from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
                                                     flash_attention,
                                                     window_attention,
                                                     window_attention_plain)
-from video_enhancer_tpu_torch.ops.conv import (depthwise_conv1d_silu,
+from video_enhancer_tpu_torch.ops.conv import (_dwconv_plan, _dwconv_smem,
+                                               depthwise_conv1d_silu,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
-    _FUSED_INSTANCES, _fused_bissm_plan, _fused_smem, _short_scan_plan,
-    _tile_smem,
+    _FUSED_INSTANCES, _bidir_plan, _bidir_smem, _fused_bissm_plan,
+    _fused_smem, _short_scan_plan, _tile_smem,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
@@ -714,6 +715,83 @@ def test_scan_bidir_kernel_matches_plain(cuda, dtype, shared, B, L, D, N):
         assert _rel(y, ref[0] + ref[1]) <= SCAN_TOL[dtype]
 
 
+def _bidir_streams(cuda, dtype, B, L, D, N, shared, strided=True, offset=3):
+    """Both streams of row 6: separate, or with x, B and C of the backward
+    stream those of the forward one (dt, A and D its own)."""
+    f = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + N, strided=strided,
+                     offset=offset)
+    b = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + N + 1,
+                     strided=strided, offset=offset)
+    if shared:
+        b = (f[0], b[1], b[2], f[3], f[4], b[5])
+    return f, b
+
+
+def _check_bidir(f, b, dtype):
+    before = kernels.launch_counts["selective_scan_bidir"]
+    got = selective_scan_bidir(*f, *b)
+    ref = selective_scan_bidir_plain(*f, *b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_bidir"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert _rel(g, r) <= SCAN_TOL[dtype]
+    # a kernel that swapped the directions' outputs would fail the checks
+    assert _rel(ref[0], ref[1]) > 5 * SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("N", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("L", [1, 2, 7, 8, 9, 16, 17, 32, 33])
+def test_scan_bidir_tile_kernel_matches_plain(cuda, dtype, shared, N, L):
+    """Row 6 across the tile kernel's L bounds (8, 16, 32; 33 walks) and N
+    bounds (4, 8; 16 walks), streams shared and separate, at D 128 with x
+    and dt dense (the tile kernel's copies run) and B and C column slices
+    of one projection; B odd against the sequences a block."""
+    f, b = _bidir_streams(cuda, dtype, 301, L, 128, N, shared,
+                          strided=False)
+    plan = _bidir_plan(301, L, 128, N, f[0].element_size(), True, shared)
+    assert plan["route"] == ("tile" if L <= 32 and N <= 8 else "walk")
+    _check_bidir(f, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("D,offset", [(128, 8), (128, 3), (95, 0), (130, 0),
+                                      (96, 8), (8, 0)])
+def test_scan_bidir_tile_kernel_layouts_match_plain(cuda, dtype, shared, D,
+                                                    offset):
+    """Row 6 with x a column slice 8 columns in (16-byte copies in bf16 and
+    fp32 alike) or 3 columns in, and D of 95, 130 (rows off the 16-byte
+    grid in bf16), 96 and 8: the tile kernel where its copies run, the
+    walking kernel elsewhere; L 7, N 4 and 8."""
+    for N in (4, 8):
+        f, b = _bidir_streams(cuda, dtype, 257, 7, D, N, shared,
+                              strided=offset > 0, offset=offset)
+        item = f[0].element_size()
+        aligned = offset * item % 16 == 0
+        plan = _bidir_plan(257, 7, D, N, item, aligned, shared)
+        assert plan["route"] == ("tile" if aligned and D * item % 16 == 0
+                                 else "walk")
+        _check_bidir(f, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L,D,N", [(7, 128, 4), (32, 96, 8), (1, 8, 1),
+                                   (16, 512, 8)])
+def test_scan_bidir_smem_mirrors_the_kernel(cuda, dtype, shared, L, D, N):
+    item = torch.finfo(dtype).bits // 8
+    seqs = _bidir_plan(1000, L, D, N, item, True, shared)["seqs"]
+    code = kernels.dtype_code(torch.empty(0, dtype=dtype))
+    assert kernels.library().vetk_selective_scan_bidir_smem(
+        code, L, D, N, seqs, int(shared)) == _bidir_smem(L, D, N, item, seqs,
+                                                         shared)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("state", [True, False])
@@ -938,6 +1016,91 @@ def test_dwconv_silu_kernel_matches_plain(cuda, dtype, B, L, C, K, pad):
         # the taps mirrored: a kernel that flips them fails the check
         assert _rel(depthwise_conv1d_silu_plain(x, w.flip(-1), b), ref) > \
             5 * DWCONV_TOL[dtype]
+
+
+def _dwconv_view(cuda, dtype, B, L, C, K, ld, off, seed):
+    """x as columns ``off .. off + C`` of a (B, L, ld) tensor, w in x's
+    dtype, b fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, L, ld), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((C, 1, K), generator=gen, device=cuda)
+         / K ** 0.5).to(dtype)
+    b = torch.randn((C,), generator=gen, device=cuda) * 0.1
+    return x[..., off:off + C], w, b
+
+
+def _check_dwconv(x, w, b):
+    dtype, K, L = x.dtype, w.shape[-1], x.shape[1]
+    before = kernels.launch_counts["dwconv_silu"]
+    y = depthwise_conv1d_silu(x, w, b)
+    ref = depthwise_conv1d_silu_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dwconv_silu"] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape and y.is_contiguous()
+    assert _rel(y, ref) <= DWCONV_TOL[dtype]
+    if 1 < K < L:
+        assert _rel(depthwise_conv1d_silu_plain(x, w.flip(-1), b), ref) > \
+            5 * DWCONV_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("L", [1, 3, 31, 32, 33, 64, 65, 200])
+def test_dwconv_silu_tile_edges_match_plain(cuda, dtype, K, L):
+    """Row 11 at every K, with L shorter than a tile (64 rows in bf16, 32
+    in fp32), exactly one, one row more and ragged tiles, on rows of
+    vsrm's 290-wide in_proj output 130 columns in."""
+    _check_dwconv(*_dwconv_view(cuda, dtype, 3, L, 160, K, 290, 130,
+                                seed=K + L))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("off", range(8))
+@pytest.mark.parametrize("C,K", [(7, 5), (160, 5), (160, 8), (600, 4),
+                                 (96, 3)])
+def test_dwconv_silu_every_row_alignment(cuda, dtype, off, C, K):
+    """Rows an odd number of elements apart (C + 8 or C + 9), so that they
+    start at every offset mod 16 in bf16 and fp16 and every 4-byte one in
+    fp32, from every first offset; odd C, C over one slab (600), dense-row
+    widths; K 3-8."""
+    ld = C + 8 + (C + 1) % 2
+    x, w, b = _dwconv_view(cuda, dtype, 2, 150, C, K, ld, off, seed=C + off)
+    assert x.stride(1) % 2 == 1
+    _check_dwconv(x, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("C,K,L", [(160, 5, 20001), (600, 4, 20001),
+                                   (7, 3, 200001), (8, 5, 200001)])
+def test_dwconv_silu_walks_many_tiles_a_block(cuda, dtype, C, K, L):
+    """More tiles than one wave of blocks, so that each block steps its
+    cursor across slabs (C 600), row tiles (a ragged last one) and
+    sequences, with the output tile stored by the threads (rows off the
+    16-byte grid, or several slabs) and by bulk copies (C 8 in bf16,
+    dense 16-byte rows)."""
+    x, w, b = _dwconv_view(cuda, dtype, 5, L, C, K, C + 9, 3, seed=C + K)
+    plan = _dwconv_plan(5, L, C, K, C + 9, x.element_size(), x.data_ptr(),
+                        kernels.sm_count(cuda))
+    assert plan["tiles"] > 2 * plan["grid"]
+    _check_dwconv(x, w, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K,ld,off", [(160, 5, 290, 128), (160, 4, 290, 128),
+                                        (7, 3, 10, 1), (600, 8, 600, 0),
+                                        (4096, 5, 4096, 0), (4, 2, 4, 0)])
+def test_dwconv_smem_mirrors_the_kernel(cuda, dtype, C, K, ld, off):
+    x = torch.empty((1, 1, ld), dtype=dtype, device=cuda)[..., off:off + C]
+    plan = _dwconv_plan(7, 57600, C, K, ld, x.element_size(), x.data_ptr(),
+                        kernels.sm_count(cuda))
+    code = kernels.dtype_code(x)
+    assert kernels.library().vetk_dwconv_silu_smem(
+        code, plan["ct"], K, plan["runs"]) == plan["smem"]
+    assert plan["smem"] == _dwconv_smem(x.element_size(), plan["ct"], K,
+                                        plan["runs"])
 
 
 def test_dwconv_silu_rejects_what_it_does_not_take(cuda):

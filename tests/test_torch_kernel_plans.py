@@ -26,6 +26,15 @@ mirror the CUDA sources' sums, held against them on the card.
 ``ops.attention._window_plan`` is the window kernel's launch (padded head
 width, shared memory of the bias and a two-stage ring, blocks an SM and
 windows a block); its sum is held against the CUDA source on the card.
+
+``ops.conv._dwconv_plan`` is the depthwise conv + SiLU kernel's launch
+(channels a thread, slabs, rows a tile, blocks an SM, one
+wave of persistent blocks); ``ops.scan._bidir_plan`` picks the
+bidirectional scan's kernel (the tile kernel up to L 32, N 8 and D 512
+where both streams' x and dt lie on the 16-byte grid, reading x, B and C
+once when the streams share them; the walking kernel otherwise).
+``_dwconv_smem`` and ``_bidir_smem`` mirror the CUDA sources' sums, held
+against them on the card.
 """
 
 from __future__ import annotations
@@ -38,9 +47,11 @@ from hypothesis import strategies as st
 from video_enhancer_tpu_torch.ops.attention import (_flash_operands,
                                                     _flash_plan, _flash_smem,
                                                     _window_plan)
-from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES,
-                                               _fused_bissm_plan,
+from video_enhancer_tpu_torch.ops.conv import _dwconv_plan, _dwconv_smem
+from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES, _bidir_plan,
+                                               _bidir_smem, _fused_bissm_plan,
                                                _fused_instance, _fused_smem,
+                                               _on_16_byte_grid, _same_view,
                                                _short_scan_plan, _tile_smem)
 from video_enhancer_tpu_torch.ops.ssd import _ssd_plan, _ssd_smem
 
@@ -463,3 +474,197 @@ def test_window_plan_at_rvrt_shape():
     plan = _window_plan(3680, 4, 16, 132)
     assert (plan["dp"], plan["wpb"], plan["grid"]) == (16, 56, (66, 4))
     assert (plan["smem"], plan["blocks_per_sm"]) == (102400, 2)
+
+
+# --------------------------------------------------------------------------
+# depthwise conv + SiLU (row 11)
+# --------------------------------------------------------------------------
+
+@FAST
+@given(B=st.integers(1, 64), L=st.integers(1, 1 << 20),
+       C=st.integers(1, 8192), K=st.integers(1, 8), pad=st.integers(0, 40),
+       item=st.sampled_from([2, 4]), ptr=st.integers(0, 15),
+       sms=st.sampled_from([1, 114, 132]))
+def test_dwconv_plan_fits_an_sm_over_the_domain(B, L, C, K, pad, item, ptr,
+                                                sms):
+    """The slabs cover C with at most 256 threads a row, the tile's threads
+    fit a block of 320, the ring and the output tile fit the blocks an SM
+    the plan counts on, and the blocks make one wave over the tiles."""
+    ld = C + pad
+    ptr -= ptr % item
+    plan = _dwconv_plan(B, L, C, K, ld, item, ptr, sms)
+    vec, ct, runs = plan["vec"], plan["ct"], plan["runs"]
+    assert vec == (2 if item == 2 and C % 2 == 0 and ld % 2 == 0
+                   and ptr % 4 == 0 else 1)
+    assert ct % vec == 0 and ct <= C and ct // vec <= 256
+    assert (plan["slabs"] - 1) * ct < C <= plan["slabs"] * ct
+    assert 1 <= runs <= 16 and plan["rows"] == 16 * runs
+    assert plan["threads"] == ct // vec * runs <= 320
+    assert plan["kt"] == (K if K in (4, 5) else 8)
+    assert plan["smem"] == _dwconv_smem(item, ct, K, runs)
+    assert plan["smem"] <= SMEM_BLOCK
+    per_sm = plan["blocks_per_sm"]
+    assert per_sm >= 1 and per_sm * (plan["smem"] + 1024) <= SMEM_SM
+    assert per_sm * plan["threads"] <= 2048
+    assert plan["tiles"] == B * _up(L, plan["rows"]) // plan["rows"] * \
+        plan["slabs"]
+    assert 1 <= plan["grid"] == min(plan["tiles"], per_sm * sms)
+
+
+def test_dwconv_plan_at_the_served_shape():
+    """vsrm's (7, 57600, 160) slice of its 290-wide in_proj output, 128
+    columns in, K 5: bf16 takes two channels a thread, tiles of 64 rows
+    (320 threads, ten whole warps), three stages of 68 staged rows of 336
+    bytes and two 64-row output tiles (111,552 bytes), two blocks an SM,
+    264 blocks over 6,300 tiles; fp32 one channel a thread and 32-row
+    tiles."""
+    bf16 = _dwconv_plan(7, 57600, 160, 5, 290, 2, 1 << 20 | 256, 132)
+    assert (bf16["vec"], bf16["ct"], bf16["slabs"], bf16["runs"],
+            bf16["rows"], bf16["threads"]) == (2, 160, 1, 4, 64, 320)
+    assert (bf16["smem"], bf16["blocks_per_sm"]) == (111552, 2)
+    assert (bf16["tiles"], bf16["grid"]) == (6300, 264)
+    assert (3 * 68 + 2 * 64) * 336 == 111552
+    f32 = _dwconv_plan(7, 57600, 160, 5, 290, 4, 1 << 20 | 512, 132)
+    assert (f32["vec"], f32["runs"], f32["rows"], f32["threads"]) == (
+        1, 2, 32, 320)
+    assert (f32["smem"], f32["grid"]) == ((3 * 36 + 2 * 32) * 656, 264)
+
+
+@pytest.mark.parametrize("item,C,ld,ptr,vec", [
+    (2, 160, 290, 256, 2),     # vsrm's rows: 580 bytes apart, on 4 bytes
+    (2, 160, 290, 260, 2),     # 130 columns in
+    (2, 160, 290, 258, 1),     # x on 2 bytes
+    (2, 160, 291, 256, 1),     # an odd row stride
+    (2, 7, 10, 2, 1),          # an odd C
+    (2, 160, 160, 0, 2),       # dense rows
+    (4, 160, 290, 256, 1)])    # fp32: one channel a thread
+def test_dwconv_plan_picks_the_vector_width(item, C, ld, ptr, vec):
+    assert _dwconv_plan(7, 1000, C, 5, ld, item, ptr, 132)["vec"] == vec
+
+
+@pytest.mark.parametrize("C,item,slabs,ct", [(512, 2, 1, 512),
+                                             (514, 2, 2, 258),
+                                             (600, 4, 3, 200),
+                                             (4096, 4, 16, 256)])
+def test_dwconv_plan_splits_wide_rows_into_even_slabs(C, item, slabs, ct):
+    plan = _dwconv_plan(2, 1000, C, 5, C, item, 0, 132)
+    assert (plan["slabs"], plan["ct"]) == (slabs, ct)
+
+
+def test_dwconv_smem_is_the_kernels():
+    """Three stages of rows + kt - 1 staged rows and two output tiles of
+    rows rows, each row the 16-byte chunks of ct * item bytes from any
+    start (kt 4 or 5 exactly, else 8)."""
+    assert _dwconv_smem(2, 160, 5, 4) == (3 * 68 + 2 * 64) * 336
+    assert _dwconv_smem(2, 160, 4, 4) == (3 * 67 + 2 * 64) * 336
+    assert _dwconv_smem(2, 7, 3, 9) == (3 * 151 + 2 * 144) * 32
+    assert _dwconv_smem(4, 256, 1, 1) == (3 * 23 + 2 * 16) * 1040
+
+
+@pytest.mark.parametrize("B,L,C,K", [(1, 8, 16, 9), (1, 8, 16, 0),
+                                     (0, 8, 16, 5), (1, 0, 16, 5),
+                                     (1, 8, 0, 5)])
+def test_dwconv_plan_refuses_past_the_bounds(B, L, C, K):
+    with pytest.raises(ValueError, match="kernel takes K <= 8"):
+        _dwconv_plan(B, L, C, K, max(C, 1), 2, 0, 132)
+
+
+# --------------------------------------------------------------------------
+# bidirectional scan (row 6)
+# --------------------------------------------------------------------------
+
+@FAST
+@given(B=st.integers(1, 1 << 20), L=st.integers(1, 64),
+       D=st.integers(1, 1024), N=st.integers(1, 16),
+       item=st.sampled_from([2, 4]), aligned=st.booleans(),
+       shared=st.booleans())
+def test_bidir_plan_fits_a_block_over_the_domain(B, L, D, N, item, aligned,
+                                                 shared):
+    plan = _bidir_plan(B, L, D, N, item, aligned, shared)
+    tps = -(-D // 2)
+    if plan["route"] == "walk":
+        assert plan["seqs"] == 0 and not plan["shared"]
+        assert (L > 32 or N > 8 or tps > 256 or not aligned
+                or D * item % 16
+                or _bidir_smem(L, D, N, item, 1, shared) > SMEM_BLOCK)
+        assert plan["threads"] <= 256 and plan["grid"][0] == B
+        assert plan["grid"][1] * plan["threads"] >= D
+        return
+    seqs = plan["seqs"]
+    assert L <= 32 and N <= 8 and 1 <= seqs <= B and D % 2 == 0
+    assert aligned and D * item % 16 == 0 and plan["shared"] == shared
+    assert plan["threads"] == seqs * tps <= 256
+    if seqs * tps < 128:
+        # fewer than 128 threads only where no whole-warp block of 128 or
+        # more fits
+        assert not [c for c in range(1, min(256 // tps, B) + 1)
+                    if c * tps % 32 == 0 and c * tps >= 128
+                    and _bidir_smem(L, D, N, item, c, shared) <= SMEM_BLOCK]
+    assert plan["lmax"] == (8 if L <= 8 else 16 if L <= 16 else 32)
+    assert L <= plan["lmax"]
+    assert plan["nmax"] == (4 if N <= 4 else 8) and N <= plan["nmax"]
+    assert plan["smem"] == _bidir_smem(L, D, N, item, seqs, shared)
+    assert plan["smem"] <= SMEM_BLOCK
+    assert plan["grid"] == (-(-B // seqs),)
+
+
+def test_bidir_plan_at_the_served_shapes():
+    """vsrm's composed bissm (57600, 7, 128, N 4), u, B and C shared: the
+    tile kernel, two sequences (four whole warps) a block, 11,200 bytes (per
+    sequence x and both dt tiles, one B/C set); the per-pixel bimamba's N
+    16 keeps the walking kernel."""
+    vsrm = _bidir_plan(57600, 7, 128, 4, 2, True, True)
+    assert (vsrm["route"], vsrm["seqs"], vsrm["threads"], vsrm["grid"]) == (
+        "tile", 2, 128, (28800,))
+    assert (vsrm["lmax"], vsrm["nmax"], vsrm["smem"]) == (8, 4, 11200)
+    pix = _bidir_plan(57600, 7, 128, 16, 2, True, False)
+    assert (pix["route"], pix["grid"], pix["threads"]) == (
+        "walk", (57600, 1), 128)
+
+
+@pytest.mark.parametrize("L,D,N,item,aligned,route", [
+    (7, 128, 4, 2, True, "tile"), (7, 128, 8, 2, True, "tile"),
+    (32, 128, 8, 2, True, "tile"), (33, 128, 4, 2, True, "walk"),
+    (7, 128, 9, 2, True, "walk"), (7, 128, 16, 2, True, "walk"),
+    (7, 128, 4, 2, False, "walk"), (7, 130, 4, 2, True, "walk"),
+    (7, 130, 4, 4, True, "walk"), (7, 132, 4, 4, True, "tile"),
+    (7, 512, 4, 2, True, "tile"), (7, 520, 4, 2, True, "walk")])
+def test_bidir_plan_picks_the_kernel(L, D, N, item, aligned, route):
+    for shared in (True, False):
+        plan = _bidir_plan(1000, L, D, N, item, aligned, shared)
+        assert plan["route"] == route
+        assert plan["shared"] == (shared and route == "tile")
+
+
+def test_bidir_route_of_the_wrappers_operands():
+    """What the wrapper hands the plan: u passed for both streams is one
+    view (read once), a copy of it or another column slice is not; a
+    dense tensor is on the 16-byte grid, a slice 3 columns in (or an odd
+    width) is not, a slice 8 bf16 columns in is."""
+    x = torch.zeros((4, 7, 136), dtype=torch.bfloat16)
+    u = x[..., 8:]
+    proj = torch.zeros((4, 7, 12), dtype=torch.bfloat16)
+    Bm, Cm = proj[..., 4:8], proj[..., 8:]
+    assert _same_view(u, u) and _same_view(Bm, proj[..., 4:8])
+    assert not _same_view(u, u.clone()) and not _same_view(Bm, Cm)
+    assert not _same_view(u, x[..., :128])
+    assert _on_16_byte_grid(u, x) and _on_16_byte_grid(u.contiguous())
+    assert not _on_16_byte_grid(x[..., 3:])
+    assert not _on_16_byte_grid(torch.zeros((4, 7, 9), dtype=torch.bfloat16))
+
+
+def test_bidir_smem_is_the_kernels():
+    """Per sequence 3 (shared) or 4 tiles of L rows of D rounded up to 8,
+    then 1 or 2 sets of B and C as fp32, L rows of twice the N bound."""
+    assert _bidir_smem(7, 128, 4, 2, 1, True) == 3 * 7 * 128 * 2 + 7 * 8 * 4
+    assert _bidir_smem(7, 128, 8, 2, 2, False) == 2 * (
+        4 * 7 * 128 * 2 + 2 * 7 * 16 * 4)
+    assert _bidir_smem(32, 95, 3, 4, 1, False) == 4 * 32 * 96 * 4 + \
+        2 * 32 * 8 * 4
+
+
+@pytest.mark.parametrize("B,L,D,N", [(10, 8, 16, 17), (0, 8, 16, 4),
+                                     (10, 0, 16, 4), (10, 8, 0, 4)])
+def test_bidir_plan_refuses_past_the_bounds(B, L, D, N):
+    with pytest.raises(ValueError, match="kernel takes N <= 16"):
+        _bidir_plan(B, L, D, N, 2, True, True)

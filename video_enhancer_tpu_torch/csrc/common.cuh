@@ -30,7 +30,8 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
 }
 
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+// x * sigmoid(x) with the fast exp and division (~2 ulp in fp32).
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.0f + __expf(-x)); }
 
 // log(1 + e^x) in the overflow-free form jax.nn.softplus uses.
 __device__ __forceinline__ float softplus(float x) {

@@ -39,10 +39,13 @@
 //   as fp32, and each thread reads them back as 16-byte broadcasts. h0 and
 //   h_last are read and written in place in their (B, D, N) layout, 16
 //   bytes a load. exp(dt A) is one ex2 on A pre-scaled by log2 e. 57600
-//   blocks at the served shapes fill the card. Row 6 walks the forward
-//   stream up, then the backward stream down, from separate operand
-//   pointers that may alias (selective_scan_bidir_shared passes u, B and C
-//   twice).
+//   blocks at the served shapes fill the card. This walking kernel serves
+//   the shapes the tile kernels below do not take. Row 7 (and row 8 up to
+//   N 8) has a tile kernel; row 6 has its own (scan_bidir_tile_kernel: both
+//   streams' loads before the first step, both directions in one loop, x, B
+//   and C read once when the streams share them, as
+//   selective_scan_bidir_shared passes u, B and C twice). Its walking
+//   kernel walks the forward stream up, then the backward stream down.
 // - row 9: B*D channels (896 at the served shape) are too few for one
 //   thread each over L = 57600, so the scan is chunked (CHUNK steps) in
 //   three launches on one stream, as csrc/ssd_shared.cu does:
@@ -87,6 +90,7 @@
 // 9: states (B, K, D, N) and sumdt (B, K, D) fp32, K = ceil(L / CHUNK).
 
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
@@ -366,6 +370,35 @@ __device__ __forceinline__ void step_pair(float* h0, float* h1, const float* a0,
   }
 }
 
+// Stages B_t and C_t of the block's nseq sequences, every step, as fp32 at
+// `bc` (NMAX floats of B, then of C, a step; zeros beyond N): eight loads in
+// flight a thread, then to shared memory.
+template <typename T, int NMAX>
+__device__ __forceinline__ void stage_bc_tile(const Operands& o, long b0, int nseq,
+                                              int L, int N, float* bc) {
+  const T* __restrict__ Bm = static_cast<const T*>(o.B);
+  const T* __restrict__ Cm = static_cast<const T*>(o.C);
+  const int total = nseq * L * 2 * NMAX;
+  for (int i0 = threadIdx.x; i0 < total; i0 += 8 * blockDim.x) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int row = i / (2 * NMAX), j = i - row * (2 * NMAX);
+      const int rs = row / L, t = row - rs * L;
+      const int n = j < NMAX ? j : j - NMAX;
+      const long rb = b0 + rs;
+      v[u] = 0.0f;
+      if (i < total && n < N)
+        v[u] = to_f32(j < NMAX ? Bm[rb * o.sbb + t * o.slb + n]
+                               : Cm[rb * o.sbc + t * o.slc + n]);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (i0 + u * blockDim.x < total) bc[i0 + u * blockDim.x] = v[u];
+  }
+}
+
 template <typename T, bool kState, int LMAX, int NMAX>
 __global__ void __launch_bounds__(TILE_THREADS)
 scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
@@ -410,29 +443,7 @@ scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__
       if (two) load_row<NMAX>(h0 + ((size_t)b * D + d + 1) * N, N, h1r);
     }
   }
-  {
-    const T* __restrict__ Bm = static_cast<const T*>(o.B);
-    const T* __restrict__ Cm = static_cast<const T*>(o.C);
-    const int total = nseq * L * 2 * NMAX;
-    for (int i0 = threadIdx.x; i0 < total; i0 += 8 * blockDim.x) {
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * blockDim.x;
-        const int row = i / (2 * NMAX), j = i - row * (2 * NMAX);
-        const int rs = row / L, t = row - rs * L;
-        const int n = j < NMAX ? j : j - NMAX;
-        const long rb = b0 + rs;
-        v[u] = 0.0f;
-        if (i < total && n < N)
-          v[u] = to_f32(j < NMAX ? Bm[rb * o.sbb + t * o.slb + n]
-                                 : Cm[rb * o.sbc + t * o.slc + n]);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (i0 + u * blockDim.x < total) bc[i0 + u * blockDim.x] = v[u];
-    }
-  }
+  stage_bc_tile<T, NMAX>(o, b0, nseq, L, N, bc);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
@@ -496,6 +507,121 @@ scan_bidir_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   const bool live = d < D;
   scan_stream<T>(fo, b, d, live, L, D, N, false, yf, bc);
   scan_stream<T>(bo, b, d, live, L, D, N, true, yb, bc);
+}
+
+// Bytes of shared memory of row 6's tile kernel (ops/scan.py _bidir_smem
+// mirrors the sum): per sequence the x tiles (one when the streams share x),
+// the two dt tiles (L rows of tile_ld(D)), then B and C as fp32 (L rows of 2
+// * NMAX; one set when the streams share them).
+__host__ __device__ inline int bidir_smem(int item, int L, int D, int nmax, int seqs,
+                                          bool shared) {
+  return seqs * ((shared ? 3 : 4) * L * tile_ld(D) * item +
+                 (shared ? 1 : 2) * L * 2 * nmax * 4);
+}
+
+// Row 6 at L <= LMAX (8, 16 or 32) and N <= NMAX (4 or 8), x and dt of both
+// streams on the 16-byte grid: `seqs` sequences a block, D / 2 threads a
+// sequence, two adjacent channels a thread. Every load of the block is
+// issued before the first step: x and dt of both streams by 16-byte
+// cp.async (x once when the streams share it), A and D of both directions
+// into registers, B and C of each stream (once when shared) into registers
+// eight at a time and then to shared memory as fp32, NMAX wide. Both
+// directions walk in one loop, the forward stream at step t and the
+// backward one at L - 1 - t, so a thread runs four independent ex2/FMA
+// chains. y takes dt's place in shared memory (each step reads its dt pair
+// before writing its y pair there) and leaves in 16-byte stores. `shared`:
+// x, B and C of the two streams are one (equal pointers and strides, as
+// selective_scan_bidir_shared(impl="bidir") passes them). At vsrm's
+// composed shape (57600, 7, 128, N 4, bf16, shared) it moves 523 MB (0.156
+// ms at 3.35 TB/s) and takes 413 M exps (0.11 ms on the special-function
+// units); on an H100 it read 0.26-0.27 ms of device time against 0.62 for
+// the walking kernel. N 16 keeps the walking kernel: two channels of two
+// directions would hold 64 states and 64 decays in registers.
+// Grid ceil(B / seqs); blockDim seqs * D / 2.
+template <typename T, int LMAX, int NMAX>
+__global__ void __launch_bounds__(TILE_THREADS)
+scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
+                       T* __restrict__ yb, long Bsz, int L, int D, int N, int seqs,
+                       bool shared) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr int SEG = 16 / sizeof(T);   // elements a 16-byte copy
+  const int Dp = tile_ld(D), tps = D / 2;
+  const size_t tile = (size_t)seqs * L * Dp;
+  T* xfs = reinterpret_cast<T*>(smem);
+  T* xbs = shared ? xfs : xfs + tile;
+  T* dfs = xbs + tile;
+  T* dbs = dfs + tile;
+  float* bcf = reinterpret_cast<float*>(dbs + tile);
+  float* bcb = shared ? bcf : bcf + (size_t)seqs * L * 2 * NMAX;
+  const long b0 = (long)blockIdx.x * seqs;
+  const int nseq = (int)min((long)seqs, Bsz - b0);
+
+  const int segs = D / SEG;
+  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
+    const int row = i / segs, c = (i - row * segs) * SEG;
+    const int sq = row / L, t = row - sq * L;
+    const long b = b0 + sq;
+    const size_t e = (size_t)row * Dp + c;
+    cp_async16(xfs + e, static_cast<const T*>(fo.x) + b * fo.sbx + t * fo.slx + c);
+    if (!shared)
+      cp_async16(xbs + e, static_cast<const T*>(bo.x) + b * bo.sbx + t * bo.slx + c);
+    cp_async16(dfs + e, static_cast<const T*>(fo.dt) + b * fo.sbdt + t * fo.sldt + c);
+    cp_async16(dbs + e, static_cast<const T*>(bo.dt) + b * bo.sbdt + t * bo.sldt + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const int sq = threadIdx.x / tps, d = 2 * (threadIdx.x - sq * tps);
+  const bool live = sq < nseq;
+  float af0[NMAX], af1[NMAX], ab0[NMAX], ab1[NMAX];
+  float hf0[NMAX], hf1[NMAX], hb0[NMAX], hb1[NMAX];
+#pragma unroll
+  for (int n = 0; n < NMAX; ++n)
+    af0[n] = af1[n] = ab0[n] = ab1[n] = hf0[n] = hf1[n] = hb0[n] = hb1[n] = 0.0f;
+  float ddf0 = 0.0f, ddf1 = 0.0f, ddb0 = 0.0f, ddb1 = 0.0f;
+  if (live) {
+    load_a<NMAX>(fo.A, d, N, af0);
+    load_a<NMAX>(fo.A, d + 1, N, af1);
+    load_a<NMAX>(bo.A, d, N, ab0);
+    load_a<NMAX>(bo.A, d + 1, N, ab1);
+    ddf0 = fo.D[d], ddf1 = fo.D[d + 1];
+    ddb0 = bo.D[d], ddb1 = bo.D[d + 1];
+  }
+  stage_bc_tile<T, NMAX>(fo, b0, nseq, L, N, bcf);
+  if (!shared) stage_bc_tile<T, NMAX>(bo, b0, nseq, L, N, bcb);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  if (live) {
+    const size_t base = (size_t)sq * L * Dp + d;
+    const float* bfs = bcf + (size_t)sq * L * 2 * NMAX;
+    const float* bbs = bcb + (size_t)sq * L * 2 * NMAX;
+#pragma unroll
+    for (int t = 0; t < LMAX; ++t) {
+      if (t < L) {
+        const int tb = L - 1 - t;
+        const float2 xf = Pair<T>::ld(xfs + base + t * Dp);
+        const float2 df = Pair<T>::ld(dfs + base + t * Dp);
+        const float2 xb = Pair<T>::ld(xbs + base + tb * Dp);
+        const float2 db = Pair<T>::ld(dbs + base + tb * Dp);
+        float yf0 = ddf0 * xf.x, yf1 = ddf1 * xf.y;
+        float yb0 = ddb0 * xb.x, yb1 = ddb1 * xb.y;
+        step_pair<NMAX>(hf0, hf1, af0, af1, df, xf, bfs + t * 2 * NMAX, N, yf0, yf1);
+        step_pair<NMAX>(hb0, hb1, ab0, ab1, db, xb, bbs + tb * 2 * NMAX, N, yb0, yb1);
+        Pair<T>::st(dfs + base + t * Dp, yf0, yf1);
+        Pair<T>::st(dbs + base + tb * Dp, yb0, yb1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // yf and yb: the block's nseq * L rows are contiguous in (B, L, D)
+  T* yfb = yf + b0 * L * D;
+  T* ybb = yb + b0 * L * D;
+  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
+    const int row = i / segs, c = (i - row * segs) * SEG;
+    const size_t e = (size_t)row * Dp + c, o = (size_t)row * D + c;
+    *reinterpret_cast<uint4*>(yfb + o) = *reinterpret_cast<const uint4*>(dfs + e);
+    *reinterpret_cast<uint4*>(ybb + o) = *reinterpret_cast<const uint4*>(dbs + e);
+  }
 }
 
 // Row 10 for L <= LMAX and N <= NMAX: B_t and C_t of every step are staged
@@ -760,19 +886,72 @@ int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
   });
 }
 
-// Row 6, with the strides of each stream as in the short scan. Returns a
-// cudaError_t (0 on success). Requires N <= 16.
+// Bytes of shared memory of row 6's tile kernel at these sizes.
+int vetk_selective_scan_bidir_smem(int dtype, int L, int D, int N, int seqs,
+                                   int shared) {
+  const int item = dtype == kFloat32 ? 4 : 2;
+  return bidir_smem(item, L, D, N <= 4 ? 4 : TILE_MAX_N, seqs, shared != 0);
+}
+
+// Row 6, with the strides of each stream as in the short scan. seqs > 0:
+// the tile kernel with that many sequences a block (L <= SHARED_MAX_L, N <=
+// TILE_MAX_N, D even and seqs * D / 2 <= TILE_THREADS, x and dt of both
+// streams 16-byte aligned with D and their strides multiples of 16 bytes);
+// `shared` (tile kernel only): x, B and C of the backward stream are those
+// of the forward one, pointers and strides, and are read once. 0: the kernel
+// that walks any L, a block a sequence. Returns a cudaError_t (0 on
+// success). Requires N <= 16.
 int vetk_selective_scan_bidir(int dtype, const void* xf, const void* dtf,
                               const void* Af, const void* Bf, const void* Cf,
                               const void* Df, const void* xb, const void* dtb,
                               const void* Ab, const void* Bb, const void* Cb,
                               const void* Db, void* yf, void* yb, int B, int L,
                               int D, int N, const long* strides_f,
-                              const long* strides_b, void* stream) {
+                              const long* strides_b, int seqs, int shared,
+                              void* stream) {
   if (bad_shape(B, L, D, N)) return (int)cudaErrorInvalidValue;
   const Operands fo = operands(xf, dtf, Af, Bf, Cf, Df, strides_f);
   const Operands bo = operands(xb, dtb, Ab, Bb, Cb, Db, strides_b);
   auto st = static_cast<cudaStream_t>(stream);
+  if (seqs > 0) {
+    const int threads = seqs * (D / 2);
+    if (L > SHARED_MAX_L || N > TILE_MAX_N || D % 2 || threads > TILE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    if (shared && (xb != xf || Bb != Bf || Cb != Cf || strides_b[0] != strides_f[0] ||
+                   strides_b[1] != strides_f[1] || strides_b[4] != strides_f[4] ||
+                   strides_b[5] != strides_f[5] || strides_b[6] != strides_f[6] ||
+                   strides_b[7] != strides_f[7]))
+      return (int)cudaErrorInvalidValue;
+    const int grid = (int)((B + (long)seqs - 1) / seqs);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      constexpr int SEG = 16 / sizeof(T);
+      for (const void* p : {xf, dtf, xb, dtb})
+        if (reinterpret_cast<size_t>(p) & 15) return (int)cudaErrorInvalidValue;
+      for (const long* s : {strides_f, strides_b})
+        if (D % SEG || s[0] % SEG || s[1] % SEG || s[2] % SEG || s[3] % SEG)
+          return (int)cudaErrorInvalidValue;
+      T* yft = static_cast<T*>(yf);
+      T* ybt = static_cast<T*>(yb);
+      auto launch = [&](auto lmax, auto nmax) {
+        constexpr int LM = decltype(lmax)::value, NM = decltype(nmax)::value;
+        auto k = scan_bidir_tile_kernel<T, LM, NM>;
+        const int smem = bidir_smem(sizeof(T), L, D, NM, seqs, shared != 0);
+        const cudaError_t err = allow_smem(k, smem);
+        if (err != cudaSuccess) return (int)err;
+        k<<<grid, threads, smem, st>>>(fo, bo, yft, ybt, B, L, D, N, seqs,
+                                       shared != 0);
+        return (int)cudaGetLastError();
+      };
+      auto by_n = [&](auto lmax) {
+        if (N <= 4) return launch(lmax, std::integral_constant<int, 4>{});
+        return launch(lmax, std::integral_constant<int, TILE_MAX_N>{});
+      };
+      if (L <= 8) return by_n(std::integral_constant<int, 8>{});
+      if (L <= 16) return by_n(std::integral_constant<int, 16>{});
+      return by_n(std::integral_constant<int, SHARED_MAX_L>{});
+    });
+  }
   const int threads = threads_for(D);
   const dim3 grid(B, blocks_for(D, threads));
   return by_dtype(dtype, [&](auto tag) {

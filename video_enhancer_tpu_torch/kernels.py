@@ -89,8 +89,12 @@ _SIGNATURES = {
     # dtype, L, D, N, sequences a block
     "vetk_selective_scan_short_smem": [_I] * 5,
     # dtype, (x, dt, A, B, C, D) forward and backward, yf, yb, B, L, D, N,
-    # strides forward and backward, stream
-    "vetk_selective_scan_bidir": [_I] + [_P] * 14 + [_I] * 4 + [_P] * 3,
+    # strides forward and backward, sequences a block (0: the walking
+    # kernel), shared, stream
+    "vetk_selective_scan_bidir": [_I] + [_P] * 14 + [_I] * 4 + [_P] * 2
+    + [_I, _I, _P],
+    # dtype, L, D, N, sequences a block, shared
+    "vetk_selective_scan_bidir_smem": [_I] * 6,
     # dtype, x, dt, A, B, C, D, h0, y, h_last, states, sumdt, B, L, D, N,
     # strides, stream
     "vetk_selective_scan_long": [_I] + [_P] * 11 + [_I] * 4 + [_P, _P],
@@ -100,8 +104,11 @@ _SIGNATURES = {
     "vetk_selective_scan_bidir_shared": [_I] + [_P] * 11 + [_I] * 4
     + [_P, _P],
     "vetk_selective_scan_shared_max_l": [],
-    # dtype, x, w, bias, y, B, L, C, K, ld, vec, stream
-    "vetk_dwconv_silu": [_I] + [_P] * 4 + [_I] * 4 + [_L, _I, _P],
+    # dtype, x, w, bias, y, B, L, C, K, ld, vec, channels a slab, runs,
+    # grid, stream
+    "vetk_dwconv_silu": [_I] + [_P] * 4 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
+    # dtype, channels a slab, K, runs
+    "vetk_dwconv_silu_smem": [_I] * 4,
     "vetk_dwconv_silu_max_k": [],
 }
 

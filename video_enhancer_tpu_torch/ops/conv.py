@@ -105,16 +105,69 @@ def depthwise_conv1d_silu_plain(x: torch.Tensor, w: torch.Tensor,
     return F.silu(depthwise_conv1d(x.float(), w.float(), b)).to(x.dtype)
 
 
-def _vec_width(x: torch.Tensor, ld: int) -> int:
-    """Channels the kernel moves as one load: the widest of 8, 4, 2, 1 (at
-    most 16 bytes) that divides C and the row stride and to which the
-    pointer is aligned."""
-    size = x.element_size()
-    for v in (8, 4, 2):
-        if (v * size <= 16 and x.shape[-1] % v == 0 and ld % v == 0
-                and x.data_ptr() % (v * size) == 0):
-            return v
-    return 1
+# The conv kernel's launch arithmetic (csrc/dwconv_silu.cu), pure Python so
+# that the CPU tests reach it.
+_DW_MAX_K = 8              # most taps (compiled: 4, 5 exactly; 8 with a bound)
+_DW_RUN = 16               # output rows a thread computes
+_DW_STAGES = 3             # input tiles in the ring
+_DW_OUTS = 2               # output tiles
+_DW_MAX_UNITS = 256        # threads a row of a slab (VEC channels each)
+_DW_MAX_THREADS = 320      # two blocks an SM at up to 96 registers
+_DW_MAX_RUNS = 16          # so that a tile is at most 256 rows
+_SMEM_BLOCK = 232448       # dynamic shared memory a block may use (H100)
+_SMEM_SM = 233472          # shared memory of an SM; each block takes 1 KB more
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _dwconv_smem(item: int, ct: int, K: int, runs: int) -> int:
+    """Bytes of dynamic shared memory of a block (csrc/dwconv_silu.cu
+    ``smem_bytes``): three input tiles of ``runs * 16 + kt - 1`` staged rows
+    (kt the taps compiled: 4 or 5, else 8) and two output tiles of ``runs *
+    16`` rows, each row the 16-byte chunks that cover a slab's ``ct *
+    item`` bytes from any start."""
+    kt = K if K in (4, 5) else _DW_MAX_K
+    rows = runs * _DW_RUN
+    return ((_DW_STAGES * (rows + kt - 1) + _DW_OUTS * rows)
+            * _up(ct * item + 16 - item, 16))
+
+
+def _dwconv_plan(B: int, L: int, C: int, K: int, ld: int, item: int,
+                 ptr: int, sms: int) -> dict:
+    """The conv kernel's launch for x ``(B, L, C)`` with row stride ``ld``
+    (elements) at address ``ptr``: VEC, 2 channels a thread when bf16/fp16
+    rows allow 4-byte reads (C, ld even, x on 4 bytes), else 1; slabs of at
+    most 256 threads' channels, balanced; the runs of 16 rows a tile (the
+    fewest that give whole warps and at least 256 threads, else the best
+    warp fill, at most 320 threads); blocks an SM by shared memory and
+    threads; one wave of blocks, each a contiguous range of tiles. Raises
+    ValueError for what the kernel does not take."""
+    if min(B, L, C, K) < 1 or K > _DW_MAX_K:
+        raise ValueError(f"kernel takes K <= {_DW_MAX_K}, got B={B} L={L} "
+                         f"C={C} K={K}")
+    vec = 2 if (item == 2 and C % 2 == 0 and ld % 2 == 0
+                and ptr % 4 == 0) else 1
+    slabs = -(-(C // vec) // _DW_MAX_UNITS)
+    units = -(-(C // vec) // slabs)
+    cands = range(1, min(_DW_MAX_RUNS, _DW_MAX_THREADS // units) + 1)
+    whole = [r for r in cands if units * r % 32 == 0 and units * r >= 256]
+    runs = whole[0] if whole else max(
+        cands, key=lambda r: (units * r / _up(units * r, 32), r))
+    ct = units * vec
+    smem = _dwconv_smem(item, ct, K, runs)
+    threads = units * runs
+    per_sm = min(_SMEM_SM // (smem + 1024), 2048 // threads, 32)
+    rows = runs * _DW_RUN
+    tiles = B * -(-L // rows) * -(-C // ct)
+    if tiles >= 2 ** 31:
+        raise ValueError(f"kernel takes fewer than 2**31 tiles of {rows} "
+                         f"rows, got B={B} L={L} C={C}")
+    return {"vec": vec, "kt": K if K in (4, 5) else _DW_MAX_K, "ct": ct,
+            "slabs": -(-C // ct), "runs": runs, "rows": rows,
+            "threads": threads, "smem": smem, "blocks_per_sm": per_sm,
+            "tiles": tiles, "grid": min(tiles, per_sm * sms)}
 
 
 def _dwconv_silu_cuda(x, w, b):
@@ -132,14 +185,17 @@ def _dwconv_silu_cuda(x, w, b):
         raise ValueError(f"kernel takes K <= {lib.vetk_dwconv_silu_max_k()}, "
                          f"got {K}")
     ld = kernels.row_stride(x, "x")
+    code = kernels.dtype_code(x)
+    plan = _dwconv_plan(Bsz, L, C, K, ld, x.element_size(), x.data_ptr(),
+                        kernels.sm_count(x.device))
     w32 = w.float().reshape(C, K).contiguous()
     b32 = b.float().contiguous()
     y = torch.empty((Bsz, L, C), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.vetk_dwconv_silu(
-            kernels.dtype_code(x), x.data_ptr(), w32.data_ptr(),
-            b32.data_ptr(), y.data_ptr(), Bsz, L, C, K, ld,
-            _vec_width(x, ld), kernels.stream_of(x))
+            code, x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
+            Bsz, L, C, K, ld, plan["vec"], plan["ct"], plan["runs"],
+            plan["grid"], kernels.stream_of(x))
         kernels.launch_counts["dwconv_silu"] += 1
     kernels.check(err, "dwconv_silu")
     return y

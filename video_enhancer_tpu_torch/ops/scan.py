@@ -207,9 +207,7 @@ def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
     lib = kernels.library()
     code = kernels.dtype_code(x)
     item = x.element_size()
-    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) * item % 16 == 0
-                  and t.stride(1) * item % 16 == 0 for t in (x, dt))
-    plan = _short_scan_plan(Bsz, L, Dd, N, item, aligned)
+    plan = _short_scan_plan(Bsz, L, Dd, N, item, _on_16_byte_grid(x, dt))
     if stateful:
         h0 = (torch.zeros((Bsz, Dd, N), device=x.device) if h0 is None
               else _state_in(h0, x, N))
@@ -334,6 +332,69 @@ def selective_scan_bidir_plain(xf, dtf, Af, Bf, Cf, Df,
     return yf, yb
 
 
+def _bidir_smem(L: int, D: int, N: int, itemsize: int, seqs: int,
+                shared: bool) -> int:
+    """Bytes of dynamic shared memory of row 6's tile kernel
+    (csrc/selective_scan.cu ``bidir_smem``): per sequence the x tiles (one
+    when the streams share x) and both dt tiles (L rows of D rounded up to
+    8), then B and C as fp32 (L rows of twice the N bound; one set when
+    shared)."""
+    nmax = 4 if N <= 4 else _TILE_MAX_N
+    tiles, bcs = (3, 1) if shared else (4, 2)
+    return seqs * (tiles * L * _up(D, 8) * itemsize + bcs * L * 2 * nmax * 4)
+
+
+def _bidir_plan(B: int, L: int, D: int, N: int, itemsize: int,
+                aligned: bool, shared: bool) -> dict:
+    """Row 6. The tile kernel for L <= 32, N <= 8 and D <= 512 when the
+    16-byte copies of both streams' x and dt can run (``aligned``: each
+    starts on 16 bytes with batch and step strides that are multiples of 16
+    bytes; D too), reading x, B and C once when ``shared`` (the streams'
+    are one): its instance (L bound 8, 16 or 32; N bound 4 or 8), two
+    channels a thread, the fewest sequences a block that fill whole warps
+    and at least 128 threads (else whole warps, else the best fill; at most
+    256 threads and B) whose shared memory fits, a block per such group.
+    The kernel that walks any L, a block a sequence, otherwise. Raises
+    ValueError for what neither takes."""
+    if min(B, L, D, N) < 1 or N > _MAX_N:
+        raise ValueError(f"kernel takes N <= {_MAX_N}, got B={B} L={L} D={D} "
+                         f"N={N}")
+    tps = -(-D // 2)
+    threads = min(_up(D, 32), _WALK_MAX_THREADS)
+    walk = {"route": "walk", "seqs": 0, "threads": threads,
+            "grid": (B, -(-D // threads)), "smem": 0, "shared": False}
+    if (L > _TILE_MAX_L or N > _TILE_MAX_N or tps > _TILE_THREADS
+            or not aligned or D * itemsize % 16):
+        return walk
+    cands = range(1, min(_TILE_THREADS // tps, B) + 1)
+    whole = [c for c in cands if c * tps % 32 == 0]
+    order = ([c for c in whole if c * tps >= 128] + whole
+             + sorted(cands, key=lambda c: (-c * tps / _up(c * tps, 32), -c)))
+    fits = [c for c in order
+            if _bidir_smem(L, D, N, itemsize, c, shared) <= _SMEM_BLOCK]
+    if not fits:
+        return walk
+    seqs = fits[0]
+    return {"route": "tile", "seqs": seqs, "threads": seqs * tps,
+            "grid": (-(-B // seqs),),
+            "lmax": 8 if L <= 8 else 16 if L <= 16 else _TILE_MAX_L,
+            "nmax": 4 if N <= 4 else _TILE_MAX_N, "shared": shared,
+            "smem": _bidir_smem(L, D, N, itemsize, seqs, shared)}
+
+
+def _on_16_byte_grid(*ts) -> bool:
+    """Each operand starts on 16 bytes and steps its batch and time by
+    multiples of 16 bytes (what the tile kernels' 16-byte copies need)."""
+    return all(t.data_ptr() % 16 == 0
+               and t.stride(0) * t.element_size() % 16 == 0
+               and t.stride(1) * t.element_size() % 16 == 0 for t in ts)
+
+
+def _same_view(a, b) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
 def _scan_bidir_cuda(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
     sf = _check_stream(xf, dtf, Af, Bf, Cf, Df)
     sb = _check_stream(xb, dtb, Ab, Bb, Cb, Db)
@@ -341,6 +402,11 @@ def _scan_bidir_cuda(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
         raise ValueError("the two streams must match in shape and dtype")
     Bsz, L, Dd = xf.shape
     N = Af.shape[1]
+    plan = _bidir_plan(
+        Bsz, L, Dd, N, xf.element_size(),
+        aligned=_on_16_byte_grid(xf, dtf, xb, dtb),
+        shared=all(_same_view(f, b) for f, b in ((xf, xb), (Bf, Bb),
+                                                 (Cf, Cb))))
     yf = torch.empty((Bsz, L, Dd), dtype=xf.dtype, device=xf.device)
     yb = torch.empty_like(yf)
     w = [t.float().contiguous() for t in (Af, Df, Ab, Db)]
@@ -351,7 +417,8 @@ def _scan_bidir_cuda(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
             w[0].data_ptr(), Bf.data_ptr(), Cf.data_ptr(), w[1].data_ptr(),
             xb.data_ptr(), dtb.data_ptr(), w[2].data_ptr(), Bb.data_ptr(),
             Cb.data_ptr(), w[3].data_ptr(), yf.data_ptr(), yb.data_ptr(),
-            Bsz, L, Dd, N, sf, sb, kernels.stream_of(xf))
+            Bsz, L, Dd, N, sf, sb, plan["seqs"], int(plan["shared"]),
+            kernels.stream_of(xf))
         kernels.launch_counts["selective_scan_bidir"] += 1
     kernels.check(err, "selective_scan_bidir")
     return yf, yb
