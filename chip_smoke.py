@@ -22,15 +22,18 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    (row 11) on vsrm's strided in_proj slice at K = 5 and 4 (each of rows 6
    and 11 with its device time beside its bound, and a check that the
    served shape takes the redesigned route: row 6's tile kernel reading u,
-   B and C once, row 11 two channels a thread in bf16); time of each,
+   B and C once, row 11 two channels a thread in bf16; rows 8 and 10 as
+   well, each with the exps' floor beside its bound: row 8 on its tile
+   kernel with one channel a thread, row 10 at both served shapes on its
+   tile kernel with a summing epilogue); time of each,
    and of the PyTorch library call that computes the same function where
    there is one; the device time of each of the SSD's three launches in
    one call (``torch.profiler``), on its tensor-core path (bf16) and its
    CUDA-core path (fp32), and of the long scan's three launches (row 9)
    and the window kernel (row 5); ptxas's registers and spills of the
    SSD's run kernels, the short scan's tile kernels, the long scan's chunk
-   walks, the window kernel's tensor-core kernels, the conv kernel and row
-   6's tile kernel;
+   walks, the window kernel's tensor-core kernels, the conv kernel and the
+   tile kernels of rows 6, 8 and 10;
 4. the vsrm path: ``build_handler("vsrm")`` with the bundled weights at
    full width streams a seeded 16-frame 180x320 clip (window 7, stride 3,
    calibrated blend s = 0.25); checks the frames, that the SSM kernels were
@@ -69,17 +72,19 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    bidirectional scan launch; also against the fused kernel), ``ssm_apply``
    per pixel (one stateless short-scan launch), each against its plain form,
    with the route row 6 takes on each (the walking kernel at N 16, the tile
-   kernel on the composed bissm);
+   kernel on the composed bissm) and the one row 8 takes on ``ssm_apply``
+   (checked: its tile kernel with one channel a thread);
 10. the opt-in kernels and the mesh code: (a) one vsrm window (phase 4's
    handler and clip) with ``vsrm.bissd_apply`` rebound to
    ``conv_impl="pallas"`` (6 conv launches, 12 SSD, 6 fused SSM, no other)
    against the grouped-conv window and the plain versions, ms per window of
    both; (b) the composed bissm on vsrm's block-0 temporal input with its
-   scan on ``impl="bmajor"`` (one launch of row 10) against ``"bidir"`` and
-   the plain forms; (c) on a one-rank NCCL mesh ``make_mesh(1, 1, 1)``,
-   ``make_sharded_clip_fn`` (halo 2) and ``make_spatially_sharded_clip_fn``
-   (halo 8, scale 4) around ``vsrm.apply`` on those 7 frames against the
-   model on the same edge-padded clip, trimmed, with frames/s; a handler on
+   scan on ``impl="bmajor"`` (one launch of row 10, with its route) against
+   ``"bidir"`` and the plain forms; (c) on a one-rank NCCL mesh
+   ``make_mesh(1, 1, 1)``, ``make_sharded_clip_fn`` (halo 2) and
+   ``make_spatially_sharded_clip_fn`` (halo 8, scale 4) around
+   ``vsrm.apply`` on those 7 frames against the model on the same
+   edge-padded clip, trimmed, with frames/s; a handler on
    that mesh, and the registry's on the policy's (1, 1, 1) mesh, take the
    unsharded path.
 
@@ -117,7 +122,8 @@ from video_enhancer_tpu_torch.ops.conv import (_dwconv_plan,
                                                depthwise_conv1d_silu,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
-    _bidir_plan, _on_16_byte_grid, _same_view,
+    _bidir_plan, _on_16_byte_grid, _same_view, _shared_scan_plan,
+    _short_scan_plan,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, scan_flops,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
@@ -144,6 +150,7 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOPS = 989e12         # dense tensor-core rate
 H100_FP32_FLOPS = 67e12          # CUDA-core rate
+SFU_PER_SM_CLOCK = 16            # ex2 results an SM a clock (Hopper)
 
 # main-path shapes at 180x320, window 7 (vsrm: dim 64 -> inner 128)
 SSD_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=16)
@@ -242,6 +249,23 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
+@functools.cache
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def ex2_floor_ms(n: float) -> float:
+    """The least time ``n`` ex2 take on the card's special-function units:
+    16 an SM a clock at its highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n / (SFU_PER_SM_CLOCK * sms * sm_clock_hz()) * 1e3
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -278,11 +302,12 @@ def build() -> str:
 
 
 # the kernels the redesigns of rows 1-2 and 7 (SSD, short scan), 5 (window
-# attention), 11 (conv) and 6 (bidirectional scan) added or rewrote, and
-# row 9's chunk walks
+# attention), 11 (conv), 6 (bidirectional scan), 8 (short scan at N 16) and
+# 10 (shared bidirectional scan) added or rewrote, and row 9's chunk walks
 REDESIGNED = ("ssd_run_kernel", "scan_short_tile_kernel", "scan_chunk_kernel",
               "window_attn_mma", "dwconv_silu_tile_kernel",
-              "scan_bidir_tile_kernel")
+              "scan_bidir_tile_kernel", "scan_short_n16_kernel",
+              "scan_bidir_sum_kernel")
 
 
 def ptxas_summary(log: str, names=REDESIGNED) -> list[str]:
@@ -584,6 +609,16 @@ def scans_vs_plain() -> dict:
                 flops = scan_flops(**s, streams=2)
             else:
                 args = (x, dt, A, Bm, Cm, Dv)
+                if key == "selective_scan_short_nostate":
+                    # the served shape takes row 8's tile kernel with one
+                    # channel a thread (the wrapper's own tests of x and dt)
+                    plan = _short_scan_plan(
+                        s["B"], s["L"], s["D"], s["N"], x.element_size(),
+                        _on_16_byte_grid(x, dt), state=False)
+                    print(f"{key} {dtype}: route {plan['route']}, sequences "
+                          f"a block {plan['seqs']}")
+                    check(plan["route"] == "tile_n16",
+                          f"{key}: the served shape takes {plan}")
                 if key == "selective_scan_long":
                     run = lambda: selective_scan_pallas(*args, h0=h0)  # noqa: E731
                     plain = lambda: selective_scan_assoc(*args, h0=h0)  # noqa: E731
@@ -641,10 +676,13 @@ def scans_vs_plain() -> dict:
                 # its three launches: chunk states, the pass, outputs
                 print(f"{key} {dtype}: device ms "
                       f"{device_ms(run, ('scan_chunk', 'scan_state_pass'))}")
-            if key == "selective_scan_bidir":
+            if key in ("selective_scan_bidir", "selective_scan_short_nostate"):
+                exps = s["B"] * s["L"] * s["D"] * s["N"] * (
+                    2 if key == "selective_scan_bidir" else 1)
                 print(f"{key} {dtype}: device ms "
-                      f"{device_ms(run, ('scan_bidir',))} (bound "
-                      f"{bound:.4f} ms)")
+                      f"{device_ms(run, ('scan_bidir', 'scan_short'))} (bound "
+                      f"{bound:.4f} ms; the exps' floor "
+                      f"{ex2_floor_ms(exps):.4f} ms)")
             if dtype == torch.bfloat16:
                 plain_ms = time_ms(plain, warmup=1, iters=3)
                 print(f"{key} {dtype}: plain {plain_ms:.3f} ms")
@@ -694,9 +732,18 @@ def shared_scan_vs_plain() -> dict:
             flops = scan_flops(**shape, streams=2)
             bound = max(nbytes / H100_BYTES_PER_S,
                         flops / H100_FP32_FLOPS) * 1e3
+            # the served shapes take the tile kernel with a summing epilogue
+            plan = _shared_scan_plan(*shape.values(), u.element_size(),
+                                     _on_16_byte_grid(u, dtf, dtb))
+            print(f"selective_scan_bidir_shared {shape} {dtype}: route "
+                  f"{plan['route']}, sequences a block {plan['seqs']}")
+            check(si == 2 or plan["route"] == "tile_sum",
+                  f"selective_scan_bidir_shared {shape}: takes {plan}")
             line = (f"selective_scan_bidir_shared {shape} {dtype}: kernel "
                     f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} "
-                    f"MB, {flops / 1e9:.2f} GFLOP)")
+                    f"MB, {flops / 1e9:.2f} GFLOP), the exps' floor "
+                    f"{ex2_floor_ms(2 * u.numel() * shape['N']):.4f} ms, "
+                    f"device ms {device_ms(run, ('scan_bidir',))}")
             if dtype == torch.bfloat16 and si < 2:
                 plain_ms = time_ms(
                     lambda: selective_scan_bidir_shared_plain(*args),
@@ -1312,18 +1359,26 @@ def layers() -> dict:
              dict(selective_scan_long=2)),
         ]
         # row 6's route on each layer (both streams dense and bf16 here)
-        routes = {name: _bidir_plan(x.shape[0], x.shape[1], *a.shape, 2,
-                                    True, shared)["route"]
+        routes = {name: "row 6 route " + _bidir_plan(
+                      x.shape[0], x.shape[1], *a.shape, 2, True,
+                      shared)["route"]
                   for name, x, a, shared in (
                       ("bimamba_apply per pixel", pixels,
                        pb["fwd"]["A_log"], False),
                       ("bissm_apply(impl='composed') on vsrm's block 0", seq,
                        tp["A_log_f"], True))}
+        # row 8's on ssm_apply per pixel, from the streams the layer passes
+        u, _, dt, _, _ = ssm._ssm_streams(pb["fwd"], pixels, reverse=False)
+        row8 = _short_scan_plan(*u.shape, pb["fwd"]["A_log"].shape[1],
+                                u.element_size(), _on_16_byte_grid(u, dt),
+                                state=False)["route"]
+        check(row8 == "tile_n16", f"ssm_apply per pixel: row 8 takes {row8}")
+        routes["ssm_apply per pixel"] = f"row 8 route {row8}"
+        del u, dt
         for name, run, plain, want in cases:
             got, c, secs = _counted(run)
             print(f"{name}: launches {c}, {1000 * secs:.2f} ms"
-                  + (f"; row 6 route {routes[name]}" if name in routes
-                     else ""))
+                  + (f"; {routes[name]}" if name in routes else ""))
             check(c == _only(**want), f"{name}: launches {c} != {want}")
             for k, v in want.items():
                 counts[k] = counts.get(k, 0) + v
@@ -1403,6 +1458,11 @@ def _shared_scan_layer(vp, clip) -> int:
         _window_tol("  vs the plain layer", got,
                     bissm_apply(tp, seq, impl="plain"))
         args = caught[0]
+        plan = _shared_scan_plan(*args[0].shape, args[3].shape[1],
+                                 args[0].element_size(),
+                                 _on_16_byte_grid(*args[:3]))
+        print(f"  row 10 route {plan['route']}, sequences a block "
+              f"{plan['seqs']}")
         y = real(*args, impl="bmajor")
         tol = TOL[("selective_scan_bidir_shared", "bfloat16")]
         for name, ref in (("plain", selective_scan_bidir_shared_plain(*args)),

@@ -3,11 +3,12 @@
 flash attention (TPU kernel row 4), the fused bidirectional SSM (row 3),
 the SSD chunked scan (rows 1-2), the short scan with and without state
 (rows 7-8), the long scan (row 9), window attention (row 5), the
-depthwise conv + SiLU (row 11) and the bidirectional scan (row 6), for an
-A/B of two checkouts in one call.
+depthwise conv + SiLU (row 11), the bidirectional scan (row 6) and the
+shared bidirectional scan (row 10), for an A/B of two checkouts in one
+call.
 
     python3 scripts/torch_profile_kernels.py [--root DIR] [--tag NAME]
-        [--only flash,fused,ssd,short,long,window,conv,bidir]
+        [--only flash,fused,ssd,short,long,window,conv,bidir,shared,blocks]
 
 Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 (this checkout by default), builds the kernels with ``ptxas -v`` and
@@ -22,9 +23,9 @@ vsrm's (57600, 7, 128, N 4) and fast_mamba_vsr's (57600, 16, 96, N 8)
 shapes; the SSD forward and reverse in bf16 at vsrm's shape (b 7, L
 57600, H 2, P 64, N 16, column slices of one conv output); rows 7 and 8
 at the sharded fast_mamba_vsr's (57600, 16, 96, N 8, h0) and the
-per-pixel (57600, 7, 128, N 16) shapes in bf16, and row 7 at D 95 and on
-x and dt sliced 3 columns in (operands the tile kernel leaves to the
-walking kernel); row 9 in bf16 and fp32 at one window's rasters (B 7, L
+per-pixel (57600, 7, 128, N 16) shapes in bf16 (row 8 with its route,
+bound and exps' floor), and row 7 at D 95 and on x and dt sliced 3 columns
+in (operands the tile kernel leaves to the walking kernel); row 9 in bf16 and fp32 at one window's rasters (B 7, L
 57600, D 128, N 16, h0 in), y and h_last against ``selective_scan_assoc``;
 row 5 in bf16 at rvrt's shape (nW 3680, H 4, N 128, Dh 16, views of one
 qkv projection) against ``window_attention_plain``, beside
@@ -33,18 +34,32 @@ strided in_proj slice (7, 57600, 160, rows of 290) with K 5 and 4 in bf16
 and K 5 in fp32, beside ``F.conv1d(groups=C)`` then ``F.silu``; row 6 at
 vsrm's composed bissm shape (57600, 7, 128, N 4) with u, B and C shared by
 the two streams (bf16 and fp32) and with separate streams, and at the
-per-pixel bimamba's (57600, 7, 128, N 16), separate streams. Beside each
-SSD, scan, window, conv and bidirectional time, the device time a call of
-each kernel it launches, from ``torch.profiler``, and for rows 11 and 6
-the bound (bytes at 3.35 TB/s) and, where the checkout has its plan, the
-route. The last line is one JSON object: the tag, the card, each case's
-ms and error.
+per-pixel bimamba's (57600, 7, 128, N 16), separate streams; row 10
+(``impl="bmajor"``) in bf16 at vsrm's composed shape (57600, 7, 128, N 4)
+and fast_mamba_vsr's (57600, 16, 96, N 8), B and C column slices of one
+projection, beside ``impl="bidir"`` (row 6 and a sum) on the same inputs.
+Beside each SSD, scan, window, conv and bidirectional time, the device
+time a call of each kernel it launches, from ``torch.profiler`` (each
+kernel under its own name), and for rows 11, 6, 8 and 10 the bound (bytes
+at 3.35 TB/s; rows 8 and 10 the larger of that and the fp32 operations at
+67 TFLOP/s) and, where the checkout has its plan, the route; for rows 8
+and 10 also the exps' floor (16 ex2 an SM a clock at the card's highest SM
+clock). ``blocks`` (checkouts that have row 10's plan): rows 8 and 10 at
+their served shapes with the sequences a block overridden, device ms over
+20 calls and the error: row 8 with 0 (the walking kernel), 1 and 2, row
+10 with 1, 2 and 4 at vsrm's shape and 2 and 4 at fast_mamba_vsr's, beside
+``impl="bidir"``; a copy of the port with one kernel changed, under the
+git-ignored ``build/``, times the same way, so variants of one design
+compare in one call. The last line is one JSON object: the tag, the card,
+each case's ms and error.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -54,7 +69,8 @@ ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
 ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
 ap.add_argument("--tag", default="")
 ap.add_argument("--only",
-                default="flash,fused,ssd,short,long,window,conv,bidir")
+                default="flash,fused,ssd,short,long,window,conv,bidir,shared,"
+                "blocks")
 args = ap.parse_args()
 ONLY = set(args.only.split(","))
 sys.path.insert(0, str(Path(args.root).resolve()))
@@ -73,7 +89,8 @@ SOURCES = {"flash": "flash", "fused_bissm": "fused", "ssd_": "ssd",
            "scan_short": "short", "scan_chunk": "long",
            "scan_state_pass": "long", "window_attn": "window",
            "dwconv_silu": "conv", "scan_bidir_kernel": "bidir",
-           "scan_bidir_tile": "bidir"}
+           "scan_bidir_tile": "bidir", "scan_bidir_sum": "shared",
+           "scan_bidir_shared": "shared"}
 
 FLASH_CASES = [dict(B=2, H=3, Lq=10080, Lk=10080, Dh=128),
                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
@@ -104,6 +121,24 @@ def device_ms(fn, keys, iters: int = 10) -> dict:
             out[name] = out.get(name, 0.0) + t / 1e3 / iters
     out["sum"] = sum(out.values())
     return out
+
+
+def ex2_floor_ms(n: float) -> float:
+    """The least time ``n`` ex2 take: 16 an SM a clock at the card's
+    highest SM clock (nvidia-smi)."""
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n / (16 * sms * clock) * 1e3
+
+
+def scan_bound_ms(nbytes: float, flops: float) -> float:
+    """The larger of the bytes at 3.35 TB/s and the fp32 operations at 67
+    TFLOP/s, in ms."""
+    return max(nbytes / chip_smoke.H100_BYTES_PER_S,
+               flops / chip_smoke.H100_FP32_FLOPS) * 1e3
 
 
 def ssd_cases(out: dict) -> bool:
@@ -165,6 +200,19 @@ def short_cases(out: dict) -> bool:
         rec["device"] = device_ms(
             lambda: scan_ops.selective_scan_pallas_short(
                 *args_, h0=h0, need_state=state), ("scan_short",))
+        if not state:
+            # row 8: bound, the exps' floor and, where the checkout's plan
+            # tells the rows apart, its route
+            nbytes = (chip_smoke._nbytes(*args_)
+                      + x.numel() * x.element_size())
+            rec["bound_ms"] = scan_bound_ms(
+                nbytes, scan_ops.scan_flops(*x.shape, s["N"]))
+            rec["ex2_floor_ms"] = ex2_floor_ms(x.numel() * s["N"])
+            plan_of = scan_ops._short_scan_plan
+            if "state" in inspect.signature(plan_of).parameters:
+                rec["route"] = plan_of(
+                    *x.shape, s["N"], 2,
+                    scan_ops._on_16_byte_grid(x, dt), state=False)["route"]
         name = f"{key} {tuple(s.values())} bf16"
         out[name] = rec
         print(f"{name}: {rec} {'ok' if good else 'FAILED'}", flush=True)
@@ -316,6 +364,120 @@ def bidir_cases(out: dict) -> bool:
     return ok
 
 
+def shared_cases(out: dict) -> bool:
+    """Row 10 (``impl="bmajor"``) in bf16 at vsrm's composed shape and at
+    fast_mamba_vsr's, against its plain version, with device time, bound,
+    the exps' floor and, where the checkout has its plan, the route; beside
+    it ``impl="bidir"`` (row 6 and a sum) on the same inputs."""
+    ok = True
+    plan_of = getattr(scan_ops, "_shared_scan_plan", None)
+    F = torch.nn.functional
+    for si, s in enumerate(chip_smoke.SHARED_SHAPES[:2]):
+        shape = {k: s[k] for k in ("B", "L", "D", "N")}
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 10
+                                                         + si)
+        u, dtf, Af, Bm, Cm, Df = chip_smoke._scan_inputs(torch.bfloat16, gen,
+                                                         **s)
+        dtb = F.softplus(torch.randn(u.shape, generator=gen, device="cuda")
+                         * 0.5 - 2.0).to(torch.bfloat16)
+        a = (u, dtf, dtb, Af, Af.flip(1), Bm, Cm, Df, Df.flip(0))
+        run = lambda: scan_ops.selective_scan_bidir_shared(  # noqa: E731
+            *a, impl="bmajor")
+        bidir = lambda: scan_ops.selective_scan_bidir_shared(  # noqa: E731
+            *a, impl="bidir")
+        got = run()
+        ref = scan_ops.selective_scan_bidir_shared_plain(*a)
+        torch.cuda.synchronize()
+        rel = max(chip_smoke.rel_err(got, ref)[1],
+                  chip_smoke.rel_err(got, bidir())[1])
+        good = (rel <= chip_smoke.TOL[("selective_scan_bidir_shared",
+                                       "bfloat16")]
+                and bool(torch.isfinite(got.float()).all()))
+        ok &= good
+        nbytes = chip_smoke._nbytes(*a) + u.numel() * u.element_size()
+        rec = {"ms": chip_smoke.time_ms(run), "rel": rel,
+               "bound_ms": scan_bound_ms(
+                   nbytes, scan_ops.scan_flops(**shape, streams=2)),
+               "ex2_floor_ms": ex2_floor_ms(2 * u.numel() * s["N"]),
+               "device": device_ms(run, ("scan_bidir",)),
+               "bidir_ms": chip_smoke.time_ms(bidir),
+               "bidir_device": device_ms(bidir, ("scan_bidir",
+                                                 "elementwise"))}
+        if plan_of:
+            rec["route"] = plan_of(*shape.values(), 2,
+                                   scan_ops._on_16_byte_grid(u, dtf, dtb)
+                                   )["route"]
+        key = f"selective_scan_bidir_shared {tuple(shape.values())} bf16"
+        out[key] = rec
+        print(f"{key}: {rec} {'ok' if good else 'FAILED'}", flush=True)
+        del u, dtf, dtb, Bm, Cm, a, got, ref
+        torch.cuda.empty_cache()
+    return ok
+
+
+def blocks_cases(out: dict) -> bool:
+    """Rows 8 and 10 at their served shapes in bf16 with the sequences a
+    block overridden (the plans patched), device ms over 20 calls and the
+    error against the plain version; skipped for a checkout without row
+    10's plan."""
+    short = scan_ops._short_scan_plan
+    shared = getattr(scan_ops, "_shared_scan_plan", None)
+    if shared is None:
+        return True
+    ok, tol = True, 1e-2
+    rec = {}
+    s = chip_smoke.SCAN_SHAPES["selective_scan_short_nostate"]
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 7)
+    a = chip_smoke._scan_inputs(torch.bfloat16, gen, **s)
+    ref, _ = scan_ops.selective_scan_plain(*a)
+    run = lambda: scan_ops.selective_scan_pallas_short(  # noqa: E731
+        *a, need_state=False)
+    try:
+        for seqs in (0, 1, 2):
+            scan_ops._short_scan_plan = (lambda *x, seqs=seqs, **k:
+                                         dict(short(*x, **k), seqs=seqs))
+            rel = chip_smoke.rel_err(run()[0], ref)[1]
+            ok &= rel <= tol
+            rec[f"row8 seqs{seqs}"] = (
+                round(device_ms(run, ("scan_short",), iters=20)["sum"], 4),
+                rel)
+    finally:
+        scan_ops._short_scan_plan = short
+    del a, ref
+    for si, cands in ((0, (1, 2, 4)), (1, (2, 4))):
+        sh = chip_smoke.SHARED_SHAPES[si]
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 10
+                                                         + si)
+        u, dtf, Af, Bm, Cm, Df = chip_smoke._scan_inputs(torch.bfloat16, gen,
+                                                         **sh)
+        dtb = torch.nn.functional.softplus(
+            torch.randn(u.shape, generator=gen, device="cuda") * 0.5
+            - 2.0).to(torch.bfloat16)
+        sa = (u, dtf, dtb, Af, Af.flip(1), Bm, Cm, Df, Df.flip(0))
+        ref = scan_ops.selective_scan_bidir_shared_plain(*sa)
+        run = lambda: scan_ops.selective_scan_bidir_shared(  # noqa: E731
+            *sa, impl="bmajor")
+        try:
+            for seqs in cands:
+                scan_ops._shared_scan_plan = (lambda *x, seqs=seqs:
+                                              dict(shared(*x), seqs=seqs))
+                rel = chip_smoke.rel_err(run(), ref)[1]
+                ok &= rel <= tol
+                rec[f"row10 N{sh['N']} seqs{seqs}"] = (
+                    round(device_ms(run, ("scan_bidir",), iters=20)["sum"],
+                          4), rel)
+        finally:
+            scan_ops._shared_scan_plan = shared
+        rec[f"row6+add N{sh['N']}"] = round(device_ms(
+            lambda: scan_ops.selective_scan_bidir_shared(*sa, impl="bidir"),
+            ("scan_bidir", "elementwise"), iters=20)["sum"], 4)
+        del u, dtf, dtb, Bm, Cm, sa, ref
+        torch.cuda.empty_cache()
+    out["blocks"] = rec
+    print(f"blocks: {rec} {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_kernels: needs a CUDA card", file=sys.stderr)
@@ -383,6 +545,10 @@ def main() -> int:
             ok &= conv_cases(out)
         if "bidir" in ONLY:
             ok &= bidir_cases(out)
+        if "shared" in ONLY:
+            ok &= shared_cases(out)
+        if "blocks" in ONLY:
+            ok &= blocks_cases(out)
     print(json.dumps({"tag": args.tag, "device": smi, "ok": ok,
                       "cases": out}))
     return 0 if ok else 1

@@ -35,7 +35,8 @@ from video_enhancer_tpu_torch.ops.conv import (_dwconv_plan, _dwconv_smem,
                                                depthwise_conv1d_silu_plain)
 from video_enhancer_tpu_torch.ops.scan import (
     _FUSED_INSTANCES, _bidir_plan, _bidir_smem, _fused_bissm_plan,
-    _fused_smem, _short_scan_plan, _tile_smem,
+    _fused_smem, _on_16_byte_grid, _shared_scan_plan, _short_scan_plan,
+    _tile_smem,
     fused_bidir_ssm_kernel, fused_bidir_ssm_plain, selective_scan,
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
@@ -692,6 +693,77 @@ def test_scan_short_smem_mirrors_the_kernel(cuda, dtype, L, D, N):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
+@pytest.mark.parametrize("strided,offset", [(False, 0), (True, 8),
+                                            (True, 3)])
+@pytest.mark.parametrize("N", [9, 12, 16])
+@pytest.mark.parametrize("L", [1, 7, 16, 32, 33])
+@pytest.mark.parametrize("D", [128, 48])
+def test_scan_short_n16_kernel_matches_plain(cuda, dtype, strided, offset, N,
+                                             L, D):
+    """Row 8 at N 9-16 across its tile kernel's L bounds (16, 32; 33 takes
+    the walking kernel), B odd against the sequences a block (one at D 128,
+    two at D 48), x dense and a column slice 8 columns in (16-byte copies),
+    and 3 columns in, where the copies cannot run and the walking kernel
+    takes the call; B and C column slices of one projection."""
+    B = 301
+    x, dt, A, Bm, Cm, Dv = _scan_inputs(cuda, dtype, B, L, D, N, seed=L + N,
+                                        strided=strided, offset=offset)
+    aligned = offset * x.element_size() % 16 == 0
+    plan = _short_scan_plan(B, L, D, N, x.element_size(), aligned,
+                            state=False)
+    assert plan["route"] == ("tile_n16" if L <= 32 and aligned else "walk")
+    before = kernels.launch_counts["selective_scan_short_nostate"]
+    y, h = selective_scan_pallas_short(x, dt, A, Bm, Cm, Dv, need_state=False)
+    y_p, _ = selective_scan_plain(x, dt, A, Bm, Cm, Dv)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_short_nostate"] == before + 1
+    assert h is None and y.dtype == dtype and y.shape == (B, L, D)
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_scan_short_n16_kernel_at_the_served_shape(cuda, dtype):
+    """Row 8 as ``ssm_apply`` per pixel hands it (57600, 7, 128, N 16): u
+    the first half of a 256-wide in_proj output (a column slice at offset
+    0), dt dense, B and C slices of one x_proj output after a dt_rank of 8;
+    on its tile kernel, one channel a thread."""
+    B, L, D, N, rank = 57600, 7, 128, 16, 8
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    u = torch.randn((B, L, 2 * D), generator=gen, device=cuda).to(dtype)[
+        ..., :D]
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, D), generator=gen, device=cuda) * 0.5 - 2).to(dtype)
+    proj = torch.randn((B, L, rank + 2 * N), generator=gen,
+                       device=cuda).to(dtype)
+    Bm, Cm = proj[..., rank:rank + N], proj[..., rank + N:]
+    A = -torch.arange(1, N + 1, device=cuda).float() * torch.exp(
+        0.3 * torch.randn((D, 1), generator=gen, device=cuda))
+    Dv = 0.5 * torch.randn((D,), generator=gen, device=cuda)
+    plan = _short_scan_plan(B, L, D, N, u.element_size(),
+                            _on_16_byte_grid(u, dt), state=False)
+    assert (plan["route"], plan["seqs"]) == ("tile_n16", 1)
+    y, _ = selective_scan_pallas_short(u, dt, A, Bm, Cm, Dv, need_state=False)
+    y_p, _ = selective_scan_plain(u, dt, A, Bm, Cm, Dv)
+    torch.cuda.synchronize()
+    assert _rel(y, y_p) <= SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D,N", [(7, 128, 16), (32, 256, 9), (1, 8, 12),
+                                   (16, 96, 16)])
+def test_scan_short_n16_smem_mirrors_the_kernel(cuda, dtype, L, D, N):
+    item = torch.finfo(dtype).bits // 8
+    plan = _short_scan_plan(1000, L, D, N, item, True, state=False)
+    assert plan["route"] == "tile_n16"
+    code = kernels.dtype_code(torch.empty(0, dtype=dtype))
+    assert kernels.library().vetk_selective_scan_short_smem(
+        code, L, D, N, plan["seqs"]) == _tile_smem(L, D, N, item,
+                                                   plan["seqs"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("B,L,D,N", SCAN_SMALL + [(57600, 7, 128, 4)])
 def test_scan_bidir_kernel_matches_plain(cuda, dtype, shared, B, L, D, N):
@@ -960,6 +1032,82 @@ def test_scan_bidir_shared_kernel_matches_plain(cuda, dtype, B, L, D, N):
     # a kernel that dropped the backward direction would fail the check
     yf, _ = selective_scan_plain(u, dtf, Af, Bm, Cm, Df)
     assert _rel(yf, ref) > 5 * SCAN_TOL[dtype]
+
+
+def _shared_inputs(cuda, dtype, B, L, D, N, rank, seed):
+    """Row 10's operands as the composed bissm passes them: u and both dt
+    dense, B and C column slices of one x_proj output after ``rank``
+    columns of dt; each direction its own A and D."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    u = rnd(B, L, D).to(dtype)
+    dtf, dtb = (torch.nn.functional.softplus(rnd(B, L, D, scale=0.5) - 2)
+                .to(dtype) for _ in range(2))
+    proj = rnd(B, L, rank + 2 * N).to(dtype)
+    Bm, Cm = proj[..., rank:rank + N], proj[..., rank + N:]
+    Af, Ab = (-torch.arange(1, N + 1, device=cuda).float()
+              * torch.exp(rnd(D, 1, scale=0.3)) for _ in range(2))
+    return u, dtf, dtb, Af, Ab, Bm, Cm, rnd(D, scale=0.5), rnd(D, scale=0.5)
+
+
+def _check_shared(args, dtype, route):
+    u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db = args
+    plan = _shared_scan_plan(*u.shape, Af.shape[1], u.element_size(),
+                             _on_16_byte_grid(u, dtf, dtb))
+    assert plan["route"] == route
+    before = kernels.launch_counts["selective_scan_bidir_shared"]
+    y = selective_scan_bidir_shared(*args, impl="bmajor")
+    ref = selective_scan_bidir_shared_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["selective_scan_bidir_shared"] == before + 1
+    assert y.dtype == dtype and y.shape == u.shape
+    assert _rel(y, ref) <= SCAN_TOL[dtype]
+    assert _rel(y, selective_scan_bidir_shared(*args, impl="bidir")) <= \
+        SCAN_TOL[dtype]
+    # a kernel that dropped the backward direction would fail the check
+    yf, _ = selective_scan_plain(u, dtf, Af, Bm, Cm, Df)
+    assert _rel(yf, ref) > 5 * SCAN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("L", [1, 2, 7, 8, 9, 16, 17, 32, 33])
+def test_scan_bidir_sum_kernel_matches_plain(cuda, dtype, N, L):
+    """Row 10's tile kernel across its L bounds (8, 16, 32; 33 takes the
+    workspace kernel) and N 1-8 at D 128, B odd against the sequences a
+    block, B and C slices after a dt_rank of 3; against the plain version
+    and row 6 (``impl="bidir"``), with the control."""
+    args = _shared_inputs(cuda, dtype, 301, L, 128, N, 3, seed=L + N)
+    _check_shared(args, dtype, "tile_sum" if L <= 32 else "workspace")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,L,D,N,rank", [(57600, 7, 128, 4, 4),
+                                          (57600, 16, 96, 8, 3)])
+def test_scan_bidir_sum_kernel_at_the_served_shapes(cuda, dtype, B, L, D, N,
+                                                    rank):
+    """Row 10 at vsrm's composed bissm (B and C 4-wide slices after a
+    dt_rank of 4) and fast_mamba_vsr's (8-wide after 3): its tile kernel."""
+    args = _shared_inputs(cuda, dtype, B, L, D, N, rank, seed=B + L)
+    _check_shared(args, dtype, "tile_sum")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D,N", [(7, 128, 4), (16, 96, 8), (1, 8, 1),
+                                   (32, 256, 8)])
+def test_scan_bidir_shared_smem_mirrors_the_kernel(cuda, dtype, L, D, N):
+    item = torch.finfo(dtype).bits // 8
+    plan = _shared_scan_plan(1000, L, D, N, item, True)
+    assert plan["route"] == "tile_sum"
+    code = kernels.dtype_code(torch.empty(0, dtype=dtype))
+    assert kernels.library().vetk_selective_scan_bidir_shared_smem(
+        code, L, D, N, plan["seqs"]) == _bidir_smem(L, D, N, item,
+                                                    plan["seqs"], True, True)
 
 
 def test_scan_bidir_shared_rejects_what_it_does_not_take(cuda):

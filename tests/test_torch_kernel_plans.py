@@ -18,8 +18,9 @@ the two against each other.
 at P a multiple of 16 up to 64, H * P <= 128, N <= 16; CUDA cores
 otherwise) and the chunks a block walks, so that the blocks fill one wave;
 ``ops.scan._short_scan_plan`` picks the short scan's kernel (the tile
-kernel up to L 32, N 8 and D 512 where x and dt lie on the 16-byte grid,
-the walking kernel otherwise), its
+kernel up to L 32, N 8 and D 512 where x and dt lie on the 16-byte grid;
+without state at N 9-16 and D <= 256 its sibling with one channel a
+thread; the walking kernel otherwise), its
 instance and the sequences a block. ``_ssd_smem`` and ``_tile_smem``
 mirror the CUDA sources' sums, held against them on the card.
 
@@ -32,9 +33,12 @@ windows a block); its sum is held against the CUDA source on the card.
 wave of persistent blocks); ``ops.scan._bidir_plan`` picks the
 bidirectional scan's kernel (the tile kernel up to L 32, N 8 and D 512
 where both streams' x and dt lie on the 16-byte grid, reading x, B and C
-once when the streams share them; the walking kernel otherwise).
-``_dwconv_smem`` and ``_bidir_smem`` mirror the CUDA sources' sums, held
-against them on the card.
+once when the streams share them; the walking kernel otherwise);
+``ops.scan._shared_scan_plan`` picks the shared bidirectional scan's
+(row 10: the same tile kernel with a summing epilogue where row 6's would
+take the streams shared, the register kernel up to L 32 otherwise, the
+workspace kernel beyond). ``_dwconv_smem`` and ``_bidir_smem`` mirror the
+CUDA sources' sums, held against them on the card.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from video_enhancer_tpu_torch.ops.scan import (_FUSED_INSTANCES, _bidir_plan,
                                                _bidir_smem, _fused_bissm_plan,
                                                _fused_instance, _fused_smem,
                                                _on_16_byte_grid, _same_view,
+                                               _shared_scan_plan,
                                                _short_scan_plan, _tile_smem)
 from video_enhancer_tpu_torch.ops.ssd import _ssd_plan, _ssd_smem
 
@@ -406,14 +411,90 @@ def test_short_scan_plan_fits_a_block_over_the_domain(B, L, D, N, item,
 def test_short_scan_plan_at_the_served_shapes():
     """Row 7 at the sharded fast_mamba_vsr's (57600, 16, 96, 8): the tile
     kernel, two sequences (96 threads, three full warps) a block; row 8 at
-    the per-pixel (57600, 7, 128, 16) keeps the walking kernel (N 16)."""
+    the per-pixel (57600, 7, 128, 16) takes its tile kernel with one channel
+    a thread, a sequence (128 threads) a group, two stages of x and dt
+    tiles and B and C chunks (80 bytes a row each) and B and C 32 wide as
+    fp32, eight blocks an SM by their 64 registers, one wave of 1056
+    persistent blocks on 132 SMs; row 7 at N 16 keeps the walking
+    kernel."""
     fmv = _short_scan_plan(57600, 16, 96, 8, 2, True)
     assert (fmv["route"], fmv["seqs"], fmv["threads"], fmv["grid"]) == (
         "tile", 2, 96, (28800,))
     assert (fmv["lmax"], fmv["nmax"], fmv["smem"]) == (16, 8, 14336)
-    pix = _short_scan_plan(57600, 7, 128, 16, 2, True)
-    assert (pix["route"], pix["grid"], pix["threads"]) == (
-        "walk", (57600, 1), 128)
+    pix = _short_scan_plan(57600, 7, 128, 16, 2, True, state=False)
+    assert (pix["route"], pix["seqs"], pix["threads"], pix["grid"]) == (
+        "tile_n16", 1, 128, (1056,))
+    assert (pix["lmax"], pix["nmax"], pix["smem"]) == (16, 16, 10304)
+    assert 10304 == 2 * 7 * (2 * 128 * 2 + 2 * 80) + 7 * 32 * 4
+    assert pix["blocks_per_sm"] == 8
+    with_state = _short_scan_plan(57600, 7, 128, 16, 2, True)
+    assert (with_state["route"], with_state["grid"],
+            with_state["threads"]) == ("walk", (57600, 1), 128)
+
+
+_nostate_domain = dict(B=st.integers(1, 1 << 20), L=st.integers(1, 33),
+                       D=st.integers(1, 1024), N=st.integers(1, 16),
+                       item=st.sampled_from([2, 4]), aligned=st.booleans())
+
+
+@FAST
+@given(**_nostate_domain)
+def test_nostate_scan_plan_fits_a_block_over_the_domain(B, L, D, N, item,
+                                                        aligned):
+    """Row 8: every tile route stays within 256 threads and a block's
+    shared memory; N 9-16 takes the kernel with one channel a thread (D
+    threads a sequence), N <= 8 the one with two, each with the fewest
+    sequences that fill whole warps; the walking kernel only where no tile
+    route can run."""
+    plan = _short_scan_plan(B, L, D, N, item, aligned, state=False)
+    tps = D if N > 8 else -(-D // 2)
+    if plan["route"] == "walk":
+        assert plan["seqs"] == 0
+        assert (L > 32 or tps > 256 or not aligned or D * item % 16
+                or _tile_smem(L, D, N, item, 1) > SMEM_BLOCK)
+        return
+    assert plan["route"] == ("tile_n16" if N > 8 else "tile")
+    seqs = plan["seqs"]
+    assert L <= 32 and aligned and D * item % 16 == 0 and 1 <= seqs <= B
+    assert plan["threads"] == seqs * tps <= 256
+    assert plan["nmax"] == (4 if N <= 4 else 8 if N <= 8 else 16)
+    assert N <= plan["nmax"] and L <= plan["lmax"]
+    assert plan["smem"] == _tile_smem(L, D, N, item, seqs) <= SMEM_BLOCK
+    if N > 8:
+        # one wave of persistent blocks that fit an SM at 64 registers
+        per_sm = plan["blocks_per_sm"]
+        warps = -(-plan["threads"] // 32)
+        assert per_sm >= 1 and per_sm * warps * 32 * 64 <= 65536
+        assert per_sm * warps <= 64 and per_sm * (plan["smem"] + 1024) <= SMEM_SM
+        assert plan["grid"] == (min(-(-B // seqs), per_sm * 132),)
+    else:
+        assert plan["grid"] == (-(-B // seqs),)
+    if seqs * tps % 32 == 0:
+        # the fewest whole-warp sequences a block
+        assert not [c for c in range(1, seqs) if c * tps % 32 == 0]
+
+
+@pytest.mark.parametrize("L,D,N,item,aligned,route", [
+    (7, 128, 16, 2, True, "tile_n16"), (7, 128, 9, 2, True, "tile_n16"),
+    (32, 128, 12, 4, True, "tile_n16"), (1, 8, 16, 2, True, "tile_n16"),
+    (7, 256, 16, 2, True, "tile_n16"), (33, 128, 16, 2, True, "walk"),
+    (7, 128, 16, 2, False, "walk"), (7, 130, 16, 2, True, "walk"),
+    (7, 264, 16, 2, True, "walk"), (7, 128, 8, 2, True, "tile")])
+def test_nostate_scan_plan_picks_the_kernel(L, D, N, item, aligned, route):
+    """Row 8: its tile kernel with one channel a thread at N 9-16 up to L
+    32 and D 256 where x and dt lie on the 16-byte grid (x off it, e.g. a
+    slice 3 columns in, walks); L 33 walks; N <= 8 keeps the kernel with
+    two channels a thread."""
+    plan = _short_scan_plan(1000, L, D, N, item, aligned, state=False)
+    assert plan["route"] == route
+    if route == "tile_n16":
+        assert plan["lmax"] == (16 if L <= 16 else 32)
+        assert plan["nmax"] == 16
+
+
+def test_nostate_scan_plan_refuses_n_17():
+    with pytest.raises(ValueError, match="kernel takes N <= 16"):
+        _short_scan_plan(57600, 7, 128, 17, 2, True, state=False)
 
 
 @pytest.mark.parametrize("L,D,N,route", [
@@ -668,3 +749,93 @@ def test_bidir_smem_is_the_kernels():
 def test_bidir_plan_refuses_past_the_bounds(B, L, D, N):
     with pytest.raises(ValueError, match="kernel takes N <= 16"):
         _bidir_plan(B, L, D, N, 2, True, True)
+
+
+# --------------------------------------------------------------------------
+# shared bidirectional scan (row 10)
+# --------------------------------------------------------------------------
+
+@FAST
+@given(B=st.integers(1, 1 << 20), L=st.integers(1, 33),
+       D=st.integers(1, 1024), N=st.integers(1, 16),
+       item=st.sampled_from([2, 4]), aligned=st.booleans())
+def test_shared_scan_plan_fits_a_block_over_the_domain(B, L, D, N, item,
+                                                       aligned):
+    """Row 10: the tile route stays within 256 threads and a block's shared
+    memory (its fp32 tile counted), with the fewest sequences a block that
+    fill whole warps and at least 96 threads where one fits; the register
+    kernel up to L 32 and the workspace kernel beyond, a block a sequence,
+    take the rest."""
+    plan = _shared_scan_plan(B, L, D, N, item, aligned)
+    if plan["route"] != "tile_sum":
+        assert plan["route"] == ("register" if L <= 32 else "workspace")
+        assert plan["seqs"] == 0 and plan["smem"] == 0
+        assert plan["threads"] <= 256 and plan["grid"][0] == B
+        assert plan["grid"][1] * plan["threads"] >= D
+        return
+    seqs = plan["seqs"]
+    assert L <= 32 and N <= 8 and D % 2 == 0 and aligned
+    assert D * item % 16 == 0 and 1 <= seqs <= B
+    assert plan["threads"] == seqs * D // 2 <= 256
+    assert plan["smem"] == _bidir_smem(L, D, N, item, seqs, True, True)
+    assert plan["smem"] <= SMEM_BLOCK
+    assert plan["grid"] == (-(-B // seqs),)
+    if seqs * D // 2 < 96:
+        # fewer than three warps only where no whole-warp block of 96
+        # threads or more fits
+        assert not [c for c in range(1, min(512 // D, B) + 1)
+                    if c * D // 2 % 32 == 0 and c * D // 2 >= 96
+                    and _bidir_smem(L, D, N, item, c, True, True)
+                    <= SMEM_BLOCK]
+    row6 = _bidir_plan(B, L, D, N, item, aligned, True, summed=True)
+    assert (row6["route"], row6["seqs"]) == ("tile", seqs)
+
+
+def test_shared_scan_plan_at_the_served_shapes():
+    """vsrm's composed bissm (57600, 7, 128, N 4): two sequences (128
+    threads) a block, per sequence u and both dt tiles, one B/C set and the
+    fp32 tile (7 rows of 128); fast_mamba_vsr's (57600, 16, 96, N 8): two
+    sequences (96 threads, three whole warps) a block, where row 6's plan
+    takes four (192 threads)."""
+    vsrm = _shared_scan_plan(57600, 7, 128, 4, 2, True)
+    assert (vsrm["route"], vsrm["seqs"], vsrm["threads"], vsrm["grid"]) == (
+        "tile_sum", 2, 128, (28800,))
+    assert (vsrm["nmax"], vsrm["smem"]) == (4, 18368) and "lmax" not in vsrm
+    assert 18368 == 2 * (3 * 7 * 128 * 2 + 7 * 8 * 4 + 7 * 128 * 4)
+    fmv = _shared_scan_plan(57600, 16, 96, 8, 2, True)
+    assert (fmv["route"], fmv["seqs"], fmv["threads"], fmv["grid"]) == (
+        "tile_sum", 2, 96, (28800,))
+    assert (fmv["nmax"], fmv["smem"]) == (8, 32768)
+    assert 32768 == 2 * (3 * 16 * 96 * 2 + 16 * 16 * 4 + 16 * 96 * 4)
+    assert _bidir_plan(57600, 16, 96, 8, 2, True, True)["seqs"] == 4
+
+
+@pytest.mark.parametrize("L,D,N,item,aligned,route", [
+    (7, 128, 4, 2, True, "tile_sum"), (16, 96, 8, 2, True, "tile_sum"),
+    (1, 8, 1, 4, True, "tile_sum"), (32, 128, 8, 2, True, "tile_sum"),
+    (33, 128, 4, 2, True, "workspace"), (7, 128, 4, 2, False, "register"),
+    (16, 96, 8, 2, False, "register"), (7, 128, 9, 2, True, "register"),
+    (7, 128, 16, 2, True, "register"), (7, 130, 4, 2, True, "register"),
+    (7, 520, 4, 2, True, "register"), (40, 64, 8, 2, True, "workspace")])
+def test_shared_scan_plan_picks_the_kernel(L, D, N, item, aligned, route):
+    """Row 10: the tile kernel up to L 32, N 8 and D 512 with u and both dt
+    on the 16-byte grid (off it, as a slice 3 columns in, or at N 9-16 the
+    register kernel); past L 32 the workspace kernel."""
+    assert _shared_scan_plan(1000, L, D, N, item, aligned)["route"] == route
+
+
+def test_shared_scan_smem_adds_the_fp32_tile():
+    """Row 10's shared memory is row 6's for shared streams plus an fp32
+    tile of L rows of D rounded up to 8, per sequence."""
+    for L, D, N, item, seqs in ((7, 128, 4, 2, 2), (16, 96, 8, 2, 4),
+                                (32, 95, 3, 4, 1)):
+        assert _bidir_smem(L, D, N, item, seqs, True, True) == (
+            _bidir_smem(L, D, N, item, seqs, True)
+            + seqs * L * _up(D, 8) * 4)
+
+
+@pytest.mark.parametrize("B,L,D,N", [(10, 8, 16, 17), (0, 8, 16, 4),
+                                     (10, 0, 16, 4), (10, 8, 0, 4)])
+def test_shared_scan_plan_refuses_past_the_bounds(B, L, D, N):
+    with pytest.raises(ValueError, match="kernel takes N <= 16"):
+        _shared_scan_plan(B, L, D, N, 2, True)

@@ -205,6 +205,30 @@ def test_bidir_shared_bmajor_matches_pallas(L):
     _close(tscan.selective_scan_bidir_shared_plain(*targs), want)
 
 
+def test_bidir_shared_bmajor_matches_pallas_at_fast_mamba_vsr_layout():
+    """Row 10 in interpret mode at fast_mamba_vsr's layout, cut in B and D:
+    N 8, L 16, B and C the 8-wide column slices of one x_proj output after
+    a dt_rank of 3 (19 wide), a ragged batch (70 against the TPU kernel's
+    block of 64)."""
+    B, L, D, N, rank = 70, 16, 24, 8, 3
+    a = _inputs(B, L, D, N, seed=8, state=False)
+    g = np.random.default_rng(9)
+    dtb = g.uniform(0.01, 0.3, (B, L, D)).astype(np.float32)
+    Ab = -g.uniform(0.1, 1.0, (D, N)).astype(np.float32)
+    Db = g.standard_normal(D).astype(np.float32)
+    proj = g.standard_normal((B, L, rank + 2 * N)).astype(np.float32)
+    Bm, Cm = proj[..., rank:rank + N], proj[..., rank + N:]
+    args = (a["x"], a["dt"], dtb, a["A"], Ab, Bm, Cm, a["D"], Db)
+    want = jscan.selective_scan_bidir_shared(*map(jnp.asarray, args),
+                                             interpret=True, impl="bmajor")
+    tp = torch.from_numpy(proj)
+    targs = [torch.from_numpy(v) for v in args]
+    targs[5], targs[6] = tp[..., rank:rank + N], tp[..., rank + N:]
+    got = tscan.selective_scan_bidir_shared(*targs, impl="bmajor")
+    assert got.shape == (B, L, D) and targs[5].stride(1) == rank + 2 * N
+    _close(got, want)
+
+
 @pytest.mark.parametrize("B,L,D,N,state", [(2, 100, 16, 4, True),
                                            (3, 257, 8, 16, False)])
 def test_long_scan_matches_pallas(B, L, D, N, state):

@@ -40,8 +40,9 @@
 //   h_last are read and written in place in their (B, D, N) layout, 16
 //   bytes a load. exp(dt A) is one ex2 on A pre-scaled by log2 e. 57600
 //   blocks at the served shapes fill the card. This walking kernel serves
-//   the shapes the tile kernels below do not take. Row 7 (and row 8 up to
-//   N 8) has a tile kernel; row 6 has its own (scan_bidir_tile_kernel: both
+//   the shapes the tile kernels below do not take. Rows 7 and 8 up to N 8
+//   have a tile kernel, row 8 at N 9-16 a sibling with one channel a
+//   thread (scan_short_n16_kernel); row 6 has its own (scan_bidir_tile_kernel: both
 //   streams' loads before the first step, both directions in one loop, x, B
 //   and C read once when the streams share them, as
 //   selective_scan_bidir_shared passes u, B and C twice). Its walking
@@ -67,10 +68,15 @@
 //   the exps: the scan's joins and the states split across warps (for
 //   enough warps an SM) cost ~16 instructions an element, the walks ~5.5
 //   each (PERF.md, PR 11).
-// - row 10: as row 6, but B_t and C_t of all L steps are staged once for
-//   both directions, u is read from device memory once (the backward pass
-//   reads the block's few-KB slab again from L1), and the forward pass keeps
-//   its y in registers as fp32 for the backward pass to add to. The loops
+// - row 10: up to L 32 and N 8 with u and both dt on the 16-byte grid, row
+//   6's tile kernel on the shared streams with the directions in turn and a
+//   summing epilogue (scan_bidir_sum_kernel: one output, the sum in fp32,
+//   cast once). Other
+//   shapes take a register kernel: as row 6's walking kernel, but B_t and
+//   C_t of all L steps are staged once for both directions, u is read from
+//   device memory once (the backward pass reads the block's few-KB slab
+//   again from L1), and the forward pass keeps its y in registers as fp32
+//   for the backward pass to add to. The loops
 //   are unrolled to compile-time bounds (LMAX >= L up to SHARED_MAX_L, NMAX
 //   >= N), so the registers hold only the states the shape needs: 55-64
 //   registers and 8 blocks an SM at the served shapes (holding u in
@@ -290,9 +296,10 @@ scan_short_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
 // registers, B and C into registers eight at a time and then to shared
 // memory as fp32; the steps read x and dt as pairs from shared memory, y
 // takes x's place there and leaves in 16-byte stores. exp(dt A) is one
-// ex2.approx.ftz on A pre-scaled by log2 e. Larger N keeps the kernel that
-// walks any L (two channels a thread at N 16 held 2x the registers and ran
-// slower than it). At the sharded fast_mamba_vsr's shape the steps alone
+// ex2.approx.ftz on A pre-scaled by log2 e. Larger N takes the kernel that
+// walks any L (row 7) or scan_short_n16_kernel, one channel a thread (row
+// 8; two channels a thread at N 16 held 2x the registers and ran slower
+// than the walking kernel). At the sharded fast_mamba_vsr's shape the steps alone
 // take ~0.26 ms (the exps' floor is 0.19) and the loads alone ~0.22, and a
 // block's loads do not overlap its steps; a persistent version that loaded
 // the next group under the current group's steps held 104-143 registers
@@ -399,22 +406,14 @@ __device__ __forceinline__ void stage_bc_tile(const Operands& o, long b0, int ns
   }
 }
 
-template <typename T, bool kState, int LMAX, int NMAX>
-__global__ void __launch_bounds__(TILE_THREADS)
-scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
-                       float* __restrict__ hlast, long Bsz, int L, int D, int N,
-                       int seqs) {
-  extern __shared__ __align__(16) char smem[];
+// x and dt of the block's nseq sequences, all L steps, into the tiles xs and
+// ds (rows of Dp) by 16-byte cp.async; the caller commits.
+template <typename T>
+__device__ __forceinline__ void copy_x_dt(const Operands& o, long b0, int nseq, int L,
+                                          int D, int Dp, T* xs, T* ds) {
   constexpr int SEG = 16 / sizeof(T);   // elements a 16-byte copy
-  const int Dp = tile_ld(D), tps = (D + 1) / 2;
-  T* xs = reinterpret_cast<T*>(smem);
-  T* ds = xs + (size_t)seqs * L * Dp;
-  float* bc = reinterpret_cast<float*>(ds + (size_t)seqs * L * Dp);
-  const long b0 = (long)blockIdx.x * seqs;
-  const int nseq = (int)min((long)seqs, Bsz - b0);
   const T* __restrict__ xg = static_cast<const T*>(o.x);
   const T* __restrict__ dg = static_cast<const T*>(o.dt);
-
   const int segs = D / SEG;
   for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
     const int row = i / segs, c = (i - row * segs) * SEG;
@@ -423,6 +422,36 @@ scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__
     cp_async16(xs + (size_t)row * Dp + c, xg + b * o.sbx + t * o.slx + c);
     cp_async16(ds + (size_t)row * Dp + c, dg + b * o.sbdt + t * o.sldt + c);
   }
+}
+
+// The block's y tile (nseq * L rows of Dp at ys) out in 16-byte stores: its
+// rows are contiguous in (B, L, D).
+template <typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ y, const T* ys, long b0,
+                                           int nseq, int L, int D, int Dp) {
+  constexpr int SEG = 16 / sizeof(T);
+  const int segs = D / SEG;
+  T* yb = y + b0 * L * D;
+  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
+    const int row = i / segs, c = (i - row * segs) * SEG;
+    *reinterpret_cast<uint4*>(yb + (size_t)row * D + c) =
+        *reinterpret_cast<const uint4*>(ys + (size_t)row * Dp + c);
+  }
+}
+
+template <typename T, bool kState, int LMAX, int NMAX>
+__global__ void __launch_bounds__(TILE_THREADS)
+scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__ y,
+                       float* __restrict__ hlast, long Bsz, int L, int D, int N,
+                       int seqs) {
+  extern __shared__ __align__(16) char smem[];
+  const int Dp = tile_ld(D), tps = (D + 1) / 2;
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ds = xs + (size_t)seqs * L * Dp;
+  float* bc = reinterpret_cast<float*>(ds + (size_t)seqs * L * Dp);
+  const long b0 = (long)blockIdx.x * seqs;
+  const int nseq = (int)min((long)seqs, Bsz - b0);
+  copy_x_dt<T>(o, b0, nseq, L, D, Dp, xs, ds);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   const int sq = threadIdx.x / tps, d = 2 * (threadIdx.x - sq * tps);
   const bool live = sq < nseq, two = d + 1 < D;
@@ -463,17 +492,139 @@ scan_short_tile_kernel(Operands o, const float* __restrict__ h0, T* __restrict__
     }
   }
   __syncthreads();
-
-  // y: the block's nseq * L rows are contiguous in (B, L, D)
-  T* yb = y + b0 * L * D;
-  for (int i = threadIdx.x; i < nseq * L * segs; i += blockDim.x) {
-    const int row = i / segs, c = (i - row * segs) * SEG;
-    *reinterpret_cast<uint4*>(yb + (size_t)row * D + c) =
-        *reinterpret_cast<const uint4*>(xs + (size_t)row * Dp + c);
-  }
+  store_tile<T>(y, xs, b0, nseq, L, D, Dp);
   if (kState && live) {
     store_row<NMAX>(h0r, N, hlast + ((size_t)b * D + d) * N);
     if (two) store_row<NMAX>(h1r, N, hlast + ((size_t)b * D + d + 1) * N);
+  }
+}
+
+// Row 8 at L <= LMAX (16 or 32) and 8 < N <= 16, x and dt on the 16-byte
+// grid: one channel a thread (D threads a sequence, `seqs` sequences a
+// group, one at D 128) in persistent blocks that walk groups blockIdx.x,
+// + gridDim.x, ... through two stages of shared memory: the next group's x
+// and dt (16-byte cp.async) and the 16-byte chunks that hold its B and C
+// rows (column slices of x_proj, at any offset) are in flight while the
+// current group steps. B and C then go to shared memory as fp32, 16 wide;
+// A's row times log2 e and D stay in registers for every group; every
+// state past N is zero (A, B and C padded), so the steps walk all 16
+// without a guard; y takes x's place and leaves in 16-byte stores. 64
+// registers (launch bounds for four blocks of 256 threads): eight blocks of
+// 128 threads an SM. On an H100 at the per-pixel shape (57600, 7, 128, 16,
+// bf16) it read 0.398 ms of device time against 0.486 for one stage (a
+// block a group: its loads alone 0.17, its steps alone 0.41) and 0.539 for
+// the walking kernel. The steps bound it: 0.41 ms with the exps or with
+// FMAs in their place, twice the 826 M exps' 0.2 ms; without the B and C
+// reads from shared memory 0.375. Grid min(groups, blocks an SM x SMs);
+// blockDim seqs * D.
+constexpr int BC_RAW = 80;   // bytes of a B or C row's chunks: 16 fp32 at any offset
+
+// Bytes of a stage (x and dt tiles, then each row's B and C chunks) and of
+// the kernel's shared memory (two stages, then B and C as fp32, 2 * MAX_N a
+// step); ops/scan.py _tile_smem mirrors the sum.
+__host__ __device__ inline int n16_stage(int item, int L, int D, int seqs) {
+  return seqs * L * (2 * tile_ld(D) * item + 2 * BC_RAW);
+}
+__host__ __device__ inline int n16_smem(int item, int L, int D, int seqs) {
+  return 2 * n16_stage(item, L, D, seqs) + seqs * L * 2 * MAX_N * 4;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* bc_row(const Operands& o, long b, int t, int c) {
+  return c ? static_cast<const T*>(o.C) + b * o.sbc + t * o.slc
+           : static_cast<const T*>(o.B) + b * o.sbb + t * o.slb;
+}
+
+// The 16-byte chunks that hold B and C of the group's nseq * L rows into
+// `raw` (BC_RAW bytes a row and operand, B before C) by cp.async.
+template <typename T>
+__device__ __forceinline__ void copy_bc_rows(const Operands& o, long b0, int nseq, int L,
+                                             int N, char* raw) {
+  constexpr int CH = BC_RAW / 16;
+  for (int i = threadIdx.x; i < nseq * L * 2 * CH; i += blockDim.x) {
+    const int r = i / CH, c = i - r * CH;
+    const int row = r >> 1, q = row / L, t = row - q * L;
+    const T* src = bc_row<T>(o, b0 + q, t, r & 1);
+    const size_t lo = reinterpret_cast<size_t>(src) & ~(size_t)15;
+    if (lo + 16 * c < reinterpret_cast<size_t>(src + N))
+      cp_async16(raw + (size_t)r * BC_RAW + 16 * c,
+                 reinterpret_cast<const void*>(lo + 16 * c));
+  }
+}
+
+// B and C of the group's rows from their chunks to `bc` as fp32, 2 * MAX_N
+// a step (zeros past N).
+template <typename T>
+__device__ __forceinline__ void widen_bc_rows(const Operands& o, long b0, int nseq, int L,
+                                              int N, const char* raw, float* bc) {
+  for (int i = threadIdx.x; i < nseq * L * 2 * MAX_N; i += blockDim.x) {
+    const int row = i / (2 * MAX_N), j = i - row * (2 * MAX_N);
+    const int c = j >= MAX_N, n = j - c * MAX_N, q = row / L, t = row - q * L;
+    float v = 0.0f;
+    if (n < N) {
+      const size_t off = reinterpret_cast<size_t>(bc_row<T>(o, b0 + q, t, c)) & 15;
+      v = to_f32(*reinterpret_cast<const T*>(raw + (size_t)(2 * row + c) * BC_RAW + off +
+                                             n * sizeof(T)));
+    }
+    bc[i] = v;
+  }
+}
+
+template <typename T, int LMAX>
+__global__ void __launch_bounds__(TILE_THREADS, 4)
+scan_short_n16_kernel(Operands o, T* __restrict__ y, long Bsz, int L, int D, int N,
+                      int seqs) {
+  extern __shared__ __align__(16) char smem[];
+  const int Dp = tile_ld(D), stage = n16_stage(sizeof(T), L, D, seqs);
+  const size_t tile = (size_t)seqs * L * Dp;
+  float* bc = reinterpret_cast<float*>(smem + 2 * stage);
+  const long groups = (Bsz + seqs - 1) / seqs;
+  const int sq = threadIdx.x / D, d = threadIdx.x - sq * D;
+  float a2[MAX_N], h[MAX_N];
+  load_a(o.A, d, N, a2);
+  const float dd = o.D[d];
+  auto fetch = [&](long g, int into) {
+    T* xs = reinterpret_cast<T*>(smem + into * stage);
+    const long b0 = g * seqs;
+    const int nseq = (int)min((long)seqs, Bsz - b0);
+    copy_x_dt<T>(o, b0, nseq, L, D, Dp, xs, xs + tile);
+    copy_bc_rows<T>(o, b0, nseq, L, N, reinterpret_cast<char*>(xs + 2 * tile));
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  int s = 0;
+  if (blockIdx.x < groups) fetch(blockIdx.x, 0);
+  for (long g = blockIdx.x; g < groups; g += gridDim.x, s ^= 1) {
+    if (g + gridDim.x < groups)
+      fetch(g + gridDim.x, s ^ 1);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");   // keeps the count
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    T* xs = reinterpret_cast<T*>(smem + s * stage);
+    const long b0 = g * seqs;
+    const int nseq = (int)min((long)seqs, Bsz - b0);
+    widen_bc_rows<T>(o, b0, nseq, L, N, reinterpret_cast<const char*>(xs + 2 * tile),
+                     bc);
+    __syncthreads();
+    if (sq < nseq) {
+      T* xr = xs + (size_t)sq * L * Dp + d;
+      const T* dr = xr + tile;
+      const float* bcs = bc + (size_t)sq * L * 2 * MAX_N;
+#pragma unroll
+      for (int n = 0; n < MAX_N; ++n) h[n] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < LMAX; ++t) {
+        if (t < L) {
+          const float xv = to_f32(xr[t * Dp]);
+          xr[t * Dp] = from_f32<T>(step(h, a2, to_f32(dr[t * Dp]), xv,
+                                        bcs + t * 2 * MAX_N, MAX_N, dd * xv));
+        }
+      }
+    }
+    __syncthreads();
+    store_tile<T>(y, xs, b0, nseq, L, D, Dp);
+    __syncthreads();   // the stage is refilled next round
   }
 }
 
@@ -509,41 +660,50 @@ scan_bidir_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   scan_stream<T>(bo, b, d, live, L, D, N, true, yb, bc);
 }
 
-// Bytes of shared memory of row 6's tile kernel (ops/scan.py _bidir_smem
-// mirrors the sum): per sequence the x tiles (one when the streams share x),
-// the two dt tiles (L rows of tile_ld(D)), then B and C as fp32 (L rows of 2
-// * NMAX; one set when the streams share them).
+// Bytes of shared memory of the tile kernels of rows 6 and 10 (ops/scan.py
+// _bidir_smem mirrors the sum): per sequence the x tiles (one when the
+// streams share x), the two dt tiles (L rows of tile_ld(D)), then B and C as
+// fp32 (L rows of 2 * NMAX; one set when the streams share them), then for
+// row 10's sum an fp32 tile of L rows of tile_ld(D).
 __host__ __device__ inline int bidir_smem(int item, int L, int D, int nmax, int seqs,
-                                          bool shared) {
+                                          bool shared, bool sum = false) {
   return seqs * ((shared ? 3 : 4) * L * tile_ld(D) * item +
-                 (shared ? 1 : 2) * L * 2 * nmax * 4);
+                 (shared ? 1 : 2) * L * 2 * nmax * 4 + (sum ? L * tile_ld(D) * 4 : 0));
 }
 
-// Row 6 at L <= LMAX (8, 16 or 32) and N <= NMAX (4 or 8), x and dt of both
-// streams on the 16-byte grid: `seqs` sequences a block, D / 2 threads a
-// sequence, two adjacent channels a thread. Every load of the block is
-// issued before the first step: x and dt of both streams by 16-byte
-// cp.async (x once when the streams share it), A and D of both directions
-// into registers, B and C of each stream (once when shared) into registers
-// eight at a time and then to shared memory as fp32, NMAX wide. Both
-// directions walk in one loop, the forward stream at step t and the
-// backward one at L - 1 - t, so a thread runs four independent ex2/FMA
-// chains. y takes dt's place in shared memory (each step reads its dt pair
-// before writing its y pair there) and leaves in 16-byte stores. `shared`:
-// x, B and C of the two streams are one (equal pointers and strides, as
-// selective_scan_bidir_shared(impl="bidir") passes them). At vsrm's
-// composed shape (57600, 7, 128, N 4, bf16, shared) it moves 523 MB (0.156
-// ms at 3.35 TB/s) and takes 413 M exps (0.11 ms on the special-function
-// units); on an H100 it read 0.26-0.27 ms of device time against 0.62 for
-// the walking kernel. N 16 keeps the walking kernel: two channels of two
-// directions would hold 64 states and 64 decays in registers.
-// Grid ceil(B / seqs); blockDim seqs * D / 2.
-template <typename T, int LMAX, int NMAX>
-__global__ void __launch_bounds__(TILE_THREADS)
-scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
-                       T* __restrict__ yb, long Bsz, int L, int D, int N, int seqs,
-                       bool shared) {
-  extern __shared__ __align__(16) char smem[];
+// Rows 6 and 10 at L <= LMAX (8, 16 or 32) and N <= NMAX (4 or 8), x and dt
+// of both streams on the 16-byte grid: `seqs` sequences a block, D / 2
+// threads a sequence, two adjacent channels a thread. Every load of the
+// block is issued before the first step: x and dt of both streams by
+// 16-byte cp.async (x once when the streams share it), A and D of both
+// directions into registers, B and C of each stream (once when shared) into
+// registers eight at a time and then to shared memory as fp32, NMAX wide.
+// Row 6 (scan_bidir_tile_kernel): both directions walk in one loop, the
+// forward stream at step t and the backward one at L - 1 - t, so a thread
+// runs four independent ex2/FMA chains; y takes dt's place in shared
+// memory (each step reads its dt pair before writing its y pair there) and
+// leaves in 16-byte stores. `shared`: x, B and C of the two streams are one
+// (equal pointers and strides, as selective_scan_bidir_shared(impl="bidir")
+// passes them). At vsrm's composed shape (57600, 7, 128, N 4, bf16, shared)
+// it moves 523 MB (0.156 ms at 3.35 TB/s) and takes 413 M exps (0.11 ms on
+// the special-function units); on an H100 it read 0.26-0.27 ms of device
+// time against 0.62 for the walking kernel. N 16 keeps the walking kernel:
+// two channels of two directions would hold 64 states and 64 decays in
+// registers.
+// kSum (row 10, scan_bidir_sum_kernel; the streams shared): one output, y =
+// yf + yb summed in fp32 and cast once, with the directions in turn, as the
+// JAX kernel's two passes: the forward pass writes its y to an fp32 tile,
+// the backward pass adds its own and writes the sum as T into the forward
+// dt tile, whose row it no longer needs; that tile leaves in 16-byte
+// stores. One direction's states and decays are live at a time and each
+// pass is a rolled loop: 48-64 registers. On an H100 at fast_mamba_vsr's N
+// 8 this read 0.63 ms against 0.73-0.85 for both directions in one loop
+// (118-128 registers, rolled or not), and at vsrm's N 4 0.24 against 0.26.
+template <typename T, int LMAX, int NMAX, bool kSum>
+__device__ __forceinline__ void bidir_tile(char* smem, const Operands& fo,
+                                           const Operands& bo, T* __restrict__ yf,
+                                           T* __restrict__ yb, long Bsz, int L, int D,
+                                           int N, int seqs, bool shared) {
   constexpr int SEG = 16 / sizeof(T);   // elements a 16-byte copy
   const int Dp = tile_ld(D), tps = D / 2;
   const size_t tile = (size_t)seqs * L * Dp;
@@ -553,6 +713,7 @@ scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   T* dbs = dfs + tile;
   float* bcf = reinterpret_cast<float*>(dbs + tile);
   float* bcb = shared ? bcf : bcf + (size_t)seqs * L * 2 * NMAX;
+  float* acc = bcb + (size_t)seqs * L * 2 * NMAX;   // kSum: the fp32 tile
   const long b0 = (long)blockIdx.x * seqs;
   const int nseq = (int)min((long)seqs, Bsz - b0);
 
@@ -580,10 +741,12 @@ scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   if (live) {
     load_a<NMAX>(fo.A, d, N, af0);
     load_a<NMAX>(fo.A, d + 1, N, af1);
-    load_a<NMAX>(bo.A, d, N, ab0);
-    load_a<NMAX>(bo.A, d + 1, N, ab1);
     ddf0 = fo.D[d], ddf1 = fo.D[d + 1];
-    ddb0 = bo.D[d], ddb1 = bo.D[d + 1];
+    if constexpr (!kSum) {
+      load_a<NMAX>(bo.A, d, N, ab0);
+      load_a<NMAX>(bo.A, d + 1, N, ab1);
+      ddb0 = bo.D[d], ddb1 = bo.D[d + 1];
+    }
   }
   stage_bc_tile<T, NMAX>(fo, b0, nseq, L, N, bcf);
   if (!shared) stage_bc_tile<T, NMAX>(bo, b0, nseq, L, N, bcb);
@@ -594,25 +757,56 @@ scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
     const size_t base = (size_t)sq * L * Dp + d;
     const float* bfs = bcf + (size_t)sq * L * 2 * NMAX;
     const float* bbs = bcb + (size_t)sq * L * 2 * NMAX;
-#pragma unroll
-    for (int t = 0; t < LMAX; ++t) {
-      if (t < L) {
-        const int tb = L - 1 - t;
+    if constexpr (kSum) {
+      // the directions in turn, each loop rolled: every state past N is
+      // zero (A, B and C padded), so the steps walk all NMAX
+#pragma unroll 1
+      for (int t = 0; t < L; ++t) {
         const float2 xf = Pair<T>::ld(xfs + base + t * Dp);
         const float2 df = Pair<T>::ld(dfs + base + t * Dp);
-        const float2 xb = Pair<T>::ld(xbs + base + tb * Dp);
-        const float2 db = Pair<T>::ld(dbs + base + tb * Dp);
         float yf0 = ddf0 * xf.x, yf1 = ddf1 * xf.y;
+        step_pair<NMAX>(hf0, hf1, af0, af1, df, xf, bfs + t * 2 * NMAX, NMAX, yf0,
+                        yf1);
+        Pair<float>::st(acc + base + t * Dp, yf0, yf1);
+      }
+      load_a<NMAX>(bo.A, d, N, ab0);   // after the forward pass's states
+      load_a<NMAX>(bo.A, d + 1, N, ab1);
+      ddb0 = bo.D[d], ddb1 = bo.D[d + 1];
+#pragma unroll 1
+      for (int t = L - 1; t >= 0; --t) {
+        const float2 xb = Pair<T>::ld(xfs + base + t * Dp);
+        const float2 db = Pair<T>::ld(dbs + base + t * Dp);
         float yb0 = ddb0 * xb.x, yb1 = ddb1 * xb.y;
-        step_pair<NMAX>(hf0, hf1, af0, af1, df, xf, bfs + t * 2 * NMAX, N, yf0, yf1);
-        step_pair<NMAX>(hb0, hb1, ab0, ab1, db, xb, bbs + tb * 2 * NMAX, N, yb0, yb1);
-        Pair<T>::st(dfs + base + t * Dp, yf0, yf1);
-        Pair<T>::st(dbs + base + tb * Dp, yb0, yb1);
+        step_pair<NMAX>(hb0, hb1, ab0, ab1, db, xb, bbs + t * 2 * NMAX, NMAX, yb0,
+                        yb1);
+        const float2 p = Pair<float>::ld(acc + base + t * Dp);
+        Pair<T>::st(dfs + base + t * Dp, p.x + yb0, p.y + yb1);
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < LMAX; ++t) {
+        if (t < L) {
+          const int tb = L - 1 - t;
+          const float2 xf = Pair<T>::ld(xfs + base + t * Dp);
+          const float2 df = Pair<T>::ld(dfs + base + t * Dp);
+          const float2 xb = Pair<T>::ld(xbs + base + tb * Dp);
+          const float2 db = Pair<T>::ld(dbs + base + tb * Dp);
+          float yf0 = ddf0 * xf.x, yf1 = ddf1 * xf.y;
+          float yb0 = ddb0 * xb.x, yb1 = ddb1 * xb.y;
+          step_pair<NMAX>(hf0, hf1, af0, af1, df, xf, bfs + t * 2 * NMAX, N, yf0, yf1);
+          step_pair<NMAX>(hb0, hb1, ab0, ab1, db, xb, bbs + tb * 2 * NMAX, N, yb0, yb1);
+          Pair<T>::st(dfs + base + t * Dp, yf0, yf1);
+          Pair<T>::st(dbs + base + tb * Dp, yb0, yb1);
+        }
       }
     }
   }
   __syncthreads();
 
+  if (kSum) {
+    store_tile<T>(yf, dfs, b0, nseq, L, D, Dp);
+    return;
+  }
   // yf and yb: the block's nseq * L rows are contiguous in (B, L, D)
   T* yfb = yf + b0 * L * D;
   T* ybb = yb + b0 * L * D;
@@ -624,8 +818,35 @@ scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
   }
 }
 
-// Row 10 for L <= LMAX and N <= NMAX: B_t and C_t of every step are staged
-// once in shared memory for both directions; the forward pass keeps its y
+// Row 6. Grid ceil(B / seqs); blockDim seqs * D / 2.
+template <typename T, int LMAX, int NMAX>
+__global__ void __launch_bounds__(TILE_THREADS)
+scan_bidir_tile_kernel(Operands fo, Operands bo, T* __restrict__ yf,
+                       T* __restrict__ yb, long Bsz, int L, int D, int N, int seqs,
+                       bool shared) {
+  extern __shared__ __align__(16) char smem[];
+  bidir_tile<T, LMAX, NMAX, false>(smem, fo, bo, yf, yb, Bsz, L, D, N, seqs, shared);
+}
+
+// Row 10 at L <= LMAX and N <= NMAX, u, dtf and dtb on the 16-byte grid:
+// `fo` and `bo` differ in dt, A and D only. At vsrm's composed shape (57600,
+// 7, 128, N 4, bf16) the floors are its 419 MB (0.125 ms) and 413 M exps
+// (~0.11 ms); at fast_mamba_vsr's (57600, 16, 96, N 8, B and C 19 wide
+// slices of x_proj) 1.42 G exps (~0.36 ms) and ~0.74 GB (0.22 ms).
+// Its loops are rolled, so one instance serves every L <= SHARED_MAX_L.
+// Grid ceil(B / seqs); blockDim seqs * D / 2.
+template <typename T, int NMAX>
+__global__ void __launch_bounds__(TILE_THREADS)
+scan_bidir_sum_kernel(Operands fo, Operands bo, T* __restrict__ y, long Bsz, int L,
+                      int D, int N, int seqs) {
+  extern __shared__ __align__(16) char smem[];
+  bidir_tile<T, SHARED_MAX_L, NMAX, true>(smem, fo, bo, y, nullptr, Bsz, L, D, N,
+                                          seqs, true);
+}
+
+// Row 10 for L <= LMAX and N <= NMAX where the tile kernel does not take
+// the call (N > 8, or u or dt off the 16-byte grid): B_t and C_t of every
+// step are staged once in shared memory for both directions; the forward pass keeps its y
 // (with its D skip) in registers as fp32, the backward pass adds its own
 // and stores y once. u is read in both passes, the second time from L1 (the
 // block's slab is a few KB), which keeps the registers at 64 or fewer.
@@ -812,24 +1033,28 @@ extern "C" {
 // Chunk length of the long scan (row 9); the wrapper sizes its scratch.
 int vetk_selective_scan_chunk() { return CHUNK; }
 
-// Bytes of shared memory of the tile kernel (rows 7 and 8) at these sizes.
+// Bytes of shared memory of the tile kernels (rows 7 and 8; N > 8: row 8's
+// scan_short_n16_kernel) at these sizes.
 int vetk_selective_scan_short_smem(int dtype, int L, int D, int N, int seqs) {
   const int item = dtype == kFloat32 ? 4 : 2;
+  if (N > TILE_MAX_N) return n16_smem(item, L, D, seqs);
   return tile_smem(item, L, D, N <= 4 ? 4 : TILE_MAX_N, seqs);
 }
 
 // Rows 7 and 8. h0 and hlast both given: row 7; both null: row 8.
 // strides (8 values, host memory): the batch and step strides, in elements,
 // of x, dt, B and C. seqs > 0: the tile kernel with that many sequences a
-// block (L <= SHARED_MAX_L, N <= TILE_MAX_N, seqs * ceil(D / 2) <=
-// TILE_THREADS, x and dt 16-byte aligned with D and their strides
-// multiples of 16 bytes); 0: the kernel that walks any L, a block a
-// sequence. Returns a cudaError_t (0 on success). Requires N <= 16.
+// block (L <= SHARED_MAX_L, x and dt 16-byte aligned with D and their
+// strides multiples of 16 bytes; N <= TILE_MAX_N with seqs * ceil(D / 2) <=
+// TILE_THREADS, or, row 8 only, N <= MAX_N with seqs * D <= TILE_THREADS,
+// one channel a thread, in `blocks` persistent blocks); 0: the kernel that
+// walks any L, a block a sequence. Returns a cudaError_t (0 on success).
+// Requires N <= 16.
 int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
                               const void* A, const void* Bm, const void* Cm,
                               const void* Dv, const void* h0, void* y, void* hlast,
                               int B, int L, int D, int N, const long* strides,
-                              int seqs, void* stream) {
+                              int seqs, int blocks, void* stream) {
   if (bad_shape(B, L, D, N) || (h0 == nullptr) != (hlast == nullptr))
     return (int)cudaErrorInvalidValue;
   const Operands o = operands(x, dt, A, Bm, Cm, Dv, strides);
@@ -837,8 +1062,9 @@ int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
   auto h0f = static_cast<const float*>(h0);
   auto hlf = static_cast<float*>(hlast);
   if (seqs > 0) {
-    const int threads = seqs * ((D + 1) / 2);
-    if (L > SHARED_MAX_L || N > TILE_MAX_N || threads > TILE_THREADS)
+    const bool wide = N > TILE_MAX_N;   // row 8: one channel a thread
+    const int threads = wide ? seqs * D : seqs * ((D + 1) / 2);
+    if (L > SHARED_MAX_L || threads > TILE_THREADS || (wide && (h0 || blocks < 1)))
       return (int)cudaErrorInvalidValue;
     const int grid = (int)((B + (long)seqs - 1) / seqs);
     return by_dtype(dtype, [&](auto tag) {
@@ -849,6 +1075,16 @@ int vetk_selective_scan_short(int dtype, const void* x, const void* dt,
           strides[3] % SEG)
         return (int)cudaErrorInvalidValue;
       T* yt = static_cast<T*>(y);
+      auto launch_n16 = [&](auto lmax) {
+        auto k = scan_short_n16_kernel<T, decltype(lmax)::value>;
+        const int smem = n16_smem(sizeof(T), L, D, seqs);
+        const cudaError_t err = allow_smem(k, smem);
+        if (err != cudaSuccess) return (int)err;
+        k<<<blocks, threads, smem, st>>>(o, yt, B, L, D, N, seqs);
+        return (int)cudaGetLastError();
+      };
+      if (wide && L <= 16) return launch_n16(std::integral_constant<int, 16>{});
+      if (wide) return launch_n16(std::integral_constant<int, SHARED_MAX_L>{});
       auto launch = [&](auto lmax, auto nmax) {
         constexpr int LM = decltype(lmax)::value, NM = decltype(nmax)::value;
         const int smem = tile_smem(sizeof(T), L, D, NM, seqs);
@@ -965,18 +1201,29 @@ int vetk_selective_scan_bidir(int dtype, const void* xf, const void* dtf,
 // Longest L that row 10 keeps in registers; longer ones need the workspace.
 int vetk_selective_scan_shared_max_l() { return SHARED_MAX_L; }
 
+// Bytes of shared memory of row 10's tile kernel at these sizes.
+int vetk_selective_scan_bidir_shared_smem(int dtype, int L, int D, int N, int seqs) {
+  const int item = dtype == kFloat32 ? 4 : 2;
+  return bidir_smem(item, L, D, N <= 4 ? 4 : TILE_MAX_N, seqs, true, true);
+}
+
 // Row 10: y = the forward scan of (u, dtf, Af, B, C, Df) plus the backward
 // scan of (u, dtb, Ab, B, C, Db), summed in fp32 and cast once. strides (10
 // values, host memory): the batch and step strides, in elements, of u, dtf,
-// dtb, B and C. ws: an fp32 (B, L, D) workspace, needed (and read) only for
-// L > SHARED_MAX_L. Returns a cudaError_t (0 on success). Requires N <= 16.
+// dtb, B and C. seqs > 0: the tile kernel with that many sequences a block
+// (L <= SHARED_MAX_L, N <= TILE_MAX_N, D even and seqs * D / 2 <=
+// TILE_THREADS, u, dtf and dtb 16-byte aligned with D and their strides
+// multiples of 16 bytes); 0: the register kernel (L <= SHARED_MAX_L) or the
+// workspace kernel. ws: an fp32 (B, L, D) workspace, needed (and read) only
+// for L > SHARED_MAX_L. Returns a cudaError_t (0 on success). Requires N <=
+// 16.
 int vetk_selective_scan_bidir_shared(int dtype, const void* u, const void* dtf,
                                      const void* dtb, const void* Af,
                                      const void* Ab, const void* Bm,
                                      const void* Cm, const void* Df,
                                      const void* Db, void* y, void* ws, int B,
                                      int L, int D, int N, const long* strides,
-                                     void* stream) {
+                                     int seqs, void* stream) {
   if (bad_shape(B, L, D, N) || (L > SHARED_MAX_L && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const long sf[8] = {strides[0], strides[1], strides[2], strides[3],
@@ -985,6 +1232,34 @@ int vetk_selective_scan_bidir_shared(int dtype, const void* u, const void* dtf,
                       strides[6], strides[7], strides[8], strides[9]};
   const Operands fo = operands(u, dtf, Af, Bm, Cm, Df, sf);
   const Operands bo = operands(u, dtb, Ab, Bm, Cm, Db, sb);
+  if (seqs > 0) {
+    const int threads = seqs * (D / 2);
+    if (L > SHARED_MAX_L || N > TILE_MAX_N || D % 2 || threads > TILE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    const int grid = (int)((B + (long)seqs - 1) / seqs);
+    auto st = static_cast<cudaStream_t>(stream);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      constexpr int SEG = 16 / sizeof(T);
+      for (const void* p : {u, dtf, dtb})
+        if (reinterpret_cast<size_t>(p) & 15) return (int)cudaErrorInvalidValue;
+      if (D % SEG) return (int)cudaErrorInvalidValue;
+      for (int i = 0; i < 6; ++i)
+        if (strides[i] % SEG) return (int)cudaErrorInvalidValue;
+      T* yt = static_cast<T*>(y);
+      auto launch = [&](auto nmax) {
+        constexpr int NM = decltype(nmax)::value;
+        auto k = scan_bidir_sum_kernel<T, NM>;
+        const int smem = bidir_smem(sizeof(T), L, D, NM, seqs, true, true);
+        const cudaError_t err = allow_smem(k, smem);
+        if (err != cudaSuccess) return (int)err;
+        k<<<grid, threads, smem, st>>>(fo, bo, yt, B, L, D, N, seqs);
+        return (int)cudaGetLastError();
+      };
+      if (N <= 4) return launch(std::integral_constant<int, 4>{});
+      return launch(std::integral_constant<int, TILE_MAX_N>{});
+    });
+  }
   auto st = static_cast<cudaStream_t>(stream);
   const int threads = threads_for(D);
   const dim3 grid(B, blocks_for(D, threads));

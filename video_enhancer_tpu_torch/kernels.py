@@ -84,8 +84,9 @@ _SIGNATURES = {
     "vetk_window_attention": [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_L] * 12
     + [_I, _I, _P],
     # dtype, x, dt, A, B, C, D, h0, y, h_last, B, L, D, N, strides,
-    # sequences a block (0: the walking kernel), stream
-    "vetk_selective_scan_short": [_I] + [_P] * 9 + [_I] * 4 + [_P, _I, _P],
+    # sequences a block (0: the walking kernel), persistent blocks (row 8
+    # at N > 8), stream
+    "vetk_selective_scan_short": [_I] + [_P] * 9 + [_I] * 4 + [_P, _I, _I, _P],
     # dtype, L, D, N, sequences a block
     "vetk_selective_scan_short_smem": [_I] * 5,
     # dtype, (x, dt, A, B, C, D) forward and backward, yf, yb, B, L, D, N,
@@ -100,9 +101,12 @@ _SIGNATURES = {
     "vetk_selective_scan_long": [_I] + [_P] * 11 + [_I] * 4 + [_P, _P],
     "vetk_selective_scan_chunk": [],
     # dtype, u, dtf, dtb, Af, Ab, B, C, Df, Db, y, workspace, B, L, D, N,
-    # strides (u, dtf, dtb, B, C), stream
+    # strides (u, dtf, dtb, B, C), sequences a block (0: the register or
+    # workspace kernel), stream
     "vetk_selective_scan_bidir_shared": [_I] + [_P] * 11 + [_I] * 4
-    + [_P, _P],
+    + [_P, _I, _P],
+    # dtype, L, D, N, sequences a block
+    "vetk_selective_scan_bidir_shared_smem": [_I] * 5,
     "vetk_selective_scan_shared_max_l": [],
     # dtype, x, w, bias, y, B, L, C, K, ld, vec, channels a slab, runs,
     # grid, stream

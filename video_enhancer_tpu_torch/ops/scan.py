@@ -156,34 +156,53 @@ _TILE_MAX_N = 8            # largest N it takes (compile-time bounds 4, 8)
 _WALK_MAX_THREADS = 256    # channels a block of the walking kernel
 
 
+def _tile_nmax(N: int) -> int:
+    """The N bound of the tile kernels' instance for N: 4, 8, or (row 8's
+    scan_short_n16_kernel) 16."""
+    return 4 if N <= 4 else _TILE_MAX_N if N <= _TILE_MAX_N else _MAX_N
+
+
+_BC_RAW = 80               # bytes of a B or C row's 16-byte chunks (row 8)
+
+
 def _tile_smem(L: int, D: int, N: int, itemsize: int, seqs: int) -> int:
-    """Bytes of dynamic shared memory of the tile kernel
+    """Bytes of dynamic shared memory of the tile kernels
     (csrc/selective_scan.cu ``tile_smem``): per sequence x and dt (L rows
     of D rounded up to 8) and B and C as fp32 (L rows of twice the N
-    bound)."""
-    nmax = 4 if N <= 4 else _TILE_MAX_N
-    return seqs * (2 * L * _up(D, 8) * itemsize + L * 2 * nmax * 4)
+    bound). At N > 8 (row 8's ``scan_short_n16_kernel``, ``n16_smem``):
+    two stages, each x and dt and every row's B and C as their 16-byte
+    chunks (80 bytes each), then B and C as fp32, 32 wide."""
+    if N > _TILE_MAX_N:
+        stage = seqs * L * (2 * _up(D, 8) * itemsize + 2 * _BC_RAW)
+        return 2 * stage + seqs * L * 2 * _MAX_N * 4
+    return seqs * (2 * L * _up(D, 8) * itemsize + L * 2 * _tile_nmax(N) * 4)
 
 
 def _short_scan_plan(B: int, L: int, D: int, N: int, itemsize: int,
-                     aligned: bool) -> dict:
-    """Rows 7 and 8. The tile kernel for L <= 32, N <= 8 and D <= 512 when
-    its 16-byte copies of x and dt can run (``aligned``: both start on 16
-    bytes and their batch and step strides are multiples of 16 bytes; D
-    too): its instance (L bound 16 or 32, N bound 4 or 8), two channels a
-    thread, the fewest sequences a block that fill whole warps (else the
-    best fill, at most 256 threads and B) whose shared memory fits, a
-    block per such group. The kernel that walks any L, a block a sequence,
-    otherwise. Raises ValueError for what neither takes."""
+                     aligned: bool, state: bool = True,
+                     sms: int = 132) -> dict:
+    """Rows 7 (``state``) and 8. For L <= 32 when the 16-byte copies of x
+    and dt can run (``aligned``: both start on 16 bytes and their batch and
+    step strides are multiples of 16 bytes; D too): at N <= 8 and D <= 512
+    the tile kernel (route "tile"; L bound 16 or 32, N bound 4 or 8), two
+    channels a thread; row 8 at 8 < N <= 16 and D <= 256 its sibling with
+    one channel a thread (route "tile_n16"); either way the fewest
+    sequences a block that fill whole warps (else the best fill, at most
+    256 threads and B) whose shared memory fits, a block per such group
+    ("tile") or, for "tile_n16", one wave of persistent blocks over the
+    groups on ``sms`` SMs (blocks an SM by its 64 registers a thread,
+    threads and shared memory). The kernel that walks any L, a block a
+    sequence, otherwise. Raises ValueError for what none takes."""
     if min(B, L, D, N) < 1 or N > _MAX_N:
         raise ValueError(f"kernel takes N <= {_MAX_N}, got B={B} L={L} D={D} "
                          f"N={N}")
-    tps = -(-D // 2)
+    wide = not state and N > _TILE_MAX_N
+    tps = D if wide else -(-D // 2)
     threads = min(_up(D, 32), _WALK_MAX_THREADS)
     walk = {"route": "walk", "seqs": 0, "threads": threads,
             "grid": (B, -(-D // threads)), "smem": 0}
-    if (L > _TILE_MAX_L or N > _TILE_MAX_N or tps > _TILE_THREADS
-            or not aligned or D * itemsize % 16):
+    if (L > _TILE_MAX_L or (N > _TILE_MAX_N and not wide)
+            or tps > _TILE_THREADS or not aligned or D * itemsize % 16):
         return walk
     cands = range(1, min(_TILE_THREADS // tps, B) + 1)
     order = ([c for c in cands if c * tps % 32 == 0]
@@ -193,10 +212,16 @@ def _short_scan_plan(B: int, L: int, D: int, N: int, itemsize: int,
     if not fits:
         return walk
     seqs = fits[0]
-    return {"route": "tile", "seqs": seqs, "threads": seqs * tps,
+    plan = {"route": "tile", "seqs": seqs, "threads": seqs * tps,
             "grid": (-(-B // seqs),), "lmax": 16 if L <= 16 else _TILE_MAX_L,
-            "nmax": 4 if N <= 4 else _TILE_MAX_N,
-            "smem": _tile_smem(L, D, N, itemsize, seqs)}
+            "nmax": _tile_nmax(N), "smem": _tile_smem(L, D, N, itemsize, seqs)}
+    if wide:
+        warps = -(-plan["threads"] // 32)
+        per_sm = min(65536 // (64 * 32 * warps), 64 // warps,
+                     _SMEM_SM // (plan["smem"] + 1024), 32)
+        plan.update(route="tile_n16", blocks_per_sm=per_sm,
+                    grid=(min(plan["grid"][0], per_sm * sms),))
+    return plan
 
 
 def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
@@ -207,7 +232,8 @@ def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
     lib = kernels.library()
     code = kernels.dtype_code(x)
     item = x.element_size()
-    plan = _short_scan_plan(Bsz, L, Dd, N, item, _on_16_byte_grid(x, dt))
+    plan = _short_scan_plan(Bsz, L, Dd, N, item, _on_16_byte_grid(x, dt),
+                            state=stateful, sms=kernels.sm_count(x.device))
     if stateful:
         h0 = (torch.zeros((Bsz, Dd, N), device=x.device) if h0 is None
               else _state_in(h0, x, N))
@@ -222,7 +248,7 @@ def _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state):
             A32.data_ptr(), Bmat.data_ptr(), C.data_ptr(), D32.data_ptr(),
             h0.data_ptr() if stateful else None, y.data_ptr(),
             h_last.data_ptr() if stateful else None, Bsz, L, Dd, N, strides,
-            plan["seqs"], kernels.stream_of(x))
+            plan["seqs"], plan["grid"][0], kernels.stream_of(x))
         kernels.launch_counts[key] += 1
     kernels.check(err, key)
     return y, h_last
@@ -333,29 +359,34 @@ def selective_scan_bidir_plain(xf, dtf, Af, Bf, Cf, Df,
 
 
 def _bidir_smem(L: int, D: int, N: int, itemsize: int, seqs: int,
-                shared: bool) -> int:
-    """Bytes of dynamic shared memory of row 6's tile kernel
+                shared: bool, summed: bool = False) -> int:
+    """Bytes of dynamic shared memory of the tile kernels of rows 6 and 10
     (csrc/selective_scan.cu ``bidir_smem``): per sequence the x tiles (one
     when the streams share x) and both dt tiles (L rows of D rounded up to
     8), then B and C as fp32 (L rows of twice the N bound; one set when
-    shared)."""
+    shared), then with ``summed`` (row 10) an fp32 tile of L rows of D
+    rounded up to 8."""
     nmax = 4 if N <= 4 else _TILE_MAX_N
     tiles, bcs = (3, 1) if shared else (4, 2)
-    return seqs * (tiles * L * _up(D, 8) * itemsize + bcs * L * 2 * nmax * 4)
+    return seqs * (tiles * L * _up(D, 8) * itemsize + bcs * L * 2 * nmax * 4
+                   + (L * _up(D, 8) * 4 if summed else 0))
 
 
 def _bidir_plan(B: int, L: int, D: int, N: int, itemsize: int,
-                aligned: bool, shared: bool) -> dict:
-    """Row 6. The tile kernel for L <= 32, N <= 8 and D <= 512 when the
-    16-byte copies of both streams' x and dt can run (``aligned``: each
-    starts on 16 bytes with batch and step strides that are multiples of 16
-    bytes; D too), reading x, B and C once when ``shared`` (the streams'
-    are one): its instance (L bound 8, 16 or 32; N bound 4 or 8), two
-    channels a thread, the fewest sequences a block that fill whole warps
-    and at least 128 threads (else whole warps, else the best fill; at most
-    256 threads and B) whose shared memory fits, a block per such group.
-    The kernel that walks any L, a block a sequence, otherwise. Raises
-    ValueError for what neither takes."""
+                aligned: bool, shared: bool, summed: bool = False) -> dict:
+    """Row 6 (and, ``summed``, row 10's tile kernel, whose shared memory
+    holds an fp32 tile more). The tile kernel for L <= 32, N <= 8 and D <=
+    512 when the 16-byte copies of both streams' x and dt can run
+    (``aligned``: each starts on 16 bytes with batch and step strides that
+    are multiples of 16 bytes; D too), reading x, B and C once when
+    ``shared`` (the streams' are one): its instance (L bound 8, 16 or 32; N
+    bound 4 or 8), two channels a thread, the fewest sequences a block that
+    fill whole warps and at least 128 threads (96 for row 10, whose
+    three-warp blocks read 0.629 against 0.678 ms for six at
+    fast_mamba_vsr's shape on an H100; else whole warps, else the best
+    fill; at most 256 threads and B) whose shared memory fits, a block per
+    such group. The kernel that walks any L, a block a sequence,
+    otherwise. Raises ValueError for what neither takes."""
     if min(B, L, D, N) < 1 or N > _MAX_N:
         raise ValueError(f"kernel takes N <= {_MAX_N}, got B={B} L={L} D={D} "
                          f"N={N}")
@@ -368,10 +399,12 @@ def _bidir_plan(B: int, L: int, D: int, N: int, itemsize: int,
         return walk
     cands = range(1, min(_TILE_THREADS // tps, B) + 1)
     whole = [c for c in cands if c * tps % 32 == 0]
-    order = ([c for c in whole if c * tps >= 128] + whole
+    floor = 96 if summed else 128
+    order = ([c for c in whole if c * tps >= floor] + whole
              + sorted(cands, key=lambda c: (-c * tps / _up(c * tps, 32), -c)))
     fits = [c for c in order
-            if _bidir_smem(L, D, N, itemsize, c, shared) <= _SMEM_BLOCK]
+            if _bidir_smem(L, D, N, itemsize, c, shared, summed)
+            <= _SMEM_BLOCK]
     if not fits:
         return walk
     seqs = fits[0]
@@ -379,7 +412,26 @@ def _bidir_plan(B: int, L: int, D: int, N: int, itemsize: int,
             "grid": (-(-B // seqs),),
             "lmax": 8 if L <= 8 else 16 if L <= 16 else _TILE_MAX_L,
             "nmax": 4 if N <= 4 else _TILE_MAX_N, "shared": shared,
-            "smem": _bidir_smem(L, D, N, itemsize, seqs, shared)}
+            "smem": _bidir_smem(L, D, N, itemsize, seqs, shared, summed)}
+
+
+def _shared_scan_plan(B: int, L: int, D: int, N: int, itemsize: int,
+                      aligned: bool) -> dict:
+    """Row 10 (``selective_scan_bidir_shared(impl="bmajor")``). Where row
+    6's tile kernel would take the streams shared, its instance with the
+    directions in turn and a summing epilogue (route "tile_sum",
+    csrc/selective_scan.cu ``scan_bidir_sum_kernel``; ``aligned``: u and
+    both dt on the 16-byte grid), with the sequences a block of
+    ``_bidir_plan`` and the fp32 tile in its shared memory; otherwise the
+    register kernel for L <= 32 ("register") and the workspace kernel
+    beyond ("workspace"), a block a sequence. Raises ValueError for what
+    none takes."""
+    plan = _bidir_plan(B, L, D, N, itemsize, aligned, True, summed=True)
+    if plan["route"] == "tile":
+        # one instance an N bound: its loops are rolled, any L <= 32
+        plan.pop("lmax")
+        return dict(plan, route="tile_sum")
+    return dict(plan, route="register" if L <= _TILE_MAX_L else "workspace")
 
 
 def _on_16_byte_grid(*ts) -> bool:
@@ -454,6 +506,8 @@ def _scan_bidir_shared_cuda(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db):
     N = Af.shape[1]
     strides = kernels.seq_strides((u, "u"), (dtf, "dtf"), (dtb, "dtb"),
                                   (Bm, "B"), (Cm, "C"))
+    plan = _shared_scan_plan(Bsz, L, Dd, N, u.element_size(),
+                             _on_16_byte_grid(u, dtf, dtb))
     lib = kernels.library()
     y = torch.empty((Bsz, L, Dd), dtype=u.dtype, device=u.device)
     ws = (torch.empty((Bsz, L, Dd), device=u.device)
@@ -465,7 +519,7 @@ def _scan_bidir_shared_cuda(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db):
             dtb.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), w[2].data_ptr(), w[3].data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(), Bsz, L, Dd, N, strides,
-            kernels.stream_of(u))
+            plan["seqs"], kernels.stream_of(u))
         kernels.launch_counts["selective_scan_bidir_shared"] += 1
     kernels.check(err, "selective_scan_bidir_shared")
     return y
