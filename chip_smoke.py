@@ -11,7 +11,9 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    (ptxas's register/shared-memory/spill report on earlier lines);
 3. kernels against their plain PyTorch versions at the main paths' shapes,
    in fp32 (TF32 off) and bf16, each with its tolerance; the flash kernel
-   also at ragged lengths (one across a 128-row tile edge, Dh 48), the
+   at ditvr's shape and at seedvr2's (one head of 128 over the 3600 tokens
+   of each frame's 45x80 level, 8 frames), also at ragged lengths (one
+   across a 128-row tile edge, Dh 48), the
    fused SSM also at fast_mamba_vsr's shape and at a count of sequences
    that is not a multiple of the sequences a block,
    the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
@@ -110,7 +112,8 @@ import torch
 from video_enhancer_tpu_torch import kernels
 from video_enhancer_tpu_torch.config import MODELS, default_policy
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
-from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt, vsrm
+from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr, rvrt,
+                                             seedvr2, vsrm)
 from video_enhancer_tpu_torch.nn import ssm
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
@@ -144,7 +147,8 @@ from video_enhancer_tpu_torch.runtime.registry import (build_handler,
                                                       bundled_weights,
                                                       load_params)
 from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
-                                                         cast_params)
+                                                         cast_params,
+                                                         window_quality)
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -162,6 +166,10 @@ BISSM_RAGGED_SHAPE = dict(BISSM_SHAPE, B=180 * 320 - 5)
 # ditvr at 180x320, window 8: two 180x224 tiles in one batch, heads 3,
 # 4 x 45 x 56 = 10080 tokens of patch (2, 4, 4)
 FLASH_SHAPE = dict(B=2, H=3, L=10080, Dh=128)
+# seedvr2 at 180x320, window 8: the UNet's spatial attention at level 2 is
+# one head of 128 channels over each frame's 45 x 80 = 3600 tokens (232
+# query tiles of 128, the last one 16 rows)
+FLASH_SEEDVR2_SHAPE = dict(B=8, H=1, L=45 * 80, Dh=128)
 FLASH_RAGGED = [dict(B=2, H=3, Lq=300, Lk=1000, Dh=64),
                 dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
                 dict(B=2, H=3, Lq=129, Lk=1000, Dh=48)]
@@ -435,13 +443,16 @@ def _flash_cost(dtype, B, H, Lq, Lk, Dh) -> tuple[float, float]:
 
 
 def flash_vs_plain() -> dict:
-    """The flash kernel against attention_ref at the path's shape and at
-    ragged lengths; its time beside the plain version's and SDPA's."""
+    """The flash kernel against attention_ref at ditvr's and seedvr2's
+    shapes and at ragged lengths; at the two paths' shapes its time beside
+    the plain version's and SDPA's."""
     rec = {}
-    s = FLASH_SHAPE
-    cases = [dict(B=s["B"], H=s["H"], Lq=s["L"], Lk=s["L"], Dh=s["Dh"])]
-    cases += FLASH_RAGGED
-    for ci, shp in enumerate(cases):
+    named = {"flash_attention": FLASH_SHAPE,
+             "flash_attention:seedvr2": FLASH_SEEDVR2_SHAPE}
+    cases = [(key, dict(B=s["B"], H=s["H"], Lq=s["L"], Lk=s["L"],
+                        Dh=s["Dh"])) for key, s in named.items()]
+    cases += [(None, shp) for shp in FLASH_RAGGED]
+    for ci, (key, shp) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + ci)
             q, k, v = _flash_inputs(dtype, gen, **shp)
@@ -457,15 +468,15 @@ def flash_vs_plain() -> dict:
                   f"rel {rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms")
             check(rel <= tol, f"flash_attention {shp} {dtype}: rel {rel} > "
                               f"{tol}")
-            if ci == 0 and dtype == torch.bfloat16:
+            if key is not None and dtype == torch.bfloat16:
                 plain_ms = time_ms(lambda: attention_ref(q, k, v),
                                    warmup=1, iters=3)
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 lib_ms = time_ms(lambda: sdpa(q, k, v))
                 nbytes, flops = _flash_cost(dtype, **shp)
-                print(f"flash_attention path shape bf16: plain {plain_ms:.3f}"
-                      f" ms, scaled_dot_product_attention {lib_ms:.4f} ms")
-                rec["flash_attention"] = dict(
+                print(f"{key} path shape bf16: plain {plain_ms:.3f} ms, "
+                      f"scaled_dot_product_attention {lib_ms:.4f} ms")
+                rec[key] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bytes=nbytes, flops=flops,
                     peak=H100_BF16_FLOPS)
@@ -1019,6 +1030,33 @@ def dim_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
     return frames
 
 
+def blocky_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
+    """Seeded frames the router sends to seedvr2: a smooth colour field,
+    0.5 + 0.25 sin(0.03 (x + 2 t) + 0.02 y + phase), drifting slowly and
+    averaged over each 8x8 block, as a coarse codec leaves it (compression
+    1.0, unknown well below its threshold; soft enough that seedvr2's
+    quality gate runs every window), uint8 RGB."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, size=3)
+    hb, wb = h // 8 * 8, w // 8 * 8
+    frames = []
+    for t in range(n):
+        img = np.stack([0.5 + 0.25 * np.sin(0.03 * (xx + 2 * t) + 0.02 * yy
+                                            + ph[c]) for c in range(3)], -1)
+        blk = img[:hb, :wb].reshape(hb // 8, 8, wb // 8, 8, 3).mean((1, 3))
+        img[:hb, :wb] = np.repeat(np.repeat(blk, 8, 0), 8, 1)
+        frames.append(np.clip(np.round(img * 255), 0, 255).astype(np.uint8))
+    return frames
+
+
+def sharp_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
+    """Seeded uniform uint8 noise: a sharpness score of 1, so seedvr2's
+    quality gate passes every window through."""
+    rng = np.random.default_rng(seed)
+    return list(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+
+
 @phase("5 auto route to ditvr")
 def auto_route(device_line: str) -> dict:
     n, h, w = 16, 180, 320
@@ -1128,10 +1166,12 @@ def _window_check(frames, plan, handler, plain_apply) -> torch.Tensor:
 
 
 def _served_run(frames, kw: dict, name: str, per_window: dict,
-                chunk: int, stride: int, device_line: str) -> tuple:
+                chunk: int, stride: int, device_line: str,
+                scale: int = 4) -> tuple:
     """One warm-up and one counted ``run_auto_frames`` call; checks the
-    plan, the stats, the launches and the frames. Returns the frames out,
-    the stats and the counts."""
+    plan, the stats, the launches (``per_window`` for each window that ran
+    the model: all but those the quality gate skipped) and the frames.
+    Returns the frames out, the stats and the counts."""
     check(bundled_weights(name) is not None,
           f"{name}: no bundled checkpoint; the run would serve random init")
     run_auto_frames(frames, **kw)                     # warm-up, not counted
@@ -1153,17 +1193,20 @@ def _served_run(frames, kw: dict, name: str, per_window: dict,
     check("fallback_from" not in stats and stats["model"] == name,
           f"the pipeline fell back: {stats.get('fallback_error')}")
     windows = sum(1 for _ in iter_windows(frames, chunk, stride))
-    want = {k: per_window.get(k, 0) * windows for k in kernels.launch_counts}
-    print(f"windows {windows}; launches {counts}; expected {want}")
+    ran = windows - stats["windows_skipped"]
+    want = {k: per_window.get(k, 0) * ran for k in kernels.launch_counts}
+    print(f"windows {windows} ({stats['windows_skipped']} skipped); launches "
+          f"{counts}; expected {want}")
     check(counts == want, f"launch counts {counts} != {want}")
     h, w = frames[0].shape[:2]
     check(len(out) == len(frames), f"{len(out)} frames out of {len(frames)}")
     for f in out:
-        check(f.shape == (4 * h, 4 * w, 3) and f.dtype == np.uint8,
+        check(f.shape == (scale * h, scale * w, 3) and f.dtype == np.uint8,
               f"bad frame {f.shape} {f.dtype}")
     enh = stats["processing_time_sec"]
     n = len(frames)
-    print(f"{name} x4 {h}x{w} -> {4 * h}x{4 * w}: {n} frames in {secs:.3f} s "
+    print(f"{name} x{scale} {h}x{w} -> {scale * h}x{scale * w}: {n} frames "
+          f"in {secs:.3f} s "
           f"end to end = {n / secs:.2f} frames/s (routing "
           f"{plan['analysis_time_sec']:.3f} s); enhance {enh:.3f} s = "
           f"{stats['fps']:.2f} frames/s, {1000 * enh / windows:.1f} ms/window"
@@ -1549,6 +1592,47 @@ def opt_in_kernels(device_line: str) -> dict:
     return counts
 
 
+@phase("11 auto route to seedvr2")
+def seedvr2_route(device_line: str) -> dict:
+    frames = blocky_clip(16, 180, 320)
+    entry = MODELS["seedvr2"]
+    handler = build_handler("seedvr2")
+    unet = handler.params["unet"]
+    attn = 1 + sum("attn" in st for st in unet["down"] + unet["up"])
+    check(attn == 3, f"the UNet has {attn} attention blocks, not 3")
+    out, stats, counts = _served_run(
+        frames, {}, "seedvr2", {"flash_attention": attn}, entry.window,
+        entry.stride, device_line, scale=1)
+    check(stats["windows_skipped"] == 0,
+          f"the gate skipped {stats['windows_skipped']} soft windows")
+    # window 0 through the kernels against the plain versions: both bf16
+    # and both drawing the noise of seed 0
+    y_k = _window_check(frames, stats["routing_plan"], handler,
+                        lambda p, x: seedvr2.apply(p, x, kernels=False))
+    _lsb_check(out, y_k, handler.chunk)
+
+    # the gate: a sharp clip passes through unchanged, no kernel launched
+    sharp = sharp_clip(16, 180, 320)
+    score = window_quality(torch.from_numpy(np.stack(sharp[:8])).cuda())
+    gate = {}
+    got, gate_counts, secs = _counted(
+        lambda: list(handler.enhance_frames(iter(sharp), gate)))
+    windows = sum(1 for _ in iter_windows(sharp, entry.window, entry.stride))
+    lsb = np.abs(np.stack(got).astype(np.int16)
+                 - np.stack(sharp).astype(np.int16)).max()
+    print(f"gate: score {score:.4f} (threshold {handler.quality_threshold}); "
+          f"windows {windows}, skipped {gate['windows_skipped']}; launches "
+          f"{gate_counts}; output vs input max {lsb} LSB; {len(sharp)} "
+          f"frames in {secs:.3f} s ({device_line})")
+    check(score > handler.quality_threshold, "the sharp clip is not sharp")
+    check(gate["windows_skipped"] == windows, "the gate ran a sharp window")
+    check(gate_counts == _only(), f"the gated run launched {gate_counts}")
+    check(len(got) == len(sharp) and lsb == 0,
+          "a skipped window changed its frames")
+    torch.cuda.empty_cache()
+    return {"counts": counts, "fps": stats["fps"]}
+
+
 SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
 
 
@@ -1560,6 +1644,9 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
                             "video_enhancer_tpu/ops/scan.py:941"),
         "flash_attention": ("video_enhancer_tpu_torch/csrc/flash_attn.cu",
                             "video_enhancer_tpu/ops/attention.py:118"),
+        "flash_attention:seedvr2": (
+            "video_enhancer_tpu_torch/csrc/flash_attn.cu",
+            "video_enhancer_tpu/ops/attention.py:118"),
         "window_attention": ("video_enhancer_tpu_torch/csrc/window_attn.cu",
                              "video_enhancer_tpu/ops/attention.py:232"),
         "fused_bidir_ssm:fast_mamba_vsr": (
@@ -1605,11 +1692,13 @@ def main() -> int:
     sharded = sharded_path(f"{env['kind']}, {env['smi']}")
     layer_counts = layers()
     opt_in = opt_in_kernels(f"{env['kind']}, {env['smi']}")
+    sv = seedvr2_route(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
               "fused_bidir_ssm": path["counts"]["fused_bidir_ssm"],
               "flash_attention": route["counts"]["flash_attention"],
+              "flash_attention:seedvr2": sv["counts"]["flash_attention"],
               "window_attention": rv["counts"]["window_attention"],
               "fused_bidir_ssm:fast_mamba_vsr":
                   strict["counts"]["fused_bidir_ssm"],

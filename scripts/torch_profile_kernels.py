@@ -15,10 +15,12 @@ Imports ``chip_smoke`` and ``video_enhancer_tpu_torch`` from ``--root``
 prints the registers, shared memory and spills of these sources' kernels.
 Then each case: the kernel against its plain version (max |kernel -
 plain| / max |plain|, held to ``chip_smoke.TOL``), and the median
-CUDA-event time of 10 runs after 3 warm-ups; beside flash at ditvr's
-shape, ``scaled_dot_product_attention`` on the same inputs. Cases: flash
-in bf16 at ditvr's shape (B 2, H 3, L 10080, Dh 128, views of one qkv
-projection) and at ragged lengths; the fused SSM in fp32 and bf16 at
+CUDA-event time of 10 runs after 3 warm-ups; beside flash at ditvr's and
+seedvr2's shapes, ``scaled_dot_product_attention`` on the same inputs,
+and the device time of both (``torch.profiler``, all of a call's
+kernels). Cases: flash in bf16 at ditvr's shape (B 2, H 3, L 10080, Dh
+128, views of one qkv projection), at seedvr2's (B*T 8, H 1, L 3600, Dh
+128) and at ragged lengths; the fused SSM in fp32 and bf16 at
 vsrm's (57600, 7, 128, N 4) and fast_mamba_vsr's (57600, 16, 96, N 8)
 shapes; the SSD forward and reverse in bf16 at vsrm's shape (b 7, L
 57600, H 2, P 64, N 16, column slices of one conv output); rows 7 and 8
@@ -93,6 +95,7 @@ SOURCES = {"flash": "flash", "fused_bissm": "fused", "ssd_": "ssd",
            "scan_bidir_shared": "shared"}
 
 FLASH_CASES = [dict(B=2, H=3, Lq=10080, Lk=10080, Dh=128),
+               dict(B=8, H=1, Lq=3600, Lk=3600, Dh=128),
                dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
                dict(B=2, H=3, Lq=129, Lk=1000, Dh=48)]
 FUSED_CASES = [("vsrm", chip_smoke.BISSM_SHAPE),
@@ -506,9 +509,13 @@ def main() -> int:
             ms = chip_smoke.time_ms(lambda: flash_attention(q, k, v))
             key = "flash {B}x{H} {Lq}x{Lk} Dh{Dh}".format(**shp)
             rec = {"ms": ms, "rel": rel, "max_abs_err": err}
-            if ci == 0:
+            if ci < 2:                       # ditvr's and seedvr2's shapes
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 rec["sdpa_ms"] = chip_smoke.time_ms(lambda: sdpa(q, k, v))
+                for name, fn in (("device_ms", flash_attention),
+                                 ("sdpa_device_ms", sdpa)):
+                    rec[name] = round(sum(chip_smoke.device_ms(
+                        lambda: fn(q, k, v), ("",)).values()), 4)
             good = rel <= chip_smoke.TOL[("flash_attention", "bfloat16")]
             ok &= good and bool(torch.isfinite(got.float()).all())
             print(f"{key} bf16: {rec} {'ok' if good else 'FAILED'}",

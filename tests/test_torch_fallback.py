@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import jax
 import pytest
 
 from video_enhancer_tpu.runtime import fallback as jfallback
@@ -59,7 +60,27 @@ def test_failed_rvrt_build_lands_on_vsrm(monkeypatch):
     assert tm.get_history()[0]["error"] == "rvrt failed on purpose"
 
 
-@pytest.mark.parametrize("requested,used", [("seedvr2", "ditvr"),
+def test_seedvr2_is_served_first(monkeypatch):
+    """seedvr2 builds in both packages on its first attempt. (The JAX
+    package's init is taken as shapes only: its registry fills every leaf
+    from the bundled checkpoint, and the eager random init takes ~30 s on
+    the CPU.)"""
+    from video_enhancer_tpu.models import seedvr2 as jseedvr2
+
+    real = jseedvr2.init
+    monkeypatch.setattr(jseedvr2, "init", lambda key, **kw: (
+        jax.eval_shape(lambda: real(key, **kw)[0]), {}))
+    jm = jfallback.ModelFallbackManager()
+    _, jname = jm.load_model_with_fallbacks("seedvr2")
+    tm = tfallback.ModelFallbackManager(device="cpu")
+    handler, name = tm.load_model_with_fallbacks("seedvr2")
+    assert name == jname == "seedvr2"
+    assert _attempts(tm) == _attempts(jm) == [("seedvr2", "seedvr2", True)]
+    assert handler.name == "seedvr2" and handler.device.type == "cpu"
+    assert (handler.scale, handler.chunk, handler.overlap) == (1, 8, 2)
+
+
+@pytest.mark.parametrize("requested,used", [("realesrgan_fast", "bicubic"),
                                             ("realesrgan", "cnn_upscaler"),
                                             ("nonexistent", "bicubic")])
 def test_unserved_models_fail_their_build_and_fall_through(requested, used):

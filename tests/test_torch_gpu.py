@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels against their plain versions,
 at small shapes that reach the kernels' edges (ragged chunks and runs,
 strided rows, narrow heads, even conv kernels, ragged query and key
-lengths, strided views of a split projection, every dtype), and the SSD,
+lengths, strided views of a split projection, every dtype; seedvr2's
+shape and route), and the SSD,
 the Mamba-1 scans, the shared bidirectional scan and the depthwise conv +
 SiLU also at the shapes the served paths give them; the exact time-sharded
 fast_mamba_vsr on a one-rank NCCL group.
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from video_enhancer_tpu_torch import kernels
-from video_enhancer_tpu_torch.models import ditvr, fast_mamba_vsr, rvrt
+from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr, rvrt,
+                                             seedvr2)
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissd_apply, bissd_init,
                                              bissm_apply, bissm_init,
@@ -440,6 +442,47 @@ def test_ditvr_routes_through_flash(cuda):
                       kernels=False)
     torch.cuda.synchronize()
     assert (y.float() - y_p.float()).abs().max().item() <= 3e-2
+
+
+def test_flash_kernel_at_seedvr2_shape(cuda):
+    """seedvr2's spatial attention at 180x320: (B*T 8, one head, 3600
+    tokens, Dh 128) as views of one (8 * 3600, 384) projection, as the
+    UNet's attention block hands them over; 29 query tiles of 128 a
+    frame, the last one 16 rows; read in place, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(3600)
+    qkv = torch.randn((1, 8 * 3600, 384), generator=gen,
+                      device=cuda).bfloat16()
+    q, k, v = (z.reshape(8, 1, 3600, 128) for z in qkv.chunk(3, dim=-1))
+    assert _flash_plan(8, 1, 3600, 3600, 128, 2, _flash_operands(
+        q=q, k=k, v=v, o=q))["copy"] == ()
+    before = kernels.launch_counts["flash_attention"]
+    got = attention(q, k, v)
+    ref = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["flash_attention"] == before + 1
+    assert got.shape == (8, 1, 3600, 128)
+    assert _rel(got, ref) <= FLASH_TOL[torch.bfloat16]
+
+
+def test_seedvr2_routes_through_flash(cuda):
+    """seedvr2 with the bundled weights on 8 frames of 64x64 (level 2 of
+    16x16 = 256 tokens): the flash kernel three times (down level 2, mid,
+    up level 2), and the output within a served window's tolerances of the
+    plain path fed the same noise."""
+    from video_enhancer_tpu_torch.runtime.registry import load_params
+
+    p = _to(load_params("seedvr2"), cuda, torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    clip = torch.rand((1, 8, 64, 64, 3), generator=gen,
+                      device=cuda).bfloat16()
+    kernels.reset_launch_counts()
+    y = seedvr2.apply(p, clip)
+    counts = dict(kernels.launch_counts)
+    y_p = seedvr2.apply(p, clip, kernels=False)
+    torch.cuda.synchronize()
+    assert counts == {**dict.fromkeys(counts, 0), "flash_attention": 3}
+    diff = (y.float() - y_p.float()).abs()
+    assert diff.max().item() <= 0.05 and diff.mean().item() <= 0.005
 
 
 def _to(p, device, dtype):

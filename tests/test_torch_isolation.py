@@ -5,7 +5,8 @@ interpreters: one imports every module of the port, chip_smoke.py and the
 A/B script; one, where those packages cannot be
 imported at all, drives the auto route on frames in memory; one, likewise,
 drives rvrt (an explicit engine and the fallback manager) and the
-strict-latency route to fast_mamba_vsr."""
+strict-latency route to fast_mamba_vsr; one, likewise, drives the route to
+seedvr2 with its quality gate."""
 
 from __future__ import annotations
 
@@ -68,6 +69,24 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+SEEDVR2 = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+from chip_smoke import blocky_clip, sharp_clip
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_frames
+res = {}
+for key, frames in (("soft", blocky_clip(8, 16, 24)),
+                    ("sharp", sharp_clip(8, 16, 24))):
+    out, stats = run_auto_frames(frames, engine="auto" if key == "soft"
+                                 else "seedvr2", device="cpu")
+    res[key] = [stats["model"], "fallback_from" in stats, len(out),
+                stats["windows_skipped"]]
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, check=True,
@@ -84,7 +103,9 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.registry", "runtime.upscaler_handler",
                  "models.rvrt", "models.fast_mamba_vsr", "runtime.fallback",
                  "runtime.weights", "parallel.mesh", "parallel.temporal",
-                 "parallel.inference", "parallel.spatial"):
+                 "parallel.inference", "parallel.spatial",
+                 "models.seedvr2", "models.diffusion", "ops.prng",
+                 "ops.warp", "ops.conv"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -104,3 +125,13 @@ def test_rvrt_and_strict_routes_run_without_jax_cv2_or_yaml():
     assert res == {"rvrt": ["rvrt", False, 6],
                    "strict": ["fast_mamba_vsr", False, 6],
                    "manager": "rvrt"}
+
+
+def test_seedvr2_route_runs_without_jax_cv2_or_yaml():
+    """The router's own pick of seedvr2 and its quality gate (the JAX
+    handler's takes OpenCV) run with those packages absent, with no
+    fallback: the soft clip runs its windows, the sharp one skips both
+    (8 frames make windows at 0 and at 6, the tail)."""
+    res = _run(SEEDVR2)
+    assert res == {"soft": ["seedvr2", False, 8, 0],
+                   "sharp": ["seedvr2", False, 8, 2]}

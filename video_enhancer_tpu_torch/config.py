@@ -6,8 +6,8 @@ below are copied from the policy file and held against the JAX package's
 ``default_policy()`` by the tests. They are the degradation thresholds
 (:7-14), the latency budgets (:16-19), the pipeline defaults (:27-36), the
 serving mesh (:38-41), the entries of the models the port serves (vsrm
-:44-53, fast_mamba_vsr :54-63, ditvr :89-101, rvrt :102-108, cnn_upscaler
-:126-130, bicubic :131-134) and the ``enabled`` flag of every model of the
+:44-53, fast_mamba_vsr :54-63, seedvr2 :79-88, ditvr :89-101, rvrt
+:102-108, cnn_upscaler :126-130, bicubic :131-134) and the ``enabled`` flag of every model of the
 policy. ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
 ``MeshConfig`` :90-106.
 
@@ -84,8 +84,8 @@ class MeshConfig:
 class ModelEntry:
     """One served model: the fields (and defaults) of the JAX package's
     ``ModelEntry`` that the port reads; ``enabled`` lives in ``ENABLED``.
-    Window and stride drive vsrm, ditvr and rvrt; chunk and overlap drive
-    fast_mamba_vsr."""
+    Window and stride drive vsrm, seedvr2, ditvr and rvrt; chunk and
+    overlap drive fast_mamba_vsr."""
 
     name: str
     weights_path: str | None = None
@@ -118,6 +118,11 @@ MODELS: dict[str, ModelEntry] = {
         "fast_mamba_vsr", weights_env="FAST_MAMBA_VSR_DIR", scale=4,
         chunk=16, overlap=2, tile=512, tile_overlap=32,
         extra={"dim": 48, "num_layers": 8}),
+    "seedvr2": ModelEntry(
+        "seedvr2", weights_env="SEEDVR2_3B_DIR", scale=1, window=8, stride=6,
+        tile=448, tile_overlap=32,
+        extra={"base_channels": 32, "channel_mult": (1, 2, 4),
+               "timestep": 500}),
     "ditvr": ModelEntry(
         "ditvr", weights_env="DITVR_DIR", scale=1, window=8, stride=6,
         tile=224, tile_overlap=16,

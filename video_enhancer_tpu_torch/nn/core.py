@@ -17,8 +17,8 @@ from ..ops.conv import conv2d, conv3d
 
 __all__ = ["dense_init", "dense_apply", "conv2d_init", "conv2d_apply",
            "conv3d_init", "conv3d_apply", "layer_norm_init",
-           "layer_norm_apply", "mlp_init", "mlp_apply",
-           "sinusoidal_embedding"]
+           "layer_norm_apply", "group_norm_init", "group_norm_apply",
+           "mlp_init", "mlp_apply", "sinusoidal_embedding"]
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -71,8 +71,9 @@ def conv3d_init(gen: torch.Generator, kt: int, kh: int, kw: int, cin: int,
     return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (cout,), bound)}
 
 
-def conv3d_apply(p: dict, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
-    return conv3d(x, p["w"], p.get("b"), groups=groups)
+def conv3d_apply(p: dict, x: torch.Tensor, groups: int = 1,
+                 stride=1) -> torch.Tensor:
+    return conv3d(x, p["w"], p.get("b"), groups=groups, stride=stride)
 
 
 def layer_norm_init(dim: int) -> dict:
@@ -86,17 +87,37 @@ def layer_norm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     return y.to(x.dtype)
 
 
+def group_norm_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def group_norm_apply(p: dict, x: torch.Tensor, groups: int,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of channels-last ``(B, ..., C)``: fp32 statistics (ddof 0)
+    over every non-batch position and the group's ``C // groups``
+    consecutive channels, then scale and bias in fp32, cast back
+    (nn/core.py:129-152 without ``axis_name``)."""
+    *lead, c = x.shape
+    xf = x.float().reshape(lead[0], -1, groups, c // groups)
+    var, mu = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def mlp_init(gen: torch.Generator, din: int, hidden: int,
              dout: int | None = None) -> dict:
     return {"fc1": dense_init(gen, din, hidden),
             "fc2": dense_init(gen, hidden, dout or din)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """fc2(GELU(fc1(x))) with the tanh GELU, ``jax.nn.gelu``'s default
-    (nn/core.py:161)."""
-    return dense_apply(p["fc2"],
-                       F.gelu(dense_apply(p["fc1"], x), approximate="tanh"))
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act=_gelu) -> torch.Tensor:
+    """fc2(act(fc1(x))); ``act`` defaults to the tanh GELU,
+    ``jax.nn.gelu``'s default (nn/core.py:161)."""
+    return dense_apply(p["fc2"], act(dense_apply(p["fc1"], x)))
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int,

@@ -4,8 +4,16 @@ Counterpart of the plain parts of video_enhancer_tpu/ops/conv.py. Layouts
 at the public functions stay those of the JAX package: frames ``(B, H, W,
 C)``, clips ``(B, T, H, W, C)``, sequences ``(B, L, C)``. Weights are in
 PyTorch's layout (runtime/weights.py converts the bundled checkpoints).
-Padding is XLA's SAME: ``lo = (k - 1) // 2``, ``hi = k - 1 - lo``
-(``depthwise_conv1d`` also takes explicit padding).
+Padding is XLA's SAME (``depthwise_conv1d`` also takes explicit padding):
+at stride s an axis of n gives ceil(n / s) outputs and is padded by
+``total = max((ceil(n / s) - 1) s + k - n, 0)``, ``lo = total // 2``,
+``hi = total - lo``. At stride 1 that is ``lo = (k - 1) // 2``; at k 3,
+stride 2 and an even n it is (0, 1), which torch's symmetric ``padding``
+cannot give, so such axes are padded explicitly.
+
+``conv_transpose3d`` is ``lax.conv_transpose`` with "SAME" (the kernel not
+flipped): a conv over the input dilated by the stride, padded ``(k - 1, 1)``
+at stride 2 and ``(k // 2, k // 2)`` at stride 1 (k 3).
 
 ``depthwise_conv1d_silu`` is SiLU of the SAME depthwise conv in one pass:
 for a CUDA tensor it launches the port's kernel (csrc/dwconv_silu.cu, the
@@ -20,13 +28,17 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-__all__ = ["conv2d", "conv3d", "depthwise_conv1d", "depthwise_conv1d_silu",
-           "depthwise_conv1d_silu_plain"]
+__all__ = ["conv2d", "conv3d", "conv_transpose3d", "depthwise_conv1d",
+           "depthwise_conv1d_silu", "depthwise_conv1d_silu_plain"]
 
 
-def _same(k: int) -> tuple[int, int]:
-    lo = (k - 1) // 2
-    return lo, k - 1 - lo
+def _same(k: int, n: int = 0, s: int = 1) -> tuple[int, int]:
+    total = max((-(-n // s) - 1) * s + k - n, 0) if s > 1 else k - 1
+    return total // 2, total - total // 2
+
+
+def _triple(v) -> tuple[int, int, int]:
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -37,17 +49,23 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-           groups: int = 1) -> torch.Tensor:
+           groups: int = 1, stride=1) -> torch.Tensor:
     """``x (B, T, H, W, Cin)``, ``w (Cout, Cin / groups, kt, kh, kw)`` ->
-    ``(B, T, H, W, Cout)``. A temporal kernel of 1 makes it a 2-D conv over
-    the B*T frames: the channels-last input is handed to cuDNN as an NCHW
-    view with channels-last strides, so no transpose is materialised. The
-    one conv of the served models with kt > 1 is fast_mamba_vsr's (3, 1, 1)
-    temporal residual on 3 channels: ``_temporal_conv``."""
-    if w.shape[2] != 1:
-        if w.shape[3] != 1 or w.shape[4] != 1 or groups != 1:
-            raise ValueError(f"conv3d takes kt > 1 only with a 1x1 spatial "
-                             f"kernel and no groups, got {tuple(w.shape)}")
+    ``(B, T, H, W, Cout)`` (H, W divided by the stride, rounded up). A
+    temporal kernel of 1 at stride 1 makes it a 2-D conv over the B*T
+    frames: the channels-last input is handed to cuDNN as an NCHW view with
+    channels-last strides, so no transpose is materialised. A ``(kt, 1,
+    1)`` kernel at stride 1 (fast_mamba_vsr's temporal residual, seedvr2's
+    fuse) is ``_temporal_conv``; any other kernel or stride is
+    ``_conv3d``."""
+    stride = _triple(stride)
+    kt, kh, kw = w.shape[2:]
+    if stride != (1, 1, 1) or (kt != 1 and (kh, kw) != (1, 1)):
+        return _conv3d(x, w, b, groups, stride)
+    if kt != 1:
+        if groups != 1:
+            raise ValueError(f"a (kt, 1, 1) conv takes no groups, got "
+                             f"{groups}")
         return _temporal_conv(x, w, b)
     B, T, H, W, C = x.shape
     kh, kw = w.shape[3], w.shape[4]
@@ -62,6 +80,47 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                    None if b is None else b.to(x.dtype), padding=pad,
                    groups=groups)
     return out.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
+
+
+def _conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+            groups: int, stride: tuple[int, int, int]) -> torch.Tensor:
+    """The general case through ``F.conv3d`` on an NCDHW view of the
+    channels-last clip, XLA's SAME padding (explicit where it is not
+    symmetric)."""
+    pads = [_same(k, n, s) for k, n, s in zip(w.shape[2:], x.shape[1:4],
+                                               stride)]
+    xi = x.permute(0, 4, 1, 2, 3)
+    if all(lo == hi for lo, hi in pads):
+        pad = tuple(lo for lo, _ in pads)
+    else:
+        xi = F.pad(xi, [p for lo_hi in reversed(pads) for p in lo_hi])
+        pad = (0, 0, 0)
+    out = F.conv3d(xi, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                   stride=stride, padding=pad, groups=groups)
+    return out.permute(0, 2, 3, 4, 1)
+
+
+def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None,
+                     stride=(1, 2, 2)) -> torch.Tensor:
+    """``lax.conv_transpose(x, w, stride, "SAME")`` of the JAX package
+    (ops/conv.py:152-170) for k 3 and strides of 1 or 2: ``x (B, T, H, W,
+    Cin)``, ``w (Cout, Cin, 3, 3, 3)`` (the checkpoint's DHWIO kernel in
+    Conv3d's layout, not flipped) -> ``(B, s T, s H, s W, Cout)``. Torch's
+    ``conv_transpose3d`` flips the kernel and pads both ends alike, so it
+    takes the kernel flipped with in and out swapped and no padding at
+    stride 2, and each stride-2 axis keeps its first ``2 n`` outputs (of ``2
+    n + 1``)."""
+    stride = _triple(stride)
+    if tuple(w.shape[2:]) != (3, 3, 3) or not set(stride) <= {1, 2}:
+        raise ValueError(f"conv_transpose3d takes a 3x3x3 kernel and "
+                         f"strides of 1 or 2, got {tuple(w.shape)}, {stride}")
+    wt = w.flip(2, 3, 4).transpose(0, 1).to(x.dtype)   # (Cin, Cout, k...)
+    out = F.conv_transpose3d(
+        x.permute(0, 4, 1, 2, 3), wt, None if b is None else b.to(x.dtype),
+        stride=stride, padding=tuple(1 if s == 1 else 0 for s in stride))
+    T, H, W = (s * n for s, n in zip(stride, x.shape[1:4]))
+    return out[:, :, :T, :H, :W].permute(0, 2, 3, 4, 1)
 
 
 def _temporal_conv(x: torch.Tensor, w: torch.Tensor,

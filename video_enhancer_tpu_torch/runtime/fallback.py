@@ -6,8 +6,8 @@ model an ordered list of candidates (``FALLBACK_HIERARCHIES``, a copy of
 the first candidate that builds within the timeout while the host keeps its
 free-memory floor (``psutil`` when installed; without it the check passes,
 as in the JAX package) and records every attempt in its history. A model
-the port does not serve yet (seedvr2, realesrgan) fails its build like any
-other failed build: the attempt is recorded and the next candidate tried.
+the port does not serve yet (realesrgan) fails its build like any other
+failed build: the attempt is recorded and the next candidate tried.
 Handlers are built on ``device`` (the card unless ``"cpu"`` is asked for).
 """
 

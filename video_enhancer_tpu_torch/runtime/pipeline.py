@@ -7,6 +7,8 @@ Counterpart of video_enhancer_tpu/runtime/pipeline.py, with two entries:
   samples the router's 12 frames, routes them, runs the preprocessing
   experts, builds the primary's handler, feeds it the router's degradation
   context (ditvr) and streams the frames through it. It needs no OpenCV.
+  A VSR handler's stats carry ``windows_skipped`` (the windows seedvr2's
+  quality gate passed through), as its ``enhance_video`` stats do.
 - ``run_auto_pipeline(input_path, output_path, ...) -> stats``: the same
   flow file to file through OpenCV, with the preprocessed video written to
   an intermediate file, as the JAX pipeline does. It takes the JAX
@@ -39,6 +41,7 @@ from ..device import resolve_device
 from ..io.video import sample_indices
 from .experts import preprocess_clip
 from .registry import build_handler, probe_available
+from .vsr_handler import VSRHandler
 
 log = logging.getLogger(__name__)
 
@@ -88,6 +91,15 @@ def _finish_stats(stats: dict, handler, plan: dict, t0: float) -> dict:
     return stats
 
 
+def _stream(handler, frames) -> tuple[list[np.ndarray], dict]:
+    """The handler's output frames and, from a VSR handler, its
+    ``windows_skipped``."""
+    if not isinstance(handler, VSRHandler):
+        return list(handler.enhance_frames(iter(frames))), {}
+    counts = {"windows_skipped": 0}
+    return list(handler.enhance_frames(iter(frames), counts)), counts
+
+
 def preprocess_frames(frames_u8, experts: dict,
                       device: torch.device) -> list[np.ndarray]:
     """The preprocessing experts over the whole clip on ``device``, back
@@ -132,13 +144,13 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
         if handler.context:
             apply_degradation_context(handler, plan)
         t1 = time.time()
-        out = list(handler.enhance_frames(iter(frames)))
+        out, counts = _stream(handler, frames)
     except Exception as e:  # the primary's failure serves bicubic
         log.warning("primary model %s failed (%s); bicubic fallback",
                     primary, e, exc_info=True)
         handler = build_handler("bicubic", policy, device=dev)
         t1 = time.time()
-        out = list(handler.enhance_frames(iter(frames)))
+        out, counts = _stream(handler, frames)
         fallback = {"fallback_from": primary, "fallback_error": str(e)}
     else:
         fallback = {}
@@ -151,7 +163,7 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
              "fps": len(out) / dt if dt > 0 else 0.0,
              "input_resolution": [h, w],
              "output_resolution": list(out[0].shape[:2]) if out else [],
-             "scale": handler.scale, **fallback}
+             "scale": handler.scale, **counts, **fallback}
     return out, _finish_stats(stats, handler, plan, t0)
 
 

@@ -1,11 +1,11 @@
-"""Handler registry of the port: vsrm, fast_mamba_vsr, ditvr, rvrt,
+"""Handler registry of the port: vsrm, fast_mamba_vsr, seedvr2, ditvr, rvrt,
 cnn_upscaler and bicubic.
 
 Counterpart of video_enhancer_tpu/runtime/registry.py: availability
 (:48-75), the handler cache (:21-23, 78-90), the weight-resolution chain
 (:93-123), the serving mesh (:126-135) and the handlers of cnn_upscaler
-and bicubic (:145-160), fast_mamba_vsr (:161-185), vsrm (:187-215), ditvr
-(:235-266) and rvrt (:268-281). Each handler reads its entry from the
+and bicubic (:145-160), fast_mamba_vsr (:161-185), vsrm (:187-215), seedvr2
+(:218-233), ditvr (:235-266) and rvrt (:268-281). Each handler reads its entry from the
 policy it is given (the default policy otherwise). The JAX cache is keyed
 by the model's name alone; this one is keyed by everything a build reads
 (the name, the device, the policy's entry and the mesh), so a handler
@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 from ..config import MODELS, ModelEntry, Policy, default_policy
 from ..device import resolve_device
-from ..models import ditvr, fast_mamba_vsr, rvrt, vsrm
+from ..models import ditvr, fast_mamba_vsr, rvrt, seedvr2, vsrm
 from ..parallel.mesh import Mesh, mesh_on_group
 from .calibration import calibrate_restore, calibrate_vsr
 from .qualification import disqualified_models
@@ -67,6 +67,9 @@ def _init(name: str, entry: ModelEntry, gen: torch.Generator) -> dict:
         return fast_mamba_vsr.init(gen, dim=int(x.get("dim", 48)),
                                    num_layers=int(x.get("num_layers", 8)),
                                    scale=entry.scale)
+    if name == "seedvr2":
+        return seedvr2.init(gen,
+                            base_channels=int(x.get("base_channels", 32)))
     raise KeyError(f"no parameters to load for {name!r}")
 
 
@@ -126,8 +129,10 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
                   device: str | torch.device | None = None):
     """The serving handler of ``name`` on ``device`` (the card unless
     ``"cpu"`` is asked for), with its entry from ``policy``: the VSR models
-    in bf16 behind their calibrated blends, on the policy's mesh when one is
-    up (``_serving_mesh``), cnn_upscaler in bf16, bicubic in fp32. A handler
+    in bf16 behind their calibrated blends (seedvr2 blends inside its
+    ``apply`` and gates sharp windows: ``quality_threshold``, 0.85 unless
+    ``extra`` sets it), on the policy's mesh when one is up
+    (``_serving_mesh``), cnn_upscaler in bf16, bicubic in fp32. A handler
     is built once for each name, device, entry and mesh and then handed
     out again (``clear_cache`` forgets them); a build that raises caches
     nothing. The build runs outside the cache's lock, so a slow build does
@@ -206,6 +211,13 @@ def _build(name: str, entry: ModelEntry, device: torch.device, mesh):
                 p, x, scale=scale)),
             params, scale=scale, chunk=entry.chunk, overlap=entry.overlap,
             **tiles)
+    if name == "seedvr2":
+        # no calibration wrapper: the strength is applied inside ``apply``
+        return VSRHandler(
+            name, lambda p, x: seedvr2.apply(p, x), params, scale=1,
+            quality_threshold=float(entry.extra.get("quality_threshold",
+                                                    0.85)),
+            **windows)
     heads = int(entry.extra.get("heads", 6))
 
     def ditvr_apply(p, x, degradation_scores, degradation_type):

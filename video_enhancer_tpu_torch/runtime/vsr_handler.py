@@ -1,8 +1,7 @@
 """Streaming VSR handler: temporal windows and spatial tiles around a clip
 model ``(B, T, H, W, 3) -> (B, T, sH, sW, 3)``.
 
-Counterpart of video_enhancer_tpu/runtime/vsr_handler.py:35-247 without its
-quality gate (a scale-1 option of seedvr2, not ported yet):
+Counterpart of video_enhancer_tpu/runtime/vsr_handler.py:35-247:
 
 - windows of ``chunk`` frames overlapping by ``overlap``; overlap frames are
   written from the later window (its fresh temporal context) and a padded
@@ -14,6 +13,11 @@ quality gate (a scale-1 option of seedvr2, not ported yet):
   T and H split over the mesh runs sharded instead
   (parallel/inference.py ``make_mesh_sharded_clip_fn``: frame halos of
   ``max(overlap, 1)``, row halos of 8), on every rank of the mesh;
+- the quality gate of scale-1 models (seedvr2): with ``quality_threshold``
+  set, a window whose middle frame's sharpness (``window_quality``) is above
+  it passes through unchanged, its uint8 frames out and no forward run, and
+  counts in ``windows_skipped``; a model of another scale warns and ignores
+  the threshold (``gating_supported``);
 - parameters are cast to the compute dtype (bf16 by default) once;
 - ``context`` holds per-video conditioning (ditvr's degradation scores and
   type) as tensors on the handler's device, passed to the model as keyword
@@ -23,6 +27,7 @@ quality gate (a scale-1 option of seedvr2, not ported yet):
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Callable, Iterable, Iterator
 
@@ -34,9 +39,15 @@ from ..io.pipeline import iter_windows
 from ..ops.blend import overlap_add_blend
 from ..parallel.inference import make_mesh_sharded_clip_fn
 
-__all__ = ["VSRHandler", "cast_params"]
+__all__ = ["VSRHandler", "cast_params", "rgb_to_gray", "window_quality"]
+
+log = logging.getLogger(__name__)
 
 _TILE_GROUP = 4
+# cv2's fixed-point COLOR_RGB2GRAY for uint8 (OpenCV 5): (R, G, B) weights
+# over 2 ** 15, equal to cv2 on all 2 ** 24 colours
+_GRAY_WEIGHTS = (9798, 19235, 3735)
+_GRAY_SHIFT = 15
 
 
 def cast_params(params, dtype, device):
@@ -50,6 +61,32 @@ def cast_params(params, dtype, device):
     return params.to(device)
 
 
+def rgb_to_gray(frame_u8: torch.Tensor) -> torch.Tensor:
+    """cv2's ``COLOR_RGB2GRAY`` of a uint8 ``(H, W, 3)`` frame, in its
+    fixed point: ``(9798 R + 19235 G + 3735 B + 2 ** 14) >> 15``, int32."""
+    r, g, b = frame_u8.int().unbind(-1)
+    wr, wg, wb = _GRAY_WEIGHTS
+    return (r * wr + g * wg + b * wb + (1 << (_GRAY_SHIFT - 1))) \
+        >> _GRAY_SHIFT
+
+
+def window_quality(frames_u8: torch.Tensor) -> float:
+    """The JAX handler's sharpness of a window (vsr_handler.py:162-172),
+    without OpenCV: its middle frame as the JAX handler sees it (uint8 over
+    255 in fp32, times 255, truncated to uint8), ``rgb_to_gray``, cv2's
+    ``ksize=1`` Laplacian with reflect-101 borders in fp32, its variance
+    (ddof 0) over 500, capped at 1. ``frames_u8``: ``(T, H, W, 3)`` uint8
+    on any device."""
+    mid = frames_u8[frames_u8.shape[0] // 2]
+    gray = rgb_to_gray((mid.float() / 255.0 * 255.0).to(torch.uint8))
+    p = torch.nn.functional.pad(gray.float()[None, None], (1, 1, 1, 1),
+                                mode="reflect")[0, 0]
+    lap = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+           - 4.0 * p[1:-1, 1:-1])
+    var = lap.double().var(correction=0).item()
+    return min(var / 500.0, 1.0)
+
+
 class VSRHandler:
     """Wraps a clip model with windowed, tiled video processing."""
 
@@ -57,7 +94,8 @@ class VSRHandler:
                  chunk: int = 8, overlap: int = 2, tile: int = 512,
                  tile_overlap: int = 32, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device | None = None,
-                 context: dict | None = None, mesh=None):
+                 context: dict | None = None,
+                 quality_threshold: float | None = None, mesh=None):
         self.name = name
         self.apply_fn = apply_fn
         self.scale = scale
@@ -66,6 +104,11 @@ class VSRHandler:
         self.tile = tile
         self.tile_overlap = tile_overlap
         self.dtype = dtype
+        self.gating_supported = scale == 1
+        self.quality_threshold = quality_threshold if scale == 1 else None
+        if quality_threshold is not None and not self.gating_supported:
+            log.warning("%s: quality_threshold ignored (scale=%d model; "
+                        "gating is restoration-only)", name, scale)
         self.device = resolve_device(device)
         self.params = cast_params(params, dtype, self.device)
         self.context = {k: torch.as_tensor(v).to(self.device)
@@ -132,19 +175,29 @@ class VSRHandler:
         stacked = torch.cat(outs, dim=0)              # (N, T, sts, sts, 3)
         return overlap_add_blend(stacked, origins, (h * s, w * s), ov * s)
 
-    def enhance_frames(self, frames: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
+    def enhance_frames(self, frames: Iterable[np.ndarray],
+                       stats: dict | None = None) -> Iterator[np.ndarray]:
         """The streaming loop: uint8 ``(H, W, 3)`` frames in, upscaled uint8
-        frames out, one per input frame, in order."""
+        frames out, one per input frame, in order. ``stats``, when given,
+        gets ``windows_skipped``: the windows the quality gate passed
+        through."""
         stride = self.chunk - self.overlap
+        skipped = 0
         for win in iter_windows(frames, self.chunk, stride):
-            clip = torch.from_numpy(win.frames).to(self.device).float() / 255.0
-            out = self.process_clip(clip)
+            u8 = torch.from_numpy(win.frames).to(self.device)
+            if (self.quality_threshold is not None
+                    and window_quality(u8) > self.quality_threshold):
+                skipped += 1                      # already sharp: unchanged
+            else:
+                out = self.process_clip(u8.float() / 255.0)
+                u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(
+                    torch.uint8)
             begin = self.overlap if win.start > 0 else 0
             end = min(win.valid, self.chunk)
-            if begin >= end:
-                continue
-            u8 = torch.clamp(torch.round(out[begin:end] * 255.0), 0, 255)
-            yield from u8.to(torch.uint8).cpu().numpy()
+            if begin < end:
+                yield from u8[begin:end].cpu().numpy()
+        if stats is not None:
+            stats["windows_skipped"] = skipped
 
     def enhance_video(self, input_path, output_path) -> dict:
         """File to file through ``enhance_frames`` (OpenCV IO)."""
@@ -154,7 +207,9 @@ class VSRHandler:
         meta = get_video_metadata(input_path)
         s = self.scale
         out_hw = (meta.height * s, meta.width * s)
-        n = write_frames(output_path, self.enhance_frames(read_frames(input_path)),
+        counts = {"windows_skipped": 0}
+        n = write_frames(output_path,
+                         self.enhance_frames(read_frames(input_path), counts),
                          out_hw, fps=meta.fps)
         dt = time.time() - t0
         return {"status": "success", "model": self.name,
@@ -162,5 +217,5 @@ class VSRHandler:
                 "fps": n / dt if dt > 0 else 0.0,
                 "input_resolution": [meta.height, meta.width],
                 "output_resolution": list(out_hw), "scale": s,
-                "chunk": self.chunk, "overlap": self.overlap,
+                "chunk": self.chunk, **counts, "overlap": self.overlap,
                 "output_path": str(output_path)}
