@@ -88,7 +88,23 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    ``vsrm.apply`` on those 7 frames against the model on the same
    edge-padded clip, trimmed, with frames/s; a handler on
    that mesh, and the registry's on the policy's (1, 1, 1) mesh, take the
-   unsharded path.
+   unsharded path;
+11. the auto route to seedvr2: ``run_auto_frames`` on a seeded blocky
+   16-frame 180x320 clip the router sends to seedvr2 (3 flash launches a
+   window), window 0 against the plain versions; a sharp clip that its
+   quality gate passes through with no launch;
+12. the temporal-consistency post stage alone (``temporal_smooth``: torch
+   Farneback flow, warp, 0.7/0.3 blend) on phase 4's 16 output frames of
+   720x1280 and on its 180x320 input: ms a frame of the stage and of the
+   flow, the flow's device kernels and device time from ``torch.profiler``;
+   the card's flow for one pair against the CPU's (1e-4 px) and the card's
+   smoothed frames against the CPU's (``STAGE_MAX_LSB``, ``STAGE_MEAN_LSB``);
+   no hand-written kernel launched.
+
+In phases 5-7 and 11 the route runs the temporal stage wherever its plan
+holds ``temporal_consistency`` (phases 5-7 here): the streamed frames of
+window 0 are then held within 1 LSB of the stage run on window 0's rounded
+output (the stage is causal), and the stats must say it ran with no error.
 
 The line before the card's name and power limit holds the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. The script
@@ -131,6 +147,7 @@ from video_enhancer_tpu_torch.ops.scan import (
     selective_scan_assoc, selective_scan_bidir, selective_scan_bidir_plain,
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
     selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
+from video_enhancer_tpu_torch.ops.optflow import estimate_flow_farneback
 from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
@@ -140,6 +157,7 @@ from video_enhancer_tpu_torch.parallel.inference import (
 from video_enhancer_tpu_torch.parallel.mesh import make_mesh
 from video_enhancer_tpu_torch.parallel.spatial import \
     make_spatially_sharded_clip_fn
+from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
 from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
@@ -212,6 +230,11 @@ TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
        ("dwconv_silu", "bfloat16"): 1e-2}
 # one served window, kernels vs plain versions (both bf16), on [0, 1]
 WINDOW_MAX_ABS, WINDOW_MEAN_ABS = 0.05, 0.005
+# the temporal stage, card against CPU: the flow in px; the smoothed
+# frames in LSB (1/255), where a value a hair across k/255 on one side
+# gives a gray level one apart and moves the flow a little there
+FLOW_MAX_ABS = 1e-4
+STAGE_MAX_LSB, STAGE_MEAN_LSB = 1.0, 0.01
 
 
 class Failure(RuntimeError):
@@ -1012,7 +1035,7 @@ def main_path(device_line: str) -> dict:
                  - u8.cpu().numpy().astype(np.int16)).max()
     print(f"streamed frames 0..{handler.chunk - 1} vs window 0: max {lsb} LSB")
     check(lsb <= 1, "streamed frames differ from the window's output")
-    return {"counts": counts, "fps": fps}
+    return {"counts": counts, "fps": fps, "frames": out}
 
 
 def dim_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
@@ -1127,16 +1150,13 @@ def auto_route(device_line: str) -> dict:
           f"{WINDOW_MAX_ABS}), mean_abs {mean:.4e} (tol {WINDOW_MEAN_ABS})")
     check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
           "window output differs from the plain versions")
-    u8 = torch.clamp(torch.round(y_k * 255.0), 0, 255).to(torch.uint8)
-    lsb = np.abs(np.stack(out[:entry.window]).astype(np.int16)
-                 - u8.cpu().numpy().astype(np.int16)).max()
-    print(f"streamed frames 0..{entry.window - 1} vs window 0: max {lsb} LSB")
-    check(lsb <= 1, "streamed frames differ from the window's output")
+    _lsb_check(out, y_k, entry.window, stats)
 
     enh = stats["processing_time_sec"]
     print(f"ditvr auto route {h}x{w}: {n} frames in {secs:.3f} s end to end "
           f"= {n / secs:.2f} frames/s (routing {plan['analysis_time_sec']:.3f}"
-          f" s); enhance {enh:.3f} s = {stats['fps']:.2f} frames/s, "
+          f" s{_stage_note(stats, n)}); enhance {enh:.3f} s = "
+          f"{stats['fps']:.2f} frames/s, "
           f"{1000 * enh / windows:.1f} ms/window ({device_line})")
     return {"counts": counts, "fps": n / secs}
 
@@ -1208,19 +1228,45 @@ def _served_run(frames, kw: dict, name: str, per_window: dict,
     print(f"{name} x{scale} {h}x{w} -> {scale * h}x{scale * w}: {n} frames "
           f"in {secs:.3f} s "
           f"end to end = {n / secs:.2f} frames/s (routing "
-          f"{plan['analysis_time_sec']:.3f} s); enhance {enh:.3f} s = "
+          f"{plan['analysis_time_sec']:.3f} s{_stage_note(stats, n)}); "
+          f"enhance {enh:.3f} s = "
           f"{stats['fps']:.2f} frames/s, {1000 * enh / windows:.1f} ms/window"
           f" ({device_line})")
     return out, stats, counts
 
 
-def _lsb_check(out, y_k, chunk: int) -> None:
-    """The streamed frames of window 0 against its output."""
+def _stage_note(stats: dict, n: int) -> str:
+    """The temporal stage's share of a served run, for its summary line."""
+    if "temporal_smoothing_sec" not in stats:
+        return "; no temporal stage"
+    t = stats["temporal_smoothing_sec"]
+    return f"; temporal stage {t:.3f} s = {1000 * t / n:.2f} ms/frame"
+
+
+def _lsb_check(out, y_k, chunk: int, stats: dict) -> None:
+    """The streamed frames of window 0 against its output or, where the
+    plan holds the temporal stage, against the stage on its rounded output
+    (the stage is causal, so the first frames out depend on these alone);
+    the stats must say the stage ran, with no error."""
     u8 = torch.clamp(torch.round(y_k * 255.0), 0, 255).to(torch.uint8)
+    check("temporal_consistency_error" not in stats,
+          f"the temporal stage failed: "
+          f"{stats.get('temporal_consistency_error')}")
+    what = "window 0"
+    if "temporal_consistency" in stats["routing_plan"]["processing_order"]:
+        check(stats.get("temporal_smoothing") is True,
+              "the plan holds the temporal stage and it did not run")
+        with torch.inference_mode():
+            smooth = temporal_smooth(u8.float() / 255.0)
+        u8 = torch.clamp(torch.round(smooth * 255.0), 0, 255).to(torch.uint8)
+        what = "the temporal stage on window 0"
+    else:
+        check("temporal_smoothing" not in stats,
+              "the temporal stage ran without the plan asking for it")
     lsb = np.abs(np.stack(out[:chunk]).astype(np.int16)
                  - u8.cpu().numpy().astype(np.int16)).max()
-    print(f"streamed frames 0..{chunk - 1} vs window 0: max {lsb} LSB")
-    check(lsb <= 1, "streamed frames differ from the window's output")
+    print(f"streamed frames 0..{chunk - 1} vs {what}: max {lsb} LSB")
+    check(lsb <= 1, f"streamed frames differ from {what}")
 
 
 @phase("6 rvrt path")
@@ -1236,7 +1282,7 @@ def rvrt_path(device_line: str) -> dict:
     y_k = _window_check(frames, stats["routing_plan"], handler,
                         calibrate_vsr("rvrt", lambda p, x: rvrt.apply(
                             p, x, scale=entry.scale, kernels=False)))
-    _lsb_check(out, y_k, handler.chunk)
+    _lsb_check(out, y_k, handler.chunk, stats)
     manager = ModelFallbackManager()
     fb, used = manager.load_model_with_fallbacks("rvrt")
     print(f"fallback manager for rvrt: {used} on {fb.device}; history "
@@ -1262,7 +1308,7 @@ def strict_route(device_line: str) -> dict:
                                       lambda p, x: fast_mamba_vsr.apply(
                                           p, x, scale=entry.scale,
                                           kernels=False)))
-    _lsb_check(out, y_k, handler.chunk)
+    _lsb_check(out, y_k, handler.chunk, stats)
     return {"counts": counts, "fps": stats["fps"]}
 
 
@@ -1609,7 +1655,7 @@ def seedvr2_route(device_line: str) -> dict:
     # and both drawing the noise of seed 0
     y_k = _window_check(frames, stats["routing_plan"], handler,
                         lambda p, x: seedvr2.apply(p, x, kernels=False))
-    _lsb_check(out, y_k, handler.chunk)
+    _lsb_check(out, y_k, handler.chunk, stats)
 
     # the gate: a sharp clip passes through unchanged, no kernel launched
     sharp = sharp_clip(16, 180, 320)
@@ -1631,6 +1677,89 @@ def seedvr2_route(device_line: str) -> dict:
           "a skipped window changed its frames")
     torch.cuda.empty_cache()
     return {"counts": counts, "fps": stats["fps"]}
+
+
+def _kernel_profile(fn) -> tuple:
+    """The device kernels one call of ``fn`` launches, their device time in
+    ms and the five that take most of it (name, launches, ms), from
+    ``torch.profiler`` (CUPTI); None where it sees none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = (getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0))
+            name = e.key.replace("void ", "").split("(")[0][:60]
+            rows.append((us / 1e3, e.count, name))
+    if not rows:
+        return None, None, []
+    rows.sort(reverse=True)
+    return (sum(r[1] for r in rows), sum(r[0] for r in rows),
+            [f"{name} x{n} {ms:.3f}" for ms, n, name in rows[:5]])
+
+
+@phase("12 temporal stage")
+def temporal_stage(big: list, small: list, device_line: str) -> None:
+    """``temporal_smooth`` alone on the card on 16 frames of 720x1280
+    (phase 4's output) and of 180x320 (its input): ms a frame of the stage
+    and of the flow, with the flow's kernels and device time; then the
+    card's flow and smoothed frames at 720x1280 against the CPU's."""
+    clips = {}
+    for frames in (big, small):
+        clip = torch.from_numpy(np.stack(frames)).cuda().float() / 255.0
+        n, h, w = clip.shape[:3]
+        clips[h] = clip
+        with torch.inference_mode():
+            temporal_smooth(clip[:2])                 # warm-up, not counted
+            _, counts, _ = _counted(temporal_smooth, clip)
+            check(counts == _only(),
+                  f"the temporal stage launched a kernel: {counts}")
+            # events around a host-bound call read its wall time
+            stage = time_ms(lambda: temporal_smooth(clip), 1, 3)
+            flows = time_ms(lambda: [estimate_flow_farneback(clip[i - 1],
+                                                             clip[i])
+                                     for i in range(1, n)], 1, 3)
+            launches, dev, top = _kernel_profile(
+                lambda: estimate_flow_farneback(clip[0], clip[1]))
+        flow_ms = flows / (n - 1)
+        prof = ("not measured" if launches is None else
+                f"{launches} device kernels, {dev:.3f} ms device time "
+                f"({100 * (1 - dev / flow_ms):.0f}% of its wall time idle)")
+        print(f"temporal stage {h}x{w}, {n} frames: {stage / n:.3f} ms/frame"
+              f" ({stage:.1f} ms); Farneback {flow_ms:.3f} ms a pair; one "
+              f"pair: {prof} ({device_line})")
+        if top:
+            print(f"  its top device kernels (ms): {'; '.join(top)}")
+
+    clip = clips[720]
+    with torch.inference_mode():
+        card = estimate_flow_farneback(clip[0], clip[1])
+        cpu = estimate_flow_farneback(clip[0].cpu(), clip[1].cpu())
+        err = (card.cpu() - cpu).abs().max().item()
+        print(f"flow 720x1280, card vs CPU: max_abs {err:.3e} px (tol "
+              f"{FLOW_MAX_ABS}); max |flow| {cpu.abs().max().item():.3f} px")
+        check(err <= FLOW_MAX_ABS, "the card's flow differs from the CPU's")
+        t0 = time.perf_counter()
+        ref = temporal_smooth(clip.cpu())
+        cpu_s = time.perf_counter() - t0
+        got = temporal_smooth(clip).cpu()
+    check(bool(torch.isfinite(got).all()), "smoothed frames not finite")
+    lsb = (got - ref).abs() * 255.0
+    mx, mean = lsb.max().item(), lsb.mean().item()
+    moved = ((ref - clip.cpu()).abs() * 255.0).max().item()
+    print(f"smoothed frames 720x1280, card vs CPU ({cpu_s:.1f} s on the "
+          f"CPU): max {mx:.4f} LSB (tol {STAGE_MAX_LSB}), mean {mean:.2e} "
+          f"LSB (tol {STAGE_MEAN_LSB}); the stage moves frames by up to "
+          f"{moved:.1f} LSB")
+    check(mx <= STAGE_MAX_LSB and mean <= STAGE_MEAN_LSB,
+          "the card's smoothed frames differ from the CPU's")
+    check(moved > 1.0, "the stage left the frames as they were")
+    torch.cuda.empty_cache()
 
 
 SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
@@ -1693,6 +1822,8 @@ def main() -> int:
     layer_counts = layers()
     opt_in = opt_in_kernels(f"{env['kind']}, {env['smi']}")
     sv = seedvr2_route(f"{env['kind']}, {env['smi']}")
+    temporal_stage(path.pop("frames"), synthetic_clip(16, 180, 320),
+                   f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],

@@ -5,7 +5,8 @@ lengths, strided views of a split projection, every dtype; seedvr2's
 shape and route), and the SSD,
 the Mamba-1 scans, the shared bidirectional scan and the depthwise conv +
 SiLU also at the shapes the served paths give them; the exact time-sharded
-fast_mamba_vsr on a one-rank NCCL group.
+fast_mamba_vsr on a one-rank NCCL group; the temporal stage's Farneback
+flow and ``temporal_smooth`` on the card against the CPU.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -1318,3 +1319,46 @@ def test_bissd_conv_impl_routes_through_the_conv_kernel(cuda):
     assert kernels.launch_counts["ssd_shared"] == 2
     assert sum(kernels.launch_counts.values()) == 3
     assert _rel(y, bissd_apply(p, x)) <= 3e-2
+
+
+def _moving_frames(t, h, w, seed):
+    """Seeded colour waves moving 2.5 px right and 1.5 px up a frame, with
+    fine noise, fp32 in [0, 1], ``(t, h, w, 3)``."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = g.uniform(0, 2 * np.pi, 3)
+    clip = np.stack([np.stack(
+        [0.5 + 0.3 * np.sin(0.15 * (xx - 2.5 * i) + 0.1 * (yy + 1.5 * i)
+                            + ph[c]) for c in range(3)], -1)
+        for i in range(t)])
+    clip = clip + g.normal(0, 0.02, clip.shape)
+    return torch.from_numpy(np.clip(clip, 0, 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,w", [(45, 77), (132, 154), (180, 320)])
+def test_farneback_on_the_card_matches_cpu(cuda, h, w):
+    """The torch Farneback (its fp64 band products, fp32 update and fp64
+    solve) on the card against the CPU on the same pair: 1e-4 px."""
+    from video_enhancer_tpu_torch.ops.optflow import estimate_flow_farneback
+
+    clip = _moving_frames(2, h, w, seed=h)
+    ref = estimate_flow_farneback(clip[0], clip[1])
+    got = estimate_flow_farneback(clip[0].to(cuda), clip[1].to(cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert ref.abs().max() > 1.0
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+def test_temporal_smooth_on_the_card_matches_cpu(cuda):
+    """The temporal stage on the card against the CPU on a moving 6-frame
+    clip: 1 LSB at most, 0.01 LSB on average."""
+    from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
+
+    clip = _moving_frames(6, 64, 96, seed=0)
+    ref = temporal_smooth(clip)
+    got = temporal_smooth(clip.to(cuda)).cpu()
+    lsb = (got - ref).abs() * 255
+    assert lsb.max().item() <= 1.0 and lsb.mean().item() <= 0.01
+    assert ((ref - clip).abs() * 255).max().item() > 5

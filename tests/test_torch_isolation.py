@@ -3,7 +3,8 @@ JAX, OpenCV, PyYAML or the JAX package: the card's machine has none of them
 (OpenCV only inside the port's file-IO functions). Checked in fresh
 interpreters: one imports every module of the port, chip_smoke.py and the
 A/B script; one, where those packages cannot be
-imported at all, drives the auto route on frames in memory; one, likewise,
+imported at all, drives the auto route on frames in memory, its temporal
+stage included; one, likewise,
 drives rvrt (an explicit engine and the fallback manager) and the
 strict-latency route to fast_mamba_vsr; one, likewise, drives the route to
 seedvr2 with its quality gate."""
@@ -46,7 +47,8 @@ out, stats = run_auto_frames(dim_clip(8, 16, 16), device="cpu")
 plan = stats["routing_plan"]
 print(json.dumps({"primary": plan["expert_routing"]["primary_model"],
                   "fallback": "fallback" in plan or "fallback_from" in stats,
-                  "frames": len(out)}))
+                  "frames": len(out),
+                  "smoothed": stats.get("temporal_smoothing", False)}))
 """ % (BAD,)
 
 
@@ -105,16 +107,18 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.weights", "parallel.mesh", "parallel.temporal",
                  "parallel.inference", "parallel.spatial",
                  "models.seedvr2", "models.diffusion", "ops.prng",
-                 "ops.warp", "ops.conv"):
+                 "ops.warp", "ops.conv", "ops.color", "ops.optflow"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
 
 def test_auto_route_runs_without_jax_cv2_or_yaml():
-    """Routing, preprocessing and ditvr run with those packages absent, and
-    nothing falls back (a failed import would show as a fallback)."""
+    """Routing, preprocessing, ditvr and the temporal stage (its optical
+    flow in torch) run with those packages absent, and nothing falls back
+    (a failed import would show as a fallback, or as the stage's error)."""
     res = _run(ROUTE)
-    assert res == {"primary": "ditvr", "fallback": False, "frames": 8}
+    assert res == {"primary": "ditvr", "fallback": False, "frames": 8,
+                   "smoothed": True}
 
 
 def test_rvrt_and_strict_routes_run_without_jax_cv2_or_yaml():

@@ -36,11 +36,12 @@ from video_enhancer_tpu_torch.analysis import DegradationRouter
 from video_enhancer_tpu_torch.io.video import (read_frames, sample_indices,
                                                write_frames)
 from video_enhancer_tpu_torch.models import seedvr2 as tseedvr2
+from video_enhancer_tpu_torch.ops.color import rgb_to_gray
 from video_enhancer_tpu_torch.runtime import pipeline as tpipeline
 from video_enhancer_tpu_torch.runtime import registry
 from video_enhancer_tpu_torch.runtime import weights as tweights
+from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
 from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
-                                                         rgb_to_gray,
                                                          window_quality)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -342,7 +343,8 @@ def test_run_auto_frames_serves_seedvr2():
     assert np.abs(np.stack(out[:8]).astype(np.int16)
                   - want.numpy().astype(np.int16)).max() <= 1
     # a sharp clip: every window passes through, the frames exactly as
-    # the preprocessing experts the plan asks for leave them
+    # the preprocessing experts the plan asks for leave them, then the
+    # temporal stage the plan asks for (the clip flickers)
     sharp = sharp_clip(10, 16, 24)
     out, stats = tpipeline.run_auto_frames(sharp, engine="seedvr2",
                                            device="cpu")
@@ -350,7 +352,12 @@ def test_run_auto_frames_serves_seedvr2():
     pre = tpipeline.preprocess_frames(sharp, plan["expert_routing"]
                                       ["experts"], torch.device("cpu"))
     assert stats["windows_skipped"] == 2 and stats["model"] == "seedvr2"
-    np.testing.assert_array_equal(np.stack(out), np.stack(pre))
+    assert "temporal_consistency" in plan["processing_order"]
+    assert stats["temporal_smoothing"] is True
+    clip = torch.from_numpy(np.stack(pre)).float() / 255.0
+    want = torch.clamp(torch.round(temporal_smooth(clip) * 255), 0, 255)
+    np.testing.assert_array_equal(np.stack(out),
+                                  want.to(torch.uint8).numpy())
 
 
 def test_served_handlers_match_jax_in_bf16(shaped_jax_init):

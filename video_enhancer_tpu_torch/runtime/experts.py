@@ -1,14 +1,16 @@
-"""Preprocessing experts, as torch ops on the clip's device.
+"""Pre- and post-processing experts, as torch ops on the clip's device.
 
-Counterpart of video_enhancer_tpu/runtime/experts.py:21-69: each expert is
-a function of a clip ``(T, H, W, 3)`` float32 in [0, 1]; ``preprocess_clip``
-runs compression cleanup, then denoising, then the low-light boost, as
-asked. The 3x3 binomial blur is a depthwise SAME stencil with zero padding,
-written as a sum of shifted slices (exact fp32 on any device).
+Counterpart of video_enhancer_tpu/runtime/experts.py: each expert is a
+function of a clip ``(T, H, W, 3)`` float32 in [0, 1].
 
-``temporal_smooth`` is not ported: it needs OpenCV's Farneback optical
-flow, which the card's machine does not have; the pipeline records the
-stage as not ported.
+- ``preprocess_clip`` (:21-69) runs compression cleanup, then denoising,
+  then the low-light boost, as asked. The 3x3 binomial blur is a depthwise
+  SAME stencil with zero padding, written as a sum of shifted slices (exact
+  fp32 on any device).
+- ``temporal_smooth`` (:85-96), the temporal-consistency post stage: each
+  frame after the first is blended 0.7 / 0.3 with the previous *output*
+  warped onto it by Farneback optical flow (ops/optflow.py, OpenCV's
+  algorithm in torch), so the stage is sequential and causal.
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.optflow import estimate_flow_farneback
+from ..ops.warp import flow_warp
+
 __all__ = ["preprocess_clip", "denoise", "low_light_boost",
-           "compression_cleanup"]
+           "compression_cleanup", "temporal_smooth"]
 
 _G3 = ((1 / 16, 2 / 16, 1 / 16), (2 / 16, 4 / 16, 2 / 16),
        (1 / 16, 2 / 16, 1 / 16))
@@ -66,3 +71,14 @@ def preprocess_clip(clip: torch.Tensor, do_denoise: bool = False,
     if do_lowlight:
         clip = low_light_boost(clip)
     return clip
+
+
+def temporal_smooth(clip: torch.Tensor, blend: float = 0.3) -> torch.Tensor:
+    """``out[0] = clip[0]``; ``out[i] = (1 - blend) clip[i] + blend
+    flow_warp(out[i-1], flow)``, the flow from ``clip[i]`` to ``out[i-1]``;
+    fp32 ``(T, H, W, 3)`` on any device."""
+    out = [clip[0]]
+    for frame in clip[1:]:
+        flow = estimate_flow_farneback(out[-1], frame)
+        out.append((1 - blend) * frame + blend * flow_warp(out[-1], flow))
+    return torch.stack(out)

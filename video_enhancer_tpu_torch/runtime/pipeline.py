@@ -17,11 +17,18 @@ Counterpart of video_enhancer_tpu/runtime/pipeline.py, with two entries:
 
 A failure of the primary falls back to the bicubic handler and says so in
 ``stats["fallback_from"]`` and ``stats["fallback_error"]``; a conditioned
-primary's context is recorded in ``stats["context"]``. The post stages
-(temporal consistency, face restoration, frame interpolation) are not
-ported: each one the plan asks for is recorded as
-``stats["<stage>_error"] = "not ported"``, where the JAX pipeline records a
-post stage that failed.
+primary's context is recorded in ``stats["context"]``.
+
+The post stages run in the plan's order. Temporal consistency
+(``experts.temporal_smooth``) runs on the handler's device over the
+primary's uint8 output (over 255, smoothed, rounded back), in memory for
+``run_auto_frames`` and, as the JAX pipeline does, on the written file,
+rewritten at its fps, for ``run_auto_pipeline``; it sets
+``stats["temporal_smoothing"]`` and times itself in
+``stats["temporal_smoothing_sec"]``. As in the JAX pipeline a post stage is
+best effort: its failure is recorded as ``stats["<stage>_error"]``, with no
+retry elsewhere. Face restoration and frame interpolation are not ported:
+each one the plan asks for is recorded as ``"not ported"`` there.
 """
 
 from __future__ import annotations
@@ -39,14 +46,14 @@ from ..analysis import DegradationRouter
 from ..config import Policy, default_policy
 from ..device import resolve_device
 from ..io.video import sample_indices
-from .experts import preprocess_clip
+from .experts import preprocess_clip, temporal_smooth
 from .registry import build_handler, probe_available
 from .vsr_handler import VSRHandler
 
 log = logging.getLogger(__name__)
 
 __all__ = ["run_auto_frames", "run_auto_pipeline", "preprocess_frames",
-           "apply_degradation_context"]
+           "apply_degradation_context", "smooth_frames"]
 
 POST_STAGES = ("face_restoration", "temporal_consistency",
                "hfr_interpolation")
@@ -77,18 +84,42 @@ def apply_degradation_context(handler, plan: dict) -> None:
                            degradation_type=dtype_idx)
 
 
-def _finish_stats(stats: dict, handler, plan: dict, t0: float) -> dict:
-    """Record the conditioning the primary ran with, the post stages the
-    plan asks for (not ported), the plan and the total time."""
-    if handler.context:
-        stats["context"] = {k: v.tolist() for k, v in handler.context.items()}
+def _finish_stats(stats: dict, handler, plan: dict, t0: float,
+                  smooth) -> dict:
+    """Run the post stages the plan asks for (``smooth()`` for temporal
+    consistency; the others are not ported), then record the conditioning
+    the primary ran with, the plan and the total time."""
     for stage in plan["processing_order"]:
-        if stage in POST_STAGES:
+        if stage not in POST_STAGES:
+            continue
+        if stage != "temporal_consistency":
             log.warning("post stage %s is not ported", stage)
             stats[f"{stage}_error"] = "not ported"
+            continue
+        t1 = time.time()
+        try:
+            smooth()
+        except Exception as e:  # post stages are best effort
+            log.warning("post stage %s failed: %s", stage, e, exc_info=True)
+            stats[f"{stage}_error"] = str(e)
+            continue
+        stats["temporal_smoothing"] = True
+        stats["temporal_smoothing_sec"] = time.time() - t1
+    if handler.context:
+        stats["context"] = {k: v.tolist() for k, v in handler.context.items()}
     stats["routing_plan"] = plan
     stats["total_time_sec"] = time.time() - t0
     return stats
+
+
+def smooth_frames(frames_u8, device: torch.device) -> list[np.ndarray]:
+    """The temporal-consistency stage on uint8 frames, on ``device``: over
+    255, ``temporal_smooth``, then rounded (halves to even) and clamped
+    back to uint8, as the JAX pipeline does on its written video."""
+    clip = torch.from_numpy(np.stack(frames_u8)).to(device).float() / 255.0
+    out = temporal_smooth(clip)
+    u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
+    return list(u8.cpu().numpy())
 
 
 def _stream(handler, frames) -> tuple[list[np.ndarray], dict]:
@@ -164,7 +195,11 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
              "input_resolution": [h, w],
              "output_resolution": list(out[0].shape[:2]) if out else [],
              "scale": handler.scale, **counts, **fallback}
-    return out, _finish_stats(stats, handler, plan, t0)
+
+    def smooth():
+        out[:] = smooth_frames(out, dev)
+
+    return out, _finish_stats(stats, handler, plan, t0, smooth)
 
 
 def run_auto_pipeline(input_path, output_path, engine: str = "auto",
@@ -176,10 +211,12 @@ def run_auto_pipeline(input_path, output_path, engine: str = "auto",
                       policy: Policy | None = None,
                       device: str | torch.device | None = None) -> dict:
     """File to file: route the file's sampled frames, preprocess into an
-    intermediate file, enhance it with the primary (bicubic on failure).
-    ``scale`` and ``enable_temporal_smoothing`` are accepted as the JAX
-    pipeline accepts them (video_enhancer_tpu/runtime/pipeline.py:26-36),
-    where neither changes the result: the scale is the primary's."""
+    intermediate file, enhance it with the primary (bicubic on failure),
+    then run the post stages on the output file. ``scale`` and
+    ``enable_temporal_smoothing`` are accepted as the JAX pipeline accepts
+    them (video_enhancer_tpu/runtime/pipeline.py:26-36), where neither
+    changes the result: the scale is the primary's, and the plan alone
+    decides the temporal stage (:82-92)."""
     policy = policy or default_policy()
     dev = resolve_device(device)
     t0 = time.time()
@@ -208,7 +245,9 @@ def run_auto_pipeline(input_path, output_path, engine: str = "auto",
             stats = handler.enhance_video(work_input, output_path)
             stats["fallback_from"] = primary
             stats["fallback_error"] = str(e)
-        return _finish_stats(stats, handler, plan, t0)
+        return _finish_stats(
+            stats, handler, plan, t0,
+            lambda: _apply_temporal_smoothing(output_path, dev))
     finally:
         for f in tmp_files:
             Path(f).unlink(missing_ok=True)
@@ -227,3 +266,13 @@ def _preprocess_video(input_path: str, experts: dict, device: torch.device,
     tmp_files.append(tmp)
     write_frames(tmp, frames, (meta.height, meta.width), fps=meta.fps)
     return tmp
+
+
+def _apply_temporal_smoothing(path, device: torch.device) -> None:
+    """The temporal-consistency stage on a written video, rewritten in
+    place at its fps."""
+    from ..io.video import get_video_metadata, read_frames, write_frames
+
+    meta = get_video_metadata(path)
+    frames = smooth_frames(list(read_frames(path)), device)
+    write_frames(path, frames, (meta.height, meta.width), fps=meta.fps)

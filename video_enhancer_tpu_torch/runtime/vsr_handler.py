@@ -37,17 +37,14 @@ import torch
 from ..device import resolve_device
 from ..io.pipeline import iter_windows
 from ..ops.blend import overlap_add_blend
+from ..ops.color import rgb_to_gray
 from ..parallel.inference import make_mesh_sharded_clip_fn
 
-__all__ = ["VSRHandler", "cast_params", "rgb_to_gray", "window_quality"]
+__all__ = ["VSRHandler", "cast_params", "window_quality"]
 
 log = logging.getLogger(__name__)
 
 _TILE_GROUP = 4
-# cv2's fixed-point COLOR_RGB2GRAY for uint8 (OpenCV 5): (R, G, B) weights
-# over 2 ** 15, equal to cv2 on all 2 ** 24 colours
-_GRAY_WEIGHTS = (9798, 19235, 3735)
-_GRAY_SHIFT = 15
 
 
 def cast_params(params, dtype, device):
@@ -59,15 +56,6 @@ def cast_params(params, dtype, device):
     if params.is_floating_point():
         return params.to(device=device, dtype=dtype)
     return params.to(device)
-
-
-def rgb_to_gray(frame_u8: torch.Tensor) -> torch.Tensor:
-    """cv2's ``COLOR_RGB2GRAY`` of a uint8 ``(H, W, 3)`` frame, in its
-    fixed point: ``(9798 R + 19235 G + 3735 B + 2 ** 14) >> 15``, int32."""
-    r, g, b = frame_u8.int().unbind(-1)
-    wr, wg, wb = _GRAY_WEIGHTS
-    return (r * wr + g * wg + b * wb + (1 << (_GRAY_SHIFT - 1))) \
-        >> _GRAY_SHIFT
 
 
 def window_quality(frames_u8: torch.Tensor) -> float:
