@@ -15,7 +15,10 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    of each frame's 45x80 level, 8 frames), also at ragged lengths (one
    across a 128-row tile edge, Dh 48), the
    fused SSM also at fast_mamba_vsr's shape and at a count of sequences
-   that is not a multiple of the sequences a block,
+   that is not a multiple of the sequences a block, the SSD (bf16, both
+   directions) also at fast_mamba_vsr_ssd's temporal shape (57,600
+   sequences of 16 steps, 2 heads of 48, N 8) and at 368,640 sequences
+   (one launch a call past 65,535), each with its plain time and bound,
    the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
    a nonzero h0, and a control: run with h0 = 0 it must read far from the
    plain version), the shared bidirectional scan (row 10) at vsrm's and
@@ -99,10 +102,33 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    flow, the flow's device kernels and device time from ``torch.profiler``;
    the card's flow for one pair against the CPU's (1e-4 px) and the card's
    smoothed frames against the CPU's (``STAGE_MAX_LSB``, ``STAGE_MEAN_LSB``);
-   no hand-written kernel launched.
+   no hand-written kernel launched;
+13. realesrgan and realesrgan_fast x4 at full width with the bundled
+   weights: ``run_auto_frames(engine=...)`` on phase 4's clip (chunks of 4,
+   no overlap, calibrated blends 0.4 and 0.2): no fallback, no kernel
+   launched, window 0 in bf16 against the same model in fp32 on the card,
+   the streamed frames, frames/s; the official RRDBNet at full size (23
+   blocks, seeded random weights) written to a ``.pth`` and served through
+   ``$VETPU_REALESRGAN_CKPT`` on 4 frames at full strength; then
+   ``ModelFallbackManager().load_model_with_fallbacks("realesrgan")``
+   serves realesrgan on the card;
+14. fast_mamba_vsr_ssd: ``run_auto_frames(engine="fast_mamba_vsr_ssd")``
+   on phase 7's 30 frames (the SSD kernel 16 times a window, 8 layers x 2
+   directions; no other kernel), window 0 against the plain forms,
+   frames/s; 16 frames of 360x640 (two 360x512 tiles in one group: 368,640
+   sequences a scan) served by it, not by bicubic; fast_mamba_vsr with
+   ``extra.temporal_mixer: ssd`` serves a window as 0.6 of it blended with
+   the bicubic upscale;
+15. the frame-interpolation stage: ``run_auto_frames(enable_hfr=True)`` on
+   phase 5's clip (ditvr, the temporal stage, then RIFE): 31 frames, the
+   stats (``hfr``, no error, no blend fallback); RIFE alone on phase 4's 16
+   output frames of 720x1280 (ms a pair, its device kernels and time, no
+   hand-written kernel; cuDNN's TF32 at PyTorch's default); one pair's
+   midframe on the card against the CPU's, bf16 on both
+   (``HFR_MAX_LSB``, ``HFR_MEAN_LSB``).
 
-In phases 5-7 and 11 the route runs the temporal stage wherever its plan
-holds ``temporal_consistency`` (phases 5-7 here): the streamed frames of
+In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
+plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
 window 0 are then held within 1 LSB of the stage run on window 0's rounded
 output (the stage is causal), and the stats must say it ran with no error.
 
@@ -115,6 +141,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import statistics
@@ -128,8 +155,9 @@ import torch
 from video_enhancer_tpu_torch import kernels
 from video_enhancer_tpu_torch.config import MODELS, default_policy
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
-from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr, rvrt,
-                                             seedvr2, vsrm)
+from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
+                                             official_arch, rvrt, seedvr2,
+                                             vsrm)
 from video_enhancer_tpu_torch.nn import ssm
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
@@ -148,6 +176,7 @@ from video_enhancer_tpu_torch.ops.scan import (
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
     selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.optflow import estimate_flow_farneback
+from video_enhancer_tpu_torch.ops.resize import resize
 from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
@@ -164,9 +193,11 @@ from video_enhancer_tpu_torch.runtime.pipeline import (
 from video_enhancer_tpu_torch.runtime.registry import (build_handler,
                                                       bundled_weights,
                                                       load_params)
+from video_enhancer_tpu_torch.runtime.rife_handler import RIFEHandler
 from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
                                                          cast_params,
                                                          window_quality)
+from video_enhancer_tpu_torch.runtime.weights import flatten_params
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -176,6 +207,12 @@ SFU_PER_SM_CLOCK = 16            # ex2 results an SM a clock (Hopper)
 
 # main-path shapes at 180x320, window 7 (vsrm: dim 64 -> inner 128)
 SSD_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=16)
+# fast_mamba_vsr_ssd's temporal SSD: a sequence per pixel over a window of
+# 16 frames, dim 48 -> inner 96 in 2 heads of 48, N 8; at 180x320 (one
+# tile) and for a group of two 360x512 tiles of a 360x640 clip, past the
+# 65,535 blocks of a grid's y and z
+SSD_FMV_SHAPE = dict(b=180 * 320, L=16, H=2, P=48, N=8)
+SSD_WIDE_SHAPE = dict(SSD_FMV_SHAPE, b=2 * 360 * 512)
 BISSM_SHAPE = dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4, K=5)
 # fast_mamba_vsr at 180x320, chunk 16: dim 48 -> inner 96, N 8, rank 3
 BISSM_FMV_SHAPE = dict(B=180 * 320, L=16, D=96, N=8, dt_rank=3, K=5)
@@ -235,6 +272,13 @@ WINDOW_MAX_ABS, WINDOW_MEAN_ABS = 0.05, 0.005
 # gives a gray level one apart and moves the flow a little there
 FLOW_MAX_ABS = 1e-4
 STAGE_MAX_LSB, STAGE_MEAN_LSB = 1.0, 0.01
+# RIFE's midframe, card against CPU, bf16 on both, each conv rounded once:
+# the convs sum in another order (cuDNN, oneDNN; the CPU's kernels depend
+# on its instruction set), an output an ulp apart now and then, which the
+# flows carry: 4 LSB and 0.038 on average on phase 4's first pair, 3 and
+# 0.016 on a moving 720x1280 pair (scripts/torch_rife_parity.py), where a
+# conv rounded twice (cuDNN's bf16 conv with its bias) reads 0.14
+HFR_MAX_LSB, HFR_MEAN_LSB = 8.0, 0.1
 
 
 class Failure(RuntimeError):
@@ -380,8 +424,7 @@ def device_ms(fn, keys, iters: int = 10) -> dict:
     return out
 
 
-def _ssd_inputs(dtype, gen):
-    s = SSD_SHAPE
+def _ssd_inputs(dtype, gen, s=SSD_SHAPE):
     b, L, H, P, N = s["b"], s["L"], s["H"], s["P"], s["N"]
     # x, B and C as column slices of one (b, L, H*P + 2N) tensor, as bissd
     # hands them to the kernel.
@@ -395,12 +438,12 @@ def _ssd_inputs(dtype, gen):
     return x, dt, A, Bm, Cm
 
 
-def _ssd_cost(dtype, Q: int) -> tuple[float, float]:
-    s = SSD_SHAPE
+def _ssd_cost(dtype, Q: int, s=SSD_SHAPE) -> tuple[float, float]:
     b, L, H, P, N = s["b"], s["L"], s["H"], s["P"], s["N"]
     item = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * L * H * P * item + 2 * b * L * N * item
               + b * L * H * 4 + H * 4)
+    Q = min(Q, L)           # a sequence shorter than a chunk needs no more
     K = -(-L // Q)
     # chunked-matmul form (the JAX package's count, ops/ssd.py:469-474)
     flops = b * K * (2.0 * Q * Q * N + H * (2.0 * Q * Q * (P + 1)
@@ -921,6 +964,9 @@ def kernels_vs_plain(ptxas_log: str) -> dict:
                         bytes=nbytes, flops=flops, peak=H100_BF16_FLOPS)
                 del got, ref
             del args
+        # --- kernel 1 at fast_mamba_vsr_ssd's temporal shapes (bf16, the
+        # tensor-core path, one partial chunk of 16 steps a sequence)
+        rec.update(ssd_fmv_vs_plain(Q))
         # --- kernel 2: fused_bidir_ssm, at vsrm's and fast_mamba_vsr's shape
         # and at a count of sequences that is not a multiple of a block's
         for key, shape in (("fused_bidir_ssm", BISSM_SHAPE),
@@ -960,6 +1006,54 @@ def kernels_vs_plain(ptxas_log: str) -> dict:
         # --- row 11: the depthwise conv + SiLU -------------------------------
         rec.update(dwconv_vs_plain())
     torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_fmv_vs_plain(Q: int) -> dict:
+    """The SSD kernel against its plain version at fast_mamba_vsr_ssd's
+    temporal shapes, bf16, both directions: at 180x320 (b 57,600) and at
+    b 368,640 (one launch a call past 65,535 sequences); ms, plain ms and
+    the bound of each, and the plan (route, one block a sequence)."""
+    rec = {}
+    for key, shape in (("ssd_shared:fast_mamba_vsr_ssd", SSD_FMV_SHAPE),
+                       ("ssd_shared:b 368640", SSD_WIDE_SHAPE)):
+        dtype = torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        args = _ssd_inputs(dtype, gen, shape)
+        plan = _ssd_plan(*args[0].shape, args[-1].shape[-1], dtype,
+                         kernels.sm_count(args[0].device))
+        check(plan["route"] == "mma" and plan["grid"] == (shape["b"], 1),
+              f"{key}: plan {plan}")
+        nbytes, flops = _ssd_cost(dtype, Q, shape)
+        bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+        for reverse in (False, True):
+            got, counts, _ = _counted(
+                lambda: ssd_shared_kernel(*args, reverse=reverse))
+            ref = ssd_shared_plain(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            check(counts == _only(ssd_shared=1),
+                  f"{key}: {counts} launches for one call")
+            check(bool(torch.isfinite(got).all()), f"{key}: non-finite")
+            err, rel = rel_err(got, ref)
+            tol = TOL[("ssd_shared", "bfloat16")]
+            d = "reverse" if reverse else "forward"
+            ms = time_ms(lambda: ssd_shared_kernel(*args, reverse=reverse))
+            plain_ms = time_ms(lambda: ssd_shared_plain(*args,
+                                                        reverse=reverse),
+                               warmup=1, iters=3)
+            print(f"{key} {shape} {d} bf16: max_abs_err {err:.3e} rel "
+                  f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                  f"plan {plan['route']}, grid {plan['grid']}")
+            check(rel <= tol, f"{key} {d}: rel {rel} > {tol}")
+            if not reverse:
+                rec[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bytes=nbytes, flops=flops,
+                                peak=H100_BF16_FLOPS)
+            del got, ref
+        del args
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1762,6 +1856,282 @@ def temporal_stage(big: list, small: list, device_line: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _window_profile(handler, clip, name: str, device_line: str) -> None:
+    """One window's wall ms (CUDA events) and its device kernels, device
+    ms, idle share and top five kernels (``torch.profiler``)."""
+    with torch.inference_mode():
+        wall = time_ms(lambda: handler.process_clip(clip), 1, 3)
+        launches, dev, top = _kernel_profile(
+            lambda: handler.process_clip(clip))
+    prof = ("not measured" if launches is None else
+            f"{launches} device kernels, {dev:.3f} ms device time (idle "
+            f"{1 - dev / wall:.3f})")
+    print(f"{name} window of {clip.shape[0]} frames: {wall:.3f} ms wall; "
+          f"{prof} ({device_line})")
+    if top:
+        print(f"  its top device kernels (ms): {'; '.join(top)}")
+
+
+def _fp32_window(frames, plan, handler, name: str) -> torch.Tensor:
+    """Window 0 of a served run in the handler's bf16 against the same
+    model in fp32 on the card (TF32 off since phase 3), both through its
+    calibrated blend; returns the bf16 output."""
+    first = frames[:handler.chunk]
+    if "preprocessing" in plan["processing_order"]:
+        first = preprocess_frames(first, plan["expert_routing"]["experts"],
+                                  handler.device)
+    clip = torch.from_numpy(np.stack(first)).cuda().float() / 255.0
+    f32 = copy.copy(handler)
+    f32.dtype = torch.float32
+    f32.params = cast_params(load_params(name), torch.float32, handler.device)
+    with torch.inference_mode():
+        y_k = handler.process_clip(clip)
+        y_f = f32.process_clip(clip)
+    torch.cuda.synchronize()
+    _window_tol(f"{name} window 0, bf16 vs fp32", y_k, y_f)
+    return y_k
+
+
+def _torch_state_dict(params) -> dict:
+    """A parameter tree in PyTorch's layouts as the state dict of the
+    module it mirrors (``w`` -> ``weight``, ``b`` -> ``bias``)."""
+    leaf = {"w": "weight", "b": "bias"}
+    sd = {}
+    for key, t in flatten_params(params).items():
+        base, _, last = key.rpartition(".")
+        sd[f"{base}.{leaf.get(last, last)}"] = t.contiguous()
+    return sd
+
+
+def _official_realesrgan(frames, device_line: str) -> None:
+    """The released RRDBNet at full size (23 blocks, random weights of a
+    seed) written to a .pth and served through $VETPU_REALESRGAN_CKPT on 4
+    frames: the official graph, at full strength (no blend), no kernel."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    params = official_arch.rrdb_official_init(
+        torch.Generator().manual_seed(SEED))
+    prev = os.environ.get("VETPU_REALESRGAN_CKPT")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "RealESRGAN_x4plus.pth"
+        torch.save(_torch_state_dict(params), path)
+        os.environ["VETPU_REALESRGAN_CKPT"] = str(path)
+        try:
+            handler = build_handler("realesrgan")
+        finally:
+            if prev is None:
+                del os.environ["VETPU_REALESRGAN_CKPT"]
+            else:
+                os.environ["VETPU_REALESRGAN_CKPT"] = prev
+    check("conv_first" in handler.params
+          and len(handler.params["body"]) == 23,
+          "the checkpoint did not load into the official RRDBNet")
+    four = frames[:4]
+    clip = torch.from_numpy(np.stack(four)).cuda().float() / 255.0
+    with torch.inference_mode():
+        handler.process_clip(clip)                    # warm-up, not counted
+        out, counts, secs = _counted(
+            lambda: list(handler.enhance_frames(iter(four))))
+        y = handler.process_clip(clip)
+        raw = official_arch.rrdb_official_apply(
+            handler.params, clip.to(handler.dtype)).float()
+    check(counts == _only(), f"the official RRDBNet launched {counts}")
+    h, w = four[0].shape[:2]
+    check(len(out) == 4 and out[0].shape == (4 * h, 4 * w, 3),
+          f"official RRDBNet frames {len(out)} {out[0].shape}")
+    diff = (y - raw).abs().max().item()
+    print(f"official RRDBNet (23 blocks, .pth via $VETPU_REALESRGAN_CKPT) x4 "
+          f"{h}x{w}: 4 frames in {secs:.3f} s = {4 / secs:.2f} frames/s; "
+          f"served vs the bare graph: max_abs {diff:.3e} (full strength: no "
+          f"blend) ({device_line})")
+    check(diff <= 1e-3, "the official checkpoint was served through a blend")
+    del handler
+    torch.cuda.empty_cache()
+
+
+@phase("13 realesrgan paths")
+def realesrgan_paths(device_line: str) -> dict:
+    """realesrgan and realesrgan_fast x4 at full width with the bundled
+    weights through ``run_auto_frames(engine=...)`` on phase 4's clip
+    (chunks of 4, no overlap): no fallback, no kernel, window 0 in bf16
+    against fp32 on the card, the streamed frames, frames/s; the official
+    RRDBNet through ``$VETPU_REALESRGAN_CKPT``; the fallback manager."""
+    frames = synthetic_clip(16, 180, 320)
+    counts = {}
+    for name in ("realesrgan", "realesrgan_fast"):
+        out, stats, counts[name] = _served_run(
+            frames, {"engine": name}, name, {}, 4, 4, device_line)
+        handler = build_handler(name)
+        check((handler.chunk, handler.overlap) == (4, 0),
+              f"{name}: chunk {handler.chunk}, overlap {handler.overlap}")
+        blocks = MODELS[name].extra["num_blocks"]
+        check(len(handler.params["rrdb"]) == blocks, f"{name}: depth changed")
+        y_k = _fp32_window(frames, stats["routing_plan"], handler, name)
+        _lsb_check(out, y_k, handler.chunk, stats)
+        _window_profile(handler, torch.from_numpy(np.stack(
+            frames[:4])).cuda().float() / 255.0, name, device_line)
+    _official_realesrgan(frames, device_line)
+    manager = ModelFallbackManager()
+    fb, used = manager.load_model_with_fallbacks("realesrgan")
+    print(f"fallback manager for realesrgan: {used} on {fb.device}; history "
+          f"{[(h['used'], h['ok']) for h in manager.get_history()]}")
+    check(used == "realesrgan" and fb.device.type == "cuda"
+          and "stem" in fb.params,
+          f"the fallback manager served {used} on {fb.device}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _with_ssd_mixer():
+    policy = default_policy()
+    models = dict(policy.models)
+    entry = models["fast_mamba_vsr"]
+    models["fast_mamba_vsr"] = dataclasses.replace(
+        entry, extra={**entry.extra, "temporal_mixer": "ssd"})
+    return dataclasses.replace(policy, models=models)
+
+
+@phase("14 fast_mamba_vsr_ssd path")
+def fmv_ssd_path(device_line: str) -> dict:
+    """``run_auto_frames(engine="fast_mamba_vsr_ssd")`` on phase 7's 30
+    frames (the SSD kernel 16 times a window, no other kernel; window 0
+    against the plain forms), 16 frames of 360x640 (two 360x512 tiles in
+    one group: b = 368,640 sequences), and the base entry on the ssd mixer
+    with its 0.6 blend."""
+    name = "fast_mamba_vsr_ssd"
+    entry = MODELS[name]
+    layers = entry.extra["num_layers"]
+    frames = synthetic_clip(30, 180, 320)
+    out, stats, counts = _served_run(
+        frames, {"engine": name}, name, {"ssd_shared": 2 * layers},
+        entry.chunk, entry.chunk - entry.overlap, device_line)
+    handler = build_handler(name)
+    check(len(handler.params["layers"]) == layers
+          and "norm_scale" in handler.params["layers"][0]["bimamba"],
+          "fast_mamba_vsr_ssd is not on the ssd mixer")
+    y_k = _window_check(frames, stats["routing_plan"], handler,
+                        calibrate_vsr(name, lambda p, x: fast_mamba_vsr.apply(
+                            p, x, scale=entry.scale, kernels=False)))
+    _lsb_check(out, y_k, handler.chunk, stats)
+    _window_profile(handler, torch.from_numpy(np.stack(
+        frames[:entry.chunk])).cuda().float() / 255.0, name, device_line)
+
+    wide = synthetic_clip(16, 360, 640)
+    (big, big_stats), big_counts, secs = _counted(
+        lambda: run_auto_frames(wide, engine=name))
+    print(f"{name} 360x640 (b = {2 * 360 * 512} sequences a scan): "
+          f"model {big_stats['model']}, launches {big_counts}; 16 frames in "
+          f"{secs:.3f} s, enhance {big_stats['processing_time_sec']:.3f} s "
+          f"({device_line})")
+    check(big_stats["model"] == name and "fallback_from" not in big_stats,
+          f"360x640 served {big_stats['model']}: "
+          f"{big_stats.get('fallback_error')}")
+    wide_windows = sum(1 for _ in iter_windows(
+        wide, entry.chunk, entry.chunk - entry.overlap))
+    check(big_counts == _only(ssd_shared=2 * layers * wide_windows),
+          f"360x640 launches {big_counts} in {wide_windows} windows")
+    wide_counts = big_counts
+    check(len(big) == 16 and big[0].shape == (1440, 2560, 3),
+          f"360x640 frames {len(big)} {big[0].shape}")
+    del big
+
+    base = build_handler("fast_mamba_vsr", _with_ssd_mixer())
+    clip = torch.from_numpy(np.stack(frames[:entry.chunk])).cuda()
+    clip = clip.float() / 255.0
+    with torch.inference_mode():
+        y_b, base_counts, _ = _counted(base.process_clip, clip)
+        y_ssd = handler.process_clip(clip)
+        bicubic = torch.clamp(resize(clip, tuple(y_ssd.shape[1:3])), 0.0, 1.0)
+        want = torch.clamp(0.6 * y_ssd + 0.4 * bicubic, 0.0, 1.0)
+    check(base_counts == _only(ssd_shared=2 * layers),
+          f"the base entry on the ssd mixer launched {base_counts}")
+    _window_tol("fast_mamba_vsr on the ssd mixer vs 0.6 of "
+                "fast_mamba_vsr_ssd's window", y_b, want)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "wide_counts": wide_counts, "fps": stats["fps"]}
+
+
+@phase("15 hfr stage")
+def hfr_stage(big: list, device_line: str) -> dict:
+    """``run_auto_frames(enable_hfr=True)`` on phase 5's clip (ditvr, the
+    temporal stage, then RIFE): 31 frames, the stats; the stage alone on
+    phase 4's 16 output frames of 720x1280 (ms a pair, device kernels, no
+    hand-written kernel); one pair's midframe on the card against the
+    CPU's, bf16 on both. RIFE's convs run in fp32 on bf16 values
+    (``round_once``): at PyTorch's default, which this phase restores
+    (phase 3 turned it off for its fp32 checks), cuDNN takes TF32 there,
+    which holds bf16 values exactly."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _hfr_stage(big, device_line)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _hfr_stage(big: list, device_line: str) -> dict:
+    frames = dim_clip(16, 180, 320)
+    run_auto_frames(frames[:4], enable_hfr=True)      # warm-up, not counted
+    (out, stats), counts, secs = _counted(
+        lambda: run_auto_frames(frames, enable_hfr=True))
+    order = stats["routing_plan"]["processing_order"]
+    entry = MODELS["ditvr"]
+    windows = sum(1 for _ in iter_windows(frames, entry.window, entry.stride))
+    print(f"route with enable_hfr: model {stats['model']}, order {order}; "
+          f"{len(out)} frames out; hfr {stats.get('hfr')}, stage "
+          f"{stats.get('hfr_interpolation_sec', 0):.3f} s, blend fallbacks "
+          f"{stats.get('hfr_blend_fallbacks', 0)}; launches {counts}; "
+          f"{secs:.3f} s end to end ({device_line})")
+    check(order[-1] == "hfr_interpolation" and stats["model"] == "ditvr",
+          f"the plan is {order} for {stats['model']}")
+    check("fallback_from" not in stats, "the route fell back")
+    check(stats.get("hfr") is True and "hfr_interpolation_error" not in stats
+          and "hfr_blend_fallbacks" not in stats,
+          f"the hfr stage: {stats.get('hfr_interpolation_error')}, "
+          f"{stats.get('hfr_blend_fallbacks')} blend fallbacks")
+    check(len(out) == 31 and all(f.shape == (180, 320, 3) for f in out),
+          f"{len(out)} frames out of 16 doubled")
+    check(counts == _only(flash_attention=entry.extra["depth"] * windows),
+          f"route launches {counts}")
+
+    rife = RIFEHandler()
+    clip = torch.from_numpy(np.stack(big)).cuda().float() / 255.0
+    n = clip.shape[0]
+    rife._double(clip[:2])                             # warm-up, not counted
+    doubled, stage_counts, stage_s = _counted(rife._double, clip)
+    pair = time_ms(lambda: rife._mid(clip[:1], clip[1:2]), 2, 5)
+    launches, dev, top = _kernel_profile(
+        lambda: rife._mid(clip[:1], clip[1:2]))
+    check(stage_counts == _only(), f"RIFE launched {stage_counts}")
+    check(rife.blend_fallbacks == 0, "RIFE fell back to blending")
+    check(doubled.shape[0] == 2 * n - 1
+          and bool(torch.isfinite(doubled).all()), "RIFE's output")
+    prof = ("not measured" if launches is None else
+            f"{launches} device kernels, {dev:.3f} ms device time "
+            f"({100 * (1 - dev / pair):.0f}% of its wall time idle)")
+    print(f"hfr stage 720x1280, {n} frames -> {2 * n - 1}: "
+          f"{1000 * stage_s / (n - 1):.3f} ms a pair ({stage_s:.3f} s); one "
+          f"pair {pair:.3f} ms: {prof} ({device_line})")
+    if top:
+        print(f"  its top device kernels (ms): {'; '.join(top)}")
+    cpu = RIFEHandler(device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu._mid(clip[:1].cpu(), clip[1:2].cpu())
+    cpu_s = time.perf_counter() - t0
+    got = doubled[1:2].cpu()
+    lsb = (torch.round(got * 255.0) - torch.round(ref * 255.0)).abs()
+    moved = (ref - 0.5 * (clip[:1] + clip[1:2]).cpu()).abs().max().item()
+    print(f"midframe 720x1280, card vs CPU, bf16 both ({cpu_s:.1f} s on the "
+          f"CPU): max {lsb.max().item():.0f} LSB, mean {lsb.mean().item():.2e}"
+          f" LSB; the model moves it up to {255 * moved:.1f} LSB from the "
+          f"pair's average")
+    check(lsb.max().item() <= HFR_MAX_LSB and lsb.mean().item()
+          <= HFR_MEAN_LSB, "the card's midframe differs from the CPU's")
+    torch.cuda.empty_cache()
+    return {"ms_pair": 1000 * stage_s / (n - 1)}
+
+
 SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
 
 
@@ -1790,6 +2160,12 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
             SCAN_CU, "video_enhancer_tpu/ops/scan.py:736"),
         "dwconv_silu": ("video_enhancer_tpu_torch/csrc/dwconv_silu.cu",
                         "video_enhancer_tpu/ops/conv.py:220"),
+        "ssd_shared:fast_mamba_vsr_ssd": (
+            "video_enhancer_tpu_torch/csrc/ssd_shared.cu",
+            "video_enhancer_tpu/ops/ssd.py:325"),
+        "ssd_shared:b 368640": (
+            "video_enhancer_tpu_torch/csrc/ssd_shared.cu",
+            "video_enhancer_tpu/ops/ssd.py:325"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -1822,8 +2198,12 @@ def main() -> int:
     layer_counts = layers()
     opt_in = opt_in_kernels(f"{env['kind']}, {env['smi']}")
     sv = seedvr2_route(f"{env['kind']}, {env['smi']}")
-    temporal_stage(path.pop("frames"), synthetic_clip(16, 180, 320),
+    big = path.pop("frames")
+    temporal_stage(big, synthetic_clip(16, 180, 320),
                    f"{env['kind']}, {env['smi']}")
+    realesrgan_paths(f"{env['kind']}, {env['smi']}")
+    fmv_ssd = fmv_ssd_path(f"{env['kind']}, {env['smi']}")
+    hfr_stage(big, f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -1840,7 +2220,11 @@ def main() -> int:
                   "selective_scan_bidir", "selective_scan_short_nostate",
                   "selective_scan_long")},
               # rows 10 and 11: phase 10
-              **opt_in}
+              **opt_in,
+              # rows 1-2 on fast_mamba_vsr_ssd's path: phase 14
+              "ssd_shared:fast_mamba_vsr_ssd":
+                  fmv_ssd["counts"]["ssd_shared"],
+              "ssd_shared:b 368640": fmv_ssd["wide_counts"]["ssd_shared"]}
     print(json.dumps({"kernels": kernel_record(rec, counts)}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

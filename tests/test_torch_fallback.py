@@ -1,7 +1,7 @@
 """The port's fallback hierarchies and ``ModelFallbackManager`` against the
 JAX package's, on the CPU: the tables, the order of attempts and their ok
-flags, the models the port does not serve yet, the build timeout and the
-host-memory floor."""
+flags, the models it now serves (realesrgan, the ssd mixer), an unknown
+name, the build timeout and the host-memory floor."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import dataclasses
 import time
 
 import jax
+import numpy as np
 import pytest
 
 from video_enhancer_tpu.runtime import fallback as jfallback
@@ -80,15 +81,24 @@ def test_seedvr2_is_served_first(monkeypatch):
     assert (handler.scale, handler.chunk, handler.overlap) == (1, 8, 2)
 
 
-@pytest.mark.parametrize("requested,used", [("realesrgan_fast", "bicubic"),
-                                            ("realesrgan", "cnn_upscaler"),
+@pytest.mark.parametrize("requested,used", [("realesrgan_fast",
+                                             "realesrgan_fast"),
+                                            ("realesrgan", "realesrgan"),
                                             ("nonexistent", "bicubic")])
 def test_unserved_models_fail_their_build_and_fall_through(requested, used):
-    """A model the port does not serve yet fails its build as the
-    reference's failed builds do, and the next candidate is tried."""
+    """realesrgan and realesrgan_fast serve themselves on their first
+    attempt, as in the JAX package; a name the port does not know fails its
+    build as the reference's failed builds do, and the next candidate is
+    tried."""
     tm = tfallback.ModelFallbackManager(device="cpu")
     handler, name = tm.load_model_with_fallbacks(requested)
     assert name == used and handler.name == used
+    if requested == used:
+        jm = jfallback.ModelFallbackManager()
+        assert jm.load_model_with_fallbacks(requested)[1] == used
+        assert _attempts(tm) == _attempts(jm) == [(requested, used, True)]
+        assert (handler.scale, handler.chunk, handler.overlap) == (4, 4, 0)
+        return
     assert _attempts(tm) == [(requested, requested, False),
                              (requested, used, True)]
     assert "the port serves" in tm.get_history()[0]["error"]
@@ -159,19 +169,24 @@ def test_policy_backbone_refuses_vsrm(monkeypatch, backbone):
 
 
 def test_temporal_mixer_ssd_refuses_fast_mamba_vsr():
-    with pytest.raises(NotImplementedError,
-                       match="fast_mamba_vsr with temporal_mixer='ssd' is "
-                             "not ported yet"):
-        registry.build_handler(
-            "fast_mamba_vsr", _policy_with("fast_mamba_vsr",
-                                           temporal_mixer="ssd"),
-            device="cpu")
+    """The ssd temporal mixer on the base entry builds and serves: every
+    layer holds the SSD mixer (its ``norm_scale``), as the JAX registry's
+    (registry.py:170-185)."""
+    handler = registry.build_handler(
+        "fast_mamba_vsr", _policy_with("fast_mamba_vsr",
+                                       temporal_mixer="ssd"),
+        device="cpu")
+    assert handler.name == "fast_mamba_vsr"
+    assert all("norm_scale" in layer["bimamba"]
+               for layer in handler.params["layers"])
+    out = list(handler.enhance_frames(iter([np.zeros((8, 8, 3), np.uint8)]
+                                           * 3)))
+    assert len(out) == 3 and out[0].shape == (32, 32, 3)
 
 
 def test_fallback_records_an_unported_variant_and_moves_on(monkeypatch):
     """vsrm's build fails on the variable and rvrt, its next candidate,
-    serves; fast_mamba_vsr on the ssd mixer falls to cnn_upscaler (the
-    port has no realesrgan either)."""
+    serves; fast_mamba_vsr on the ssd mixer serves itself."""
     monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", "attentive")
     tm = tfallback.ModelFallbackManager(device="cpu")
     handler, name = tm.load_model_with_fallbacks("vsrm")
@@ -181,9 +196,9 @@ def test_fallback_records_an_unported_variant_and_moves_on(monkeypatch):
     tm = tfallback.ModelFallbackManager(
         _policy_with("fast_mamba_vsr", temporal_mixer="ssd"), device="cpu")
     handler, name = tm.load_model_with_fallbacks("fast_mamba_vsr")
-    assert name == "cnn_upscaler"
-    assert _attempts(tm)[0] == ("fast_mamba_vsr", "fast_mamba_vsr", False)
-    assert "temporal_mixer='ssd'" in tm.get_history()[0]["error"]
+    assert name == "fast_mamba_vsr" and handler.name == "fast_mamba_vsr"
+    assert _attempts(tm) == [("fast_mamba_vsr", "fast_mamba_vsr", True)]
+    assert "norm_scale" in handler.params["layers"][0]["bimamba"]
 
 
 @pytest.mark.parametrize("name,extra,env", [

@@ -6,7 +6,9 @@ shape and route), and the SSD,
 the Mamba-1 scans, the shared bidirectional scan and the depthwise conv +
 SiLU also at the shapes the served paths give them; the exact time-sharded
 fast_mamba_vsr on a one-rank NCCL group; the temporal stage's Farneback
-flow and ``temporal_smooth`` on the card against the CPU.
+flow and ``temporal_smooth`` on the card against the CPU; the SSD at
+fast_mamba_vsr_ssd's shapes (past 65,535 sequences); realesrgan's window in
+bf16 against fp32; a RIFE midframe on the card against the CPU.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -1362,3 +1364,63 @@ def test_temporal_smooth_on_the_card_matches_cpu(cuda):
     lsb = (got - ref).abs() * 255
     assert lsb.max().item() <= 1.0 and lsb.mean().item() <= 0.01
     assert ((ref - clip).abs() * 255).max().item() > 5
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,dtype", [(180 * 320, torch.bfloat16),
+                                     (2 * 360 * 512, torch.bfloat16),
+                                     (70000, torch.float32)])
+def test_ssd_at_fast_mamba_vsr_ssd_shapes(cuda, reverse, b, dtype):
+    """fast_mamba_vsr_ssd's temporal SSD (L 16: one partial chunk a
+    sequence; 2 heads of 48, N 8; x, B and C column slices of the conv
+    output) at 180x320's 57,600 sequences and a 360x640 tile group's
+    368,640 on the tensor-core path, and past 65,535 on the CUDA-core path
+    (fp32): one launch a call, against the plain version."""
+    x, dt, A, Bm, Cm = _ssd_case(cuda, dtype, b, 16, 2, 48, 8, 0, b)
+    plan = _ssd_plan(b, 16, 2, 48, 8, dtype, kernels.sm_count(x.device))
+    assert plan["route"] == ("mma" if dtype == torch.bfloat16 else "simt")
+    before = kernels.launch_counts["ssd_shared"]
+    got = ssd_shared_kernel(x, dt, A, Bm, Cm, reverse=reverse)
+    ref = ssd_shared_plain(x, dt, A, Bm, Cm, reverse=reverse)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["ssd_shared"] == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, ref) <= TOL[dtype]
+    # the last sequences too (a grid that wrapped would leave them unwritten)
+    assert _rel(got[-64:], ref[-64:]) <= TOL[dtype]
+
+
+def test_realesrgan_window_bf16_matches_fp32(cuda):
+    """realesrgan's served window (bf16, bundled weights, calibrated blend)
+    against the same handler in fp32: the window tolerances."""
+    import copy
+
+    from video_enhancer_tpu_torch.runtime.registry import (build_handler,
+                                                          load_params)
+    from video_enhancer_tpu_torch.runtime.vsr_handler import cast_params
+
+    handler = build_handler("realesrgan", device=cuda)
+    f32 = copy.copy(handler)
+    f32.dtype = torch.float32
+    f32.params = cast_params(load_params("realesrgan"), torch.float32, cuda)
+    clip = _moving_frames(4, 48, 64, seed=3).to(cuda)
+    got, ref = handler.process_clip(clip), f32.process_clip(clip)
+    assert got.shape == (4, 192, 256, 3)
+    diff = (got - ref).abs()
+    assert diff.max().item() <= 0.05 and diff.mean().item() <= 0.005
+
+
+def test_rife_pair_on_the_card_matches_cpu(cuda):
+    """One RIFE midframe (bundled weights, bf16 on both, each conv rounded
+    once) on the card against the CPU: 3 LSB at most, 0.05 LSB on average
+    (the convs sum in another order: an output an ulp apart now and then,
+    carried by the flows; measured 2 and 0.013 by
+    scripts/torch_rife_parity.py)."""
+    from video_enhancer_tpu_torch.runtime.rife_handler import RIFEHandler
+
+    clip = _moving_frames(2, 64, 96, seed=4)
+    ref = RIFEHandler(device="cpu")._mid(clip[:1], clip[1:])
+    got = RIFEHandler(device=cuda)._mid(clip[:1].to(cuda), clip[1:].to(cuda))
+    lsb = (torch.round(got.cpu() * 255) - torch.round(ref * 255)).abs()
+    assert lsb.max().item() <= 3 and lsb.mean().item() <= 0.05
+    assert (ref - 0.5 * (clip[:1] + clip[1:])).abs().max() * 255 > 5

@@ -177,8 +177,8 @@ def test_weights_env_overrides_bundled(monkeypatch, tmp_path):
 
 
 def test_unknown_model_raises():
-    with pytest.raises(KeyError):
-        registry.build_handler("realesrgan", device="cpu")
+    with pytest.raises(KeyError, match="the port serves"):
+        registry.build_handler("nonexistent", device="cpu")
 
 
 def test_card_is_the_default_device(monkeypatch):

@@ -7,7 +7,9 @@ imported at all, drives the auto route on frames in memory, its temporal
 stage included; one, likewise,
 drives rvrt (an explicit engine and the fallback manager) and the
 strict-latency route to fast_mamba_vsr; one, likewise, drives the route to
-seedvr2 with its quality gate."""
+seedvr2 with its quality gate; one, likewise, serves realesrgan,
+realesrgan_fast and fast_mamba_vsr_ssd and runs the frame-interpolation
+stage (RIFE)."""
 
 from __future__ import annotations
 
@@ -89,6 +91,26 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+SLICE13 = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+from chip_smoke import dim_clip
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_frames
+res = {}
+for engine in ("realesrgan", "realesrgan_fast", "fast_mamba_vsr_ssd"):
+    out, stats = run_auto_frames(dim_clip(5, 8, 12), engine=engine,
+                                 device="cpu")
+    res[engine] = [stats["model"], "fallback_from" in stats, len(out)]
+out, stats = run_auto_frames(dim_clip(5, 8, 12), enable_hfr=True,
+                             device="cpu")
+res["hfr"] = [stats.get("hfr", False), len(out),
+              stats.get("hfr_interpolation_error")]
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, check=True,
@@ -107,7 +129,9 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.weights", "parallel.mesh", "parallel.temporal",
                  "parallel.inference", "parallel.spatial",
                  "models.seedvr2", "models.diffusion", "ops.prng",
-                 "ops.warp", "ops.conv", "ops.color", "ops.optflow"):
+                 "ops.warp", "ops.conv", "ops.color", "ops.optflow",
+                 "ops.resize", "models.realesrgan", "models.official_arch",
+                 "models.rife", "runtime.rife_handler"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -139,3 +163,13 @@ def test_seedvr2_route_runs_without_jax_cv2_or_yaml():
     res = _run(SEEDVR2)
     assert res == {"soft": ["seedvr2", False, 8, 0],
                    "sharp": ["seedvr2", False, 8, 2]}
+
+
+def test_new_models_and_hfr_run_without_jax_cv2_or_yaml():
+    """realesrgan, realesrgan_fast and fast_mamba_vsr_ssd as explicit
+    engines, and the frame-interpolation stage in memory, run with those
+    packages absent, with no fallback and no error (5 frames -> 9)."""
+    res = _run(SLICE13)
+    assert res == {name: [name, False, 5] for name in (
+        "realesrgan", "realesrgan_fast", "fast_mamba_vsr_ssd")} | {
+        "hfr": [True, 9, None]}

@@ -300,7 +300,7 @@ def test_fused_plan_refuses_past_the_bounds(L, D, N, K, r):
 # --------------------------------------------------------------------------
 
 _HALF = (torch.bfloat16, torch.float16)
-_ssd_domain = dict(b=st.integers(1, 65535), L=st.integers(1, 1 << 22),
+_ssd_domain = dict(b=st.integers(1, 1 << 20), L=st.integers(1, 1 << 22),
                    H=st.integers(1, 8), P=st.integers(1, 64),
                    N=st.integers(1, 128),
                    dtype=st.sampled_from([torch.bfloat16, torch.float16,
@@ -311,17 +311,24 @@ _ssd_domain = dict(b=st.integers(1, 65535), L=st.integers(1, 1 << 22),
 @FAST
 @given(**_ssd_domain)
 def test_ssd_plan_fills_one_wave_over_the_domain(b, L, H, P, N, dtype, sms):
-    plan = _ssd_plan(b, L, H, P, N, dtype, sms)
+    """The batch lies on gridDim.x, so any b is taken (past 65,535 too); the
+    CUDA-core path's chunks lie on y and are refused past 65,535."""
     K = -(-L // 64)
-    assert plan["chunks"] == K and plan["chunk"] == 64
     mma = (dtype in _HALF and P % 16 == 0 and H * P <= 128 and N <= 16)
+    if not mma and K > 65535:
+        with pytest.raises(ValueError, match="at most 65535 chunks"):
+            _ssd_plan(b, L, H, P, N, dtype, sms)
+        return
+    plan = _ssd_plan(b, L, H, P, N, dtype, sms)
+    assert plan["chunks"] == K and plan["chunk"] == 64
     assert plan["route"] == ("mma" if mma else "simt")
     if not mma:
         assert (plan["run"], plan["runs"]) == (1, K)
-        assert plan["grid"] == (K, H, b) and plan["smem"] <= SMEM_BLOCK
+        assert plan["grid"] == (b, K, H) and plan["smem"] <= SMEM_BLOCK
         return
     R, M, per_sm = plan["run"], plan["runs"], plan["blocks_per_sm"]
-    assert 1 <= R <= K and M == -(-K // R) and plan["grid"] == (M, b)
+    assert 1 <= R <= K and M == -(-K // R) and plan["grid"] == (b, M)
+    assert M <= 65535
     assert plan["threads"] == 128 and plan["smem"] == _ssd_smem(H, P)
     assert per_sm >= 1 and per_sm * (plan["smem"] + 1024) <= SMEM_SM
     slots = per_sm * sms
@@ -336,13 +343,21 @@ def test_ssd_plan_fills_one_wave_over_the_domain(b, L, H, P, N, dtype, sms):
 def test_ssd_plan_at_the_served_shape():
     """vsrm's spatial SSD (b 7, L 57600, H 2, P 64, N 16) in bf16: runs of
     17 of the 900 chunks, 53 runs a frame, 371 blocks in one wave of three
-    an SM; fp32 keeps the CUDA-core path, a block per chunk."""
+    an SM; fp32 keeps the CUDA-core path, a block per chunk and head.
+    fast_mamba_vsr_ssd's temporal SSD (a sequence per pixel: 57,600 at
+    180x320, 368,640 for a group of two 360x512 tiles; L 16, H 2, P 48, N
+    8) takes the tensor-core path, one block per sequence walking one
+    partial chunk."""
     plan = _ssd_plan(7, 57600, 2, 64, 16, torch.bfloat16, 132)
     assert plan["route"] == "mma" and plan["smem"] == 74768
-    assert (plan["run"], plan["runs"], plan["grid"]) == (17, 53, (53, 7))
+    assert (plan["run"], plan["runs"], plan["grid"]) == (17, 53, (7, 53))
     assert plan["blocks_per_sm"] == 3 and 7 * 53 <= 3 * 132
     f32 = _ssd_plan(7, 57600, 2, 64, 16, torch.float32, 132)
-    assert (f32["route"], f32["grid"]) == ("simt", (900, 2, 7))
+    assert (f32["route"], f32["grid"]) == ("simt", (7, 900, 2))
+    for b in (57600, 368640):
+        fmv = _ssd_plan(b, 16, 2, 48, 8, torch.bfloat16, 132)
+        assert fmv["route"] == "mma" and fmv["chunks"] == 1
+        assert (fmv["run"], fmv["runs"], fmv["grid"]) == (1, 1, (b, 1))
 
 
 def test_ssd_smem_is_the_kernels():
@@ -370,10 +385,15 @@ def test_ssd_plan_picks_the_route(shape, route):
 
 
 @pytest.mark.parametrize("b,L,H,P,N", [(1, 64, 1, 65, 16), (1, 64, 1, 64, 129),
-                                       (65536, 64, 1, 64, 16), (1, 0, 1, 64, 16)])
+                                       (1 << 25, 64, 1, 64, 128),
+                                       (1, 0, 1, 64, 16)])
 def test_ssd_plan_refuses_past_the_bounds(b, L, H, P, N):
+    """Past P 64 or N 128, a state pass of 2^31 blocks, L 0; and on the
+    CUDA-core path more than 65,535 chunks (fp32 at L 64 * 65,535 + 1)."""
     with pytest.raises(ValueError, match="kernel takes P <= 64"):
         _ssd_plan(b, L, H, P, N, torch.bfloat16, 132)
+    with pytest.raises(ValueError, match="at most 65535 chunks"):
+        _ssd_plan(1, 64 * 65535 + 1, 2, 64, 16, torch.float32, 132)
 
 
 # --------------------------------------------------------------------------

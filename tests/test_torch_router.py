@@ -109,9 +109,10 @@ ALL = {"vsrm", "ditvr", "seedvr2", "fast_mamba_vsr", "realesrgan",
                                                      "bicubic"}])
 @pytest.mark.parametrize("latency_class", ["standard", "strict"])
 def test_plans_match_jax(monkeypatch, name, available, latency_class):
-    """Every branch of the decision tree; with models the port does not
-    serve available (``ALL``), the port's policy has no entry for such a
-    primary, so its model config is left out of the comparison."""
+    """Every branch of the decision tree, with the served models, with
+    every model of the chain (``ALL``: realesrgan and realesrgan_fast as
+    well, whose model configs are compared too) and with the upscalers
+    alone."""
     frames = CLIPS[name]
     want = _jax_plan(monkeypatch, frames, available,
                      latency_class=latency_class)
@@ -119,9 +120,7 @@ def test_plans_match_jax(monkeypatch, name, available, latency_class):
         frames, fps=24.0, frame_count=len(frames),
         latency_class=latency_class, device="cpu")
     assert "fallback" not in want
-    if want["expert_routing"]["primary_model"] not in MODELS:
-        got["expert_routing"].pop("model_config")
-        want["expert_routing"].pop("model_config")
+    assert want["expert_routing"]["primary_model"] in MODELS
     _assert_same_plan(got, want)
 
 

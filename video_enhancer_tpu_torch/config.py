@@ -6,9 +6,10 @@ below are copied from the policy file and held against the JAX package's
 ``default_policy()`` by the tests. They are the degradation thresholds
 (:7-14), the latency budgets (:16-19), the pipeline defaults (:27-36), the
 serving mesh (:38-41), the entries of the models the port serves (vsrm
-:44-53, fast_mamba_vsr :54-63, seedvr2 :79-88, ditvr :89-101, rvrt
-:102-108, cnn_upscaler :126-130, bicubic :131-134) and the ``enabled`` flag of every model of the
-policy. ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
+:44-53, fast_mamba_vsr :54-63, fast_mamba_vsr_ssd :64-78, seedvr2 :79-88,
+ditvr :89-101, rvrt :102-108, realesrgan :109-115, realesrgan_fast
+:116-125, cnn_upscaler :126-130, bicubic :131-134) and the ``enabled``
+flag of every model of the policy. ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
 ``MeshConfig`` :90-106.
 
 As in the JAX package's ``load_policy`` (config/__init__.py:50-61), a set
@@ -85,7 +86,9 @@ class ModelEntry:
     """One served model: the fields (and defaults) of the JAX package's
     ``ModelEntry`` that the port reads; ``enabled`` lives in ``ENABLED``.
     Window and stride drive vsrm, seedvr2, ditvr and rvrt; chunk and
-    overlap drive fast_mamba_vsr."""
+    overlap drive fast_mamba_vsr and fast_mamba_vsr_ssd; realesrgan and
+    realesrgan_fast run chunks of 4 frames with no overlap, as the JAX
+    registry builds them."""
 
     name: str
     weights_path: str | None = None
@@ -118,6 +121,10 @@ MODELS: dict[str, ModelEntry] = {
         "fast_mamba_vsr", weights_env="FAST_MAMBA_VSR_DIR", scale=4,
         chunk=16, overlap=2, tile=512, tile_overlap=32,
         extra={"dim": 48, "num_layers": 8}),
+    "fast_mamba_vsr_ssd": ModelEntry(
+        "fast_mamba_vsr_ssd", scale=4, chunk=16, overlap=2, tile=512,
+        tile_overlap=32,
+        extra={"dim": 48, "num_layers": 8, "temporal_mixer": "ssd"}),
     "seedvr2": ModelEntry(
         "seedvr2", weights_env="SEEDVR2_3B_DIR", scale=1, window=8, stride=6,
         tile=448, tile_overlap=32,
@@ -129,6 +136,11 @@ MODELS: dict[str, ModelEntry] = {
         extra={"dim": 384, "depth": 8, "heads": 3, "patch": (2, 4, 4)}),
     "rvrt": ModelEntry("rvrt", scale=4, window=7, stride=3,
                        extra={"dim": 64}),
+    "realesrgan": ModelEntry("realesrgan", scale=4, tile=512, tile_overlap=32,
+                             extra={"num_blocks": 6, "features": 64}),
+    "realesrgan_fast": ModelEntry("realesrgan_fast", scale=4, tile=512,
+                                  tile_overlap=32,
+                                  extra={"num_blocks": 3, "features": 64}),
     "cnn_upscaler": ModelEntry("cnn_upscaler", scale=2,
                                extra={"features": 32}),
     "bicubic": ModelEntry("bicubic", scale=2),

@@ -54,6 +54,11 @@
 // fp32 (ssd_shared's dtype rule sends fp32 to the plain form on the served
 // path, so fp32 keeps the exactness of fp32 sums rather than TF32's).
 //
+// The batch lies on gridDim.x (up to 2^31 - 1), the runs (and on the
+// CUDA-core path the chunks and heads) on y and z, so b may pass their
+// 65,535: fast_mamba_vsr_ssd's temporal SSD has one sequence per pixel of
+// a tile group, b = 368,640 at 360x640.
+//
 // Layouts: x (b, L, H*P) with row stride ldx; dt (b, L, H) fp32 contiguous;
 // A (H,) fp32; B, C (b, L, N) with row strides ldb, ldc; y (b, L, H*P)
 // contiguous. Scratch: states (b, H, runs, N, P) fp32, decay (b, H, runs)
@@ -72,6 +77,7 @@ constexpr int Q = 64;          // chunk length (two elements per lane of a warp)
 constexpr int THREADS = 256;   // CUDA-core phases 1 and 3
 constexpr int PASS_THREADS = 128;
 constexpr int PASS_UNROLL = 8;
+constexpr long kMaxGridX = 2147483647, kMaxGridYZ = 65535;
 
 // ---------------------------------------------------------------------------
 // CUDA-core path (fp32, and half types outside the tensor-core domain)
@@ -120,7 +126,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* Bw = g + Q;             // Q x N: B_s[n] * e^(G - g_s)
   float* xd = Bw + Q * N;        // Q x P: dt_s * x_s[p]
 
-  const int k = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int bi = blockIdx.x, k = blockIdx.y, h = blockIdx.z;
   const int tid = threadIdx.x;
   const int t0 = k * Q;
   load_chunk_decay(dt, A[h], bi, h, H, L, t0, reverse, dts, g);
@@ -200,7 +206,7 @@ ssd_chunk_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* W = Cs + Q * N;         // Q x J
   float* X = W + Q * J;          // J x P: rows s < Q are dt_s x_s, then S_in
 
-  const int k = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int bi = blockIdx.x, k = blockIdx.y, h = blockIdx.z;
   const int tid = threadIdx.x;
   const int t0 = k * Q;
   load_chunk_decay(dt, A[h], bi, h, H, L, t0, reverse, dts, g);
@@ -275,7 +281,7 @@ int launch_simt(const void* x, const float* dt, const float* A, const void* Bm,
                 int H, int P, int N, long ldx, long ldb, long ldc, int reverse,
                 cudaStream_t stream) {
   const int K = (L + Q - 1) / Q;
-  const dim3 grid(K, H, b);
+  const dim3 grid(b, K, H);
   const size_t smem1 = sizeof(float) * (2 * Q + Q * N + Q * P);
   const size_t smem3 =
       sizeof(float) * (2 * Q + 2 * Q * N + Q * (Q + N) + (Q + N) * P);
@@ -505,7 +511,7 @@ __device__ __forceinline__ void scale_row(const T* src, T* dst, float e) {
   }
 }
 
-// Phase 1 (kOut false): grid (M, b); block (r, bi) walks the chunks of run
+// Phase 1 (kOut false): grid (b, M); block (bi, r) walks the chunks of run
 // r from a zero state and writes the run's end state and log-decay.
 // Phase 3 (kOut true): the same walk from the entering state, writing y.
 template <typename T, bool kOut>
@@ -514,7 +520,7 @@ ssd_run_kernel(const TcArgs<T> a) {
   extern __shared__ __align__(16) char tc_smem[];
   char* smem = tc_smem;
   const TcLayout l = tc_layout(a.H, a.P);
-  const int r = blockIdx.x, bi = blockIdx.y;
+  const int bi = blockIdx.x, r = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int H = a.H, P = a.P, HP = H * P, rev = a.reverse;
@@ -794,7 +800,7 @@ int launch_tc(const void* x, const float* dt, const float* A, const void* Bm,
   cudaError_t err;
   if ((err = allow_smem(ssd_run_kernel<T, false>, l.total)) != cudaSuccess) return err;
   if ((err = allow_smem(ssd_run_kernel<T, true>, l.total)) != cudaSuccess) return err;
-  const dim3 grid(M, b);
+  const dim3 grid(b, M);
   ssd_run_kernel<T, false><<<grid, TC_THREADS, l.total, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long total = (long)b * H * N * P;
@@ -832,7 +838,13 @@ int vetk_ssd_shared(int dtype, const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, void* states,
                     void* decay, int b, int L, int H, int P, int N, long ldx,
                     long ldb, long ldc, int reverse, int run, void* stream) {
-  if (P > 64 || P < 1 || N < 1 || L < 1 || b < 1 || H < 1 || b > 65535)
+  // grids: (b, runs) on the tensor-core path, (b, K, H) on the CUDA-core
+  // path, and the state pass's b * H * N * P threads in blocks of
+  // PASS_THREADS on x alone
+  const long K = (L + Q - 1) / Q;
+  const long pass_blocks = ((long)b * H * N * P + PASS_THREADS - 1) / PASS_THREADS;
+  if (P > 64 || P < 1 || N < 1 || L < 1 || b < 1 || H < 1 || N > 128 ||
+      H > kMaxGridYZ || pass_blocks > kMaxGridX)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto dtf = static_cast<const float*>(dt);
@@ -841,7 +853,9 @@ int vetk_ssd_shared(int dtype, const void* x, const void* dt, const void* A,
   auto df = static_cast<float*>(decay);
   const bool tc = (dtype == kBFloat16 || dtype == kFloat16) && P % 16 == 0 &&
                   P >= 16 && H * P <= TC_MAX_HP && N <= 16;
-  if (tc ? run < 1 : run != 1) return (int)cudaErrorInvalidValue;
+  const bool runs_fit = tc ? run >= 1 && (K + run - 1) / run <= kMaxGridYZ
+                           : run == 1 && K <= kMaxGridYZ;
+  if (!runs_fit) return (int)cudaErrorInvalidValue;
   if (tc && dtype == kBFloat16)
     return launch_tc<__nv_bfloat16>(x, dtf, Af, Bm, Cm, y, sf, df, b, L, H, P, N,
                                     ldx, ldb, ldc, reverse, run, st);

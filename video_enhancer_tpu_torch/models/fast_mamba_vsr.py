@@ -1,8 +1,8 @@
 """FastMambaVSR: the strict-latency x4 model, a bidirectional selective scan
 along time at every pixel.
 
-Counterpart of video_enhancer_tpu/models/fast_mamba_vsr.py with its default
-``temporal_mixer="ssm"``: separable-conv3d embeds ->
+Counterpart of video_enhancer_tpu/models/fast_mamba_vsr.py: separable-conv3d
+embeds ->
 multi-scale fusion (2x2 average pools, separable convs, linear upsampling,
 1x1 fuse) -> ``num_layers`` layers of (LayerNorm, the shared-stream
 bidirectional SSM over each pixel's (T, C) sequence, depthwise and
@@ -12,17 +12,26 @@ head -> per-frame pixel shuffle, added to the bicubic upscale, plus a
 conv start at zero, so an untrained model returns exact bicubic. Layout
 ``(B, T, H, W, C)``.
 
-The temporal SSM is ``nn.ssm.bissm_apply``, whose fused interior runs the
-CUDA kernel csrc/fused_bissm.cu for a CUDA tensor (the TPU's
-``_fused_bissm_kernel``), here at (B*H*W, T, inner 96, N 8, K 5, rank 3).
-``kernels=False`` runs its plain version. The ``ssd`` mixer
-(``fast_mamba_vsr_ssd``) is not ported.
+The temporal mixer is chosen at ``init`` (JAX :83-87):
+
+- ``"ssm"`` (the default): ``nn.ssm.bissm_apply``, whose fused interior
+  runs the CUDA kernel csrc/fused_bissm.cu for a CUDA tensor (the TPU's
+  ``_fused_bissm_kernel``), here at (B*H*W, T, inner 96, N 8, K 5, rank 3);
+- ``"ssd"`` (``fast_mamba_vsr_ssd``): ``nn.ssm.bissd_apply`` with one head
+  a layer width (inner 96, 2 heads of P 48, N 8), whose two SSD scans run
+  the CUDA kernel csrc/ssd_shared.cu (the TPU's SSD kernels) at (B*H*W, T,
+  2, 48, 8) for a CUDA tensor. The JAX package runs this mixer in its plain
+  form (:113-116: its chunked TPU kernels stall at long L and small b); the
+  port's kernel takes b past 65,535, so on the card it runs there.
+
+``kernels=False`` runs the plain versions of either.
 
 With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
 the model runs exactly over the whole clip: the temporal SSM is
 ``bissm_apply_sharded`` (the distributed scans, four short-scan kernels a
 layer on the card) and the final temporal conv exchanges 1-frame halos,
-zeroed at the global edges.
+zeroed at the global edges. The sharded form of the ssd mixer is not
+ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..nn.ssm import bissm_apply, bissm_apply_sharded, bissm_init
+from ..nn.ssm import (bissd_apply, bissd_init, bissm_apply,
+                      bissm_apply_sharded, bissm_init)
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
 from ..parallel.temporal import halo_exchange_time
@@ -51,8 +61,19 @@ def _sepconv3d_apply(p, x):
 
 
 def init(gen: torch.Generator, dim: int = 48, num_layers: int = 8,
-         scale: int = 4, state_dim: int = 8, expand: int = 2) -> dict:
-    """Random parameters (fp32, CPU) from ``gen``, in the port's layouts."""
+         scale: int = 4, state_dim: int = 8, expand: int = 2,
+         temporal_mixer: str = "ssm") -> dict:
+    """Random parameters (fp32, CPU) from ``gen``, in the port's layouts;
+    ``temporal_mixer`` "ssm" or "ssd"."""
+    if temporal_mixer not in ("ssm", "ssd"):
+        raise ValueError(f"unknown temporal_mixer {temporal_mixer!r}")
+
+    def mixer():
+        if temporal_mixer == "ssd":
+            return bissd_init(gen, dim, state_dim=state_dim, expand=expand,
+                              head_dim=dim)
+        return bissm_init(gen, dim, state_dim=state_dim, expand=expand)
+
     return {
         "embed1": _sepconv3d_init(gen, 3, dim),
         "embed2": _sepconv3d_init(gen, dim, dim),
@@ -61,8 +82,7 @@ def init(gen: torch.Generator, dim: int = 48, num_layers: int = 8,
         "ms_fuse": nn.conv3d_init(gen, 1, 1, 1, 3 * dim, dim),
         "layers": [{
             "norm": nn.layer_norm_init(dim),
-            "bimamba": bissm_init(gen, dim, state_dim=state_dim,
-                                  expand=expand),
+            "bimamba": mixer(),
             "spatial_dw": nn.conv3d_init(gen, 1, 3, 3, dim, dim, groups=dim),
             "spatial_pw": nn.conv3d_init(gen, 1, 1, 1, dim, dim),
         } for _ in range(num_layers)],
@@ -74,11 +94,17 @@ def init(gen: torch.Generator, dim: int = 48, num_layers: int = 8,
 
 
 def _temporal_bimamba(p, x, kernels, time_axis=None):
-    """The bidirectional SSM along T at every pixel: (B, T, H, W, C) ->
-    sequences (B*H*W, T, C) -> back."""
+    """The bidirectional SSM (or SSD: the layer holds ``norm_scale``) along
+    T at every pixel: (B, T, H, W, C) -> sequences (B*H*W, T, C) -> back."""
     b, t, h, w, c = x.shape
     seq = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-    if time_axis is not None:
+    if "norm_scale" in p:
+        if time_axis is not None:
+            raise NotImplementedError(
+                "the time-sharded form of fast_mamba_vsr's ssd temporal mixer "
+                "is not ported yet; run it unsharded")
+        y = bissd_apply(p, seq, use_kernel=kernels)
+    elif time_axis is not None:
         y = bissm_apply_sharded(p, seq, time_axis,
                                 impl=None if kernels else "ref")
     else:
@@ -111,9 +137,10 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4,
     """``(B, T, H, W, 3)`` in [0, 1] -> ``(B, T, scale*H, scale*W, 3)``.
 
     ``kernels=True`` runs the fused SSM kernel for a CUDA tensor (with
-    ``time_axis``, the scan kernels by ``selective_scan``'s rule); ``False``
-    the plain versions. ``time_axis``: the clip is this rank's T shard (see
-    the module docstring)."""
+    ``time_axis``, the scan kernels by ``selective_scan``'s rule), or the
+    SSD kernel on the ssd mixer; ``False`` the plain versions.
+    ``time_axis``: the clip is this rank's T shard (see the module
+    docstring)."""
     x = clip
     feats = _sepconv3d_apply(params["embed2"],
                              F.silu(_sepconv3d_apply(params["embed1"], x)))

@@ -13,9 +13,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv2d, conv3d
+from ..ops.conv import conv2d, conv3d, conv_transpose2d
 
 __all__ = ["dense_init", "dense_apply", "conv2d_init", "conv2d_apply",
+           "conv_transpose2d_apply",
            "conv3d_init", "conv3d_apply", "layer_norm_init",
            "layer_norm_apply", "group_norm_init", "group_norm_apply",
            "mlp_init", "mlp_apply", "sinusoidal_embedding"]
@@ -58,8 +59,31 @@ def conv2d_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
     return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (cout,), bound)}
 
 
-def conv2d_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return conv2d(x, p["w"], p.get("b"))
+def conv2d_apply(p: dict, x: torch.Tensor, stride: int = 1,
+                 padding="SAME", round_once: bool = False) -> torch.Tensor:
+    """The conv in x's dtype. ``round_once``: the JAX package's rounding
+    (ops/conv.py, ``preferred_element_type=float32``): the products summed
+    in fp32, the bias added in fp32, one rounding to x's dtype, computed as
+    an fp32 conv of the half-precision values (exact products; on the card
+    a TF32 conv where cuDNN may use one, TF32 holding bf16 values exactly).
+    cuDNN's bf16 conv with a bias rounds twice and leaves 28% of the
+    outputs an ulp from that (``scripts/torch_rife_parity.py``)."""
+    b = p.get("b")
+    if round_once and x.dtype != torch.float32:
+        return conv2d(x.float(), p["w"].to(x.dtype).float(),
+                      None if b is None else b.float(), stride=stride,
+                      padding=padding).to(x.dtype)
+    return conv2d(x, p["w"], b, stride=stride, padding=padding)
+
+
+def conv_transpose2d_apply(p: dict, x: torch.Tensor, stride: int = 2,
+                           padding: int = 1) -> torch.Tensor:
+    """``p["w"]`` in ConvTranspose2d's ``(Cin, Cout, kh, kw)``: what
+    runtime/weights.py makes of a ``.pth``'s ConvTranspose2d weight (its
+    two permutations cancel) and of the JAX package's converted ``(kh, kw,
+    Cout, Cin)``."""
+    return conv_transpose2d(x, p["w"], p.get("b"), stride=stride,
+                            padding=padding)
 
 
 def conv3d_init(gen: torch.Generator, kt: int, kh: int, kw: int, cin: int,

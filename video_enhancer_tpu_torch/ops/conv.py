@@ -11,6 +11,13 @@ at stride s an axis of n gives ceil(n / s) outputs and is padded by
 stride 2 and an even n it is (0, 1), which torch's symmetric ``padding``
 cannot give, so such axes are padded explicitly.
 
+``conv2d`` also takes a stride with explicit padding ``((lo, hi), (lo,
+hi))`` (the official IFNet's stride-2 convs pad (1, 1) as torch does, not
+SAME). ``conv_transpose2d`` is torch's ``ConvTranspose2d(stride,
+padding)`` on a weight in its own layout ``(Cin, Cout, kh, kw)``, which is
+what video_enhancer_tpu/models/official_arch.py:133-151 computes from the
+same checkpoint.
+
 ``conv_transpose3d`` is ``lax.conv_transpose`` with "SAME" (the kernel not
 flipped): a conv over the input dilated by the stride, padded ``(k - 1, 1)``
 at stride 2 and ``(k // 2, k // 2)`` at stride 1 (k 3).
@@ -28,7 +35,8 @@ import torch.nn.functional as F
 
 from .. import kernels
 
-__all__ = ["conv2d", "conv3d", "conv_transpose3d", "depthwise_conv1d",
+__all__ = ["conv2d", "conv3d", "conv_transpose2d", "conv_transpose3d",
+           "depthwise_conv1d",
            "depthwise_conv1d_silu", "depthwise_conv1d_silu_plain"]
 
 
@@ -41,11 +49,29 @@ def _triple(v) -> tuple[int, int, int]:
     return (v,) * 3 if isinstance(v, int) else tuple(v)
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor,
-           b: torch.Tensor | None = None) -> torch.Tensor:
-    """``x (B, H, W, Cin)``, ``w (Cout, Cin, kh, kw)`` -> ``(B, H, W,
-    Cout)``, SAME padding, stride 1."""
-    return conv3d(x[:, None], w[:, :, None], b)[:, 0]
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           stride: int = 1, padding="SAME") -> torch.Tensor:
+    """``x (B, H, W, Cin)``, ``w (Cout, Cin, kh, kw)`` -> ``(B, H', W',
+    Cout)``: SAME padding at stride 1, or ``padding`` ``((lo, hi), (lo,
+    hi))`` at any stride."""
+    if stride == 1 and padding == "SAME":
+        return conv3d(x[:, None], w[:, :, None], b)[:, 0]
+    (t, bo), (le, ri) = padding
+    xi = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo))
+    out = F.conv2d(xi, w.to(x.dtype), None if b is None else b.to(x.dtype),
+                   stride=stride)
+    return out.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None, stride: int = 2,
+                     padding: int = 1) -> torch.Tensor:
+    """Torch's ``ConvTranspose2d(Cin, Cout, k, stride, padding)``: ``x (B, H,
+    W, Cin)``, ``w (Cin, Cout, kh, kw)`` -> ``(B, H', W', Cout)``."""
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
+                             None if b is None else b.to(x.dtype),
+                             stride=stride, padding=padding)
+    return out.permute(0, 2, 3, 1)
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

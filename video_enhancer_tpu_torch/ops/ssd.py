@@ -116,6 +116,8 @@ _SSD_TC_MAX_HP = 128         # H * P a block of it holds
 _SSD_SIMT_THREADS = 256
 _SMEM_BLOCK = 232448         # dynamic shared memory a block may use (H100)
 _SMEM_SM = 233472            # shared memory of an SM; each block takes 1 KB more
+_SSD_PASS_THREADS = 128      # threads a block of the state pass
+_MAX_GRID_X, _MAX_GRID_YZ = 2 ** 31 - 1, 65535
 
 
 def _ssd_smem(H: int, P: int) -> int:
@@ -156,17 +158,25 @@ def _ssd_plan(b: int, L: int, H: int, P: int, N: int, dtype: torch.dtype,
     path the R chunks a block walks (a run) and the M = ceil(K / R) runs,
     with R the least that puts the b * M blocks in one wave of the card
     (blocks an SM by shared memory, capped by what the kernel's launch
-    bound guarantees by registers). Raises ValueError for what the kernel
-    does not take."""
-    if min(b, L, H, P, N) < 1 or P > 64 or N > 128 or b > 65535:
-        raise ValueError(f"kernel takes P <= 64, N <= 128 and b <= 65535, "
-                         f"got b={b} L={L} H={H} P={P} N={N}")
+    bound guarantees by registers). The batch lies on ``gridDim.x`` (up to
+    2^31 - 1), the runs on y (tensor cores: ``grid`` (b, M)), the chunks on
+    y and the heads on z (CUDA cores: (b, K, H)), each up to 65,535. Raises
+    ValueError for what the kernel does not take: past P 64 or N 128, a
+    state pass of more than 2^31 - 1 blocks of 128 threads (b H N P
+    threads), or more than 65,535 runs, chunks (L past 4,194,240 on the
+    CUDA-core path) or heads."""
     K = -(-L // _SSD_Q)
+    if (min(b, L, H, P, N) < 1 or P > 64 or N > 128
+            or -(-b * H * N * P // _SSD_PASS_THREADS) > _MAX_GRID_X):
+        raise ValueError(f"kernel takes P <= 64, N <= 128 and a state pass "
+                         f"of at most 2^31 - 1 blocks, got b={b} L={L} H={H} "
+                         f"P={P} N={N}")
     if _ssd_route(dtype, H, P, N) == "simt":
-        if H > 65535:
-            raise ValueError(f"kernel takes H <= 65535, got H={H}")
+        if K > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+            raise ValueError(f"kernel takes at most 65535 chunks and heads "
+                             f"on its CUDA-core path, got K={K} H={H}")
         return {"route": "simt", "chunk": _SSD_Q, "chunks": K, "run": 1,
-                "runs": K, "grid": (K, H, b), "threads": _SSD_SIMT_THREADS,
+                "runs": K, "grid": (b, K, H), "threads": _SSD_SIMT_THREADS,
                 "smem": _ssd_simt_smem(P, N)}
     smem = _ssd_smem(H, P)
     per_sm = min(_SSD_TC_MIN_BLOCKS, _SMEM_SM // (smem + 1024))
@@ -175,8 +185,10 @@ def _ssd_plan(b: int, L: int, H: int, P: int, N: int, dtype: torch.dtype,
     while run < K and b * -(-K // run) > slots:
         run += 1
     runs = -(-K // run)
+    if runs > _MAX_GRID_YZ:
+        raise ValueError(f"kernel takes at most 65535 runs, got {runs}")
     return {"route": "mma", "chunk": _SSD_Q, "chunks": K, "run": run,
-            "runs": runs, "grid": (runs, b), "threads": _SSD_TC_THREADS,
+            "runs": runs, "grid": (b, runs), "threads": _SSD_TC_THREADS,
             "smem": smem, "blocks_per_sm": per_sm}
 
 
@@ -190,8 +202,6 @@ def _ssd_shared_cuda(x, dt, A, Bm, Cm, reverse):
         raise ValueError("Bm and Cm must both be (b, L, N)")
     if not (Bm.dtype == Cm.dtype == x.dtype):
         raise TypeError("x, Bm and Cm must share one dtype")
-    if P > 64 or N > 128:
-        raise ValueError(f"kernel takes P <= 64 and N <= 128, got P={P} N={N}")
     if x.stride(3) != 1 or x.stride(2) != P:
         raise ValueError(f"x: heads must be dense, got strides {x.stride()}")
     for t in (dt, A, Bm, Cm):

@@ -19,16 +19,23 @@ A failure of the primary falls back to the bicubic handler and says so in
 ``stats["fallback_from"]`` and ``stats["fallback_error"]``; a conditioned
 primary's context is recorded in ``stats["context"]``.
 
-The post stages run in the plan's order. Temporal consistency
-(``experts.temporal_smooth``) runs on the handler's device over the
-primary's uint8 output (over 255, smoothed, rounded back), in memory for
-``run_auto_frames`` and, as the JAX pipeline does, on the written file,
-rewritten at its fps, for ``run_auto_pipeline``; it sets
-``stats["temporal_smoothing"]`` and times itself in
-``stats["temporal_smoothing_sec"]``. As in the JAX pipeline a post stage is
-best effort: its failure is recorded as ``stats["<stage>_error"]``, with no
-retry elsewhere. Face restoration and frame interpolation are not ported:
-each one the plan asks for is recorded as ``"not ported"`` there.
+The post stages run in the plan's order, each on the handler's device over
+the primary's uint8 output (over 255, processed, rounded back): in memory
+for ``run_auto_frames`` and, as the JAX pipeline does, on the written file
+for ``run_auto_pipeline``.
+
+- Temporal consistency (``experts.temporal_smooth``) rewrites the file at
+  its fps; it sets ``stats["temporal_smoothing"]`` and times itself in
+  ``stats["temporal_smoothing_sec"]``.
+- Frame interpolation (``hfr_interpolation``, the plan holds it when
+  ``enable_hfr`` is asked for) runs RIFE's ``_double`` once (T -> 2T - 1,
+  runtime/rife_handler.py) and rewrites the file at twice its fps; it sets
+  ``stats["hfr"]``, ``stats["hfr_interpolation_sec"]`` and, when RIFE fell
+  back to blending pairs, ``stats["hfr_blend_fallbacks"]``.
+
+As in the JAX pipeline a post stage is best effort: its failure is recorded
+as ``stats["<stage>_error"]``, with no retry elsewhere. Face restoration is
+not ported: where the plan asks for it, ``"not ported"`` is recorded there.
 """
 
 from __future__ import annotations
@@ -48,15 +55,20 @@ from ..device import resolve_device
 from ..io.video import sample_indices
 from .experts import preprocess_clip, temporal_smooth
 from .registry import build_handler, probe_available
+from .rife_handler import RIFEHandler
 from .vsr_handler import VSRHandler
 
 log = logging.getLogger(__name__)
 
 __all__ = ["run_auto_frames", "run_auto_pipeline", "preprocess_frames",
-           "apply_degradation_context", "smooth_frames"]
+           "apply_degradation_context", "smooth_frames", "hfr_frames"]
 
 POST_STAGES = ("face_restoration", "temporal_consistency",
                "hfr_interpolation")
+# each ported post stage's flag and the prefix of its time in the stats
+_STAGE_STATS = {"temporal_consistency": ("temporal_smoothing",
+                                         "temporal_smoothing"),
+                "hfr_interpolation": ("hfr", "hfr_interpolation")}
 
 
 def _set_engine(plan: dict, engine: str) -> dict:
@@ -85,26 +97,29 @@ def apply_degradation_context(handler, plan: dict) -> None:
 
 
 def _finish_stats(stats: dict, handler, plan: dict, t0: float,
-                  smooth) -> dict:
-    """Run the post stages the plan asks for (``smooth()`` for temporal
-    consistency; the others are not ported), then record the conditioning
-    the primary ran with, the plan and the total time."""
+                  stages: dict) -> dict:
+    """Run the post stages the plan asks for (``stages[stage]()``, which
+    returns any stats of its own; face restoration is not ported), then
+    record the conditioning the primary ran with, the plan and the total
+    time."""
     for stage in plan["processing_order"]:
         if stage not in POST_STAGES:
             continue
-        if stage != "temporal_consistency":
+        if stage not in stages:
             log.warning("post stage %s is not ported", stage)
             stats[f"{stage}_error"] = "not ported"
             continue
         t1 = time.time()
         try:
-            smooth()
+            extra = stages[stage]()
         except Exception as e:  # post stages are best effort
             log.warning("post stage %s failed: %s", stage, e, exc_info=True)
             stats[f"{stage}_error"] = str(e)
             continue
-        stats["temporal_smoothing"] = True
-        stats["temporal_smoothing_sec"] = time.time() - t1
+        flag, sec = _STAGE_STATS[stage]
+        stats[flag] = True
+        stats[f"{sec}_sec"] = time.time() - t1
+        stats.update(extra or {})
     if handler.context:
         stats["context"] = {k: v.tolist() for k, v in handler.context.items()}
     stats["routing_plan"] = plan
@@ -120,6 +135,20 @@ def smooth_frames(frames_u8, device: torch.device) -> list[np.ndarray]:
     out = temporal_smooth(clip)
     u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
     return list(u8.cpu().numpy())
+
+
+def hfr_frames(frames_u8, device: torch.device) -> tuple[list, dict]:
+    """The frame-interpolation stage on uint8 frames, on ``device``: one
+    doubling by RIFE (T -> 2T - 1, over 255, rounded and clamped back).
+    Returns the frames and the stage's stats (``hfr_blend_fallbacks`` when
+    RIFE fell back to blending)."""
+    rife = RIFEHandler(device=device)
+    out = rife.interpolate_frames(frames_u8, 2)
+    return out, _fallbacks(rife.blend_fallbacks)
+
+
+def _fallbacks(n: int) -> dict:
+    return {"hfr_blend_fallbacks": n} if n else {}
 
 
 def _stream(handler, frames) -> tuple[list[np.ndarray], dict]:
@@ -199,7 +228,13 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
     def smooth():
         out[:] = smooth_frames(out, dev)
 
-    return out, _finish_stats(stats, handler, plan, t0, smooth)
+    def hfr():
+        frames_hfr, extra = hfr_frames(out, dev)
+        out[:] = frames_hfr
+        return extra
+
+    return out, _finish_stats(stats, handler, plan, t0, {
+        "temporal_consistency": smooth, "hfr_interpolation": hfr})
 
 
 def run_auto_pipeline(input_path, output_path, engine: str = "auto",
@@ -245,9 +280,10 @@ def run_auto_pipeline(input_path, output_path, engine: str = "auto",
             stats = handler.enhance_video(work_input, output_path)
             stats["fallback_from"] = primary
             stats["fallback_error"] = str(e)
-        return _finish_stats(
-            stats, handler, plan, t0,
-            lambda: _apply_temporal_smoothing(output_path, dev))
+        return _finish_stats(stats, handler, plan, t0, {
+            "temporal_consistency":
+                lambda: _apply_temporal_smoothing(output_path, dev),
+            "hfr_interpolation": lambda: _apply_hfr(output_path, dev)})
     finally:
         for f in tmp_files:
             Path(f).unlink(missing_ok=True)
@@ -276,3 +312,13 @@ def _apply_temporal_smoothing(path, device: torch.device) -> None:
     meta = get_video_metadata(path)
     frames = smooth_frames(list(read_frames(path)), device)
     write_frames(path, frames, (meta.height, meta.width), fps=meta.fps)
+
+
+def _apply_hfr(path, device: torch.device) -> dict:
+    """The frame-interpolation stage on a written video: rewritten with
+    2T - 1 frames at twice its fps (through a temporary file beside it)."""
+    tmp = f"{path}.hfr.mp4"
+    rife = RIFEHandler(device=device)
+    rife.interpolate_video(path, tmp, interpolation_factor=2)
+    Path(tmp).replace(path)
+    return _fallbacks(rife.blend_fallbacks)
