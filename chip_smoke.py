@@ -125,7 +125,22 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    output frames of 720x1280 (ms a pair, its device kernels and time, no
    hand-written kernel; cuDNN's TF32 at PyTorch's default); one pair's
    midframe on the card against the CPU's, bf16 on both
-   (``HFR_MAX_LSB``, ``HFR_MEAN_LSB``).
+   (``HFR_MAX_LSB``, ``HFR_MEAN_LSB``);
+16. the face path: ``run_auto_frames(engine="realesrgan",
+   enable_face_expert=True)`` on a seeded 16-frame 180x320 clip with two
+   blurred faces (``face_clip``): the router's ``face_prominence`` above
+   0.03, ``face_restoration`` in the plan before the later stages, the
+   stage's stats (faces restored, no error) and no hand-written kernel
+   launched in the whole call; ms of routing a 180x320 clip and of its
+   detector alone; the stage alone on realesrgan's 16 output frames of
+   720x1280 (ms a frame, split into detection and restoration), with the
+   card's boxes equal to the CPU's on every frame and its restored frames
+   within ``FACE_MAX_LSB`` of the CPU's (and what cuDNN's TF32 default
+   would change in the detector's and restorer's outputs); GFPGANv1Clean at
+   the v1.4 release configuration (512, seeded weights in a ``.pth``
+   served through ``$VETPU_GFPGAN_CKPT``): one face's ms beside its bound
+   (``gfpgan_flops``), device kernels, and its output against the CPU's
+   (``GFPGAN_MAX_ABS``).
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
@@ -144,6 +159,7 @@ import copy
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -153,11 +169,18 @@ import numpy as np
 import torch
 
 from video_enhancer_tpu_torch import kernels
+from video_enhancer_tpu_torch.analysis import DegradationRouter, face_net
+from video_enhancer_tpu_torch.analysis.faces import (face_area_ratio,
+                                                     nn_detector)
 from video_enhancer_tpu_torch.config import MODELS, default_policy
+from video_enhancer_tpu_torch.device import full_fp32
+from video_enhancer_tpu_torch.io.video import sample_indices
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
                                              official_arch, rvrt, seedvr2,
                                              vsrm)
+from video_enhancer_tpu_torch.models.official_gfpgan import (
+    gfpgan_channels, gfpgan_official_apply, gfpgan_official_init)
 from video_enhancer_tpu_torch.nn import ssm
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
@@ -187,12 +210,15 @@ from video_enhancer_tpu_torch.parallel.mesh import make_mesh
 from video_enhancer_tpu_torch.parallel.spatial import \
     make_spatially_sharded_clip_fn
 from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
+from video_enhancer_tpu_torch.runtime.face_handler import (
+    FaceRestorationExpert, _face_net_apply)
 from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
 from video_enhancer_tpu_torch.runtime.registry import (build_handler,
                                                       bundled_weights,
-                                                      load_params)
+                                                      load_params,
+                                                      probe_available)
 from video_enhancer_tpu_torch.runtime.rife_handler import RIFEHandler
 from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
                                                          cast_params,
@@ -279,6 +305,10 @@ STAGE_MAX_LSB, STAGE_MEAN_LSB = 1.0, 0.01
 # 0.016 on a moving 720x1280 pair (scripts/torch_rife_parity.py), where a
 # conv rounded twice (cuDNN's bf16 conv with its bias) reads 0.14
 HFR_MAX_LSB, HFR_MEAN_LSB = 8.0, 0.1
+# the face stage, card against CPU, fp32 nets on both (TF32 off): restored
+# frames in LSB; GFPGAN's output on [-1, 1]
+FACE_MAX_LSB = 1.0
+GFPGAN_MAX_ABS = 1e-3
 
 
 class Failure(RuntimeError):
@@ -1172,6 +1202,52 @@ def sharp_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
     quality gate passes every window through."""
     rng = np.random.default_rng(seed)
     return list(rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+
+
+def _box_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """A k x k mean of ``(H, W, C)`` with replicated borders."""
+    r = k // 2
+    for axis in (0, 1):
+        pad = [(0, 0)] * img.ndim
+        pad[axis] = (r + 1, r)
+        c = np.cumsum(np.pad(img, pad, mode="edge"), axis=axis)
+        img = (np.take(c, range(k, c.shape[axis]), axis=axis)
+               - np.take(c, range(0, c.shape[axis] - k), axis=axis)) / k
+    return img
+
+
+def face_clip(n: int, h: int, w: int, seed: int = SEED) -> list[np.ndarray]:
+    """Seeded frames with faces: a smooth blue-green field and two
+    skin-toned elliptical faces (dark eyes, a red mouth) of heights 0.6 h
+    and 0.46 h, drifting a pixel a frame, the whole frame blurred by a 7x7
+    box twice, so that each face's quality score falls under 0.5 (the
+    expert's "balanced" threshold), uint8 RGB."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, size=3)
+    base = np.stack([0.25 + 0.08 * np.sin(0.02 * xx + ph[0]),
+                     0.45 + 0.08 * np.cos(0.03 * yy + ph[1]),
+                     0.62 + 0.05 * np.sin(0.01 * (xx + yy) + ph[2])], -1)
+    heads = [(0.3 * w, 0.52 * h, 0.3 * h, 1.0),
+             (0.72 * w, 0.47 * h, 0.23 * h, -1.0)]
+
+    def ellipse(cx, cy, rx, ry):
+        return ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1.0
+
+    frames = []
+    for t in range(n):
+        img = base.copy()
+        for cx, cy, ry, drift in heads:
+            cx, rx = cx + drift * t, 0.75 * ry
+            img[ellipse(cx, cy, rx, ry)] = (0.8, 0.6, 0.48)
+            for ex in (cx - 0.38 * rx, cx + 0.38 * rx):
+                img[ellipse(ex, cy - 0.25 * ry, 0.16 * rx, 0.09 * ry)] = (
+                    0.15, 0.1, 0.1)
+            img[ellipse(cx, cy + 0.45 * ry, 0.36 * rx, 0.08 * ry)] = (
+                0.55, 0.2, 0.2)
+        img = _box_blur(_box_blur(img, 7), 7)
+        frames.append(np.clip(np.round(img * 255), 0, 255).astype(np.uint8))
+    return frames
 
 
 @phase("5 auto route to ditvr")
@@ -2132,6 +2208,274 @@ def _hfr_stage(big: list, device_line: str) -> dict:
     return {"ms_pair": 1000 * stage_s / (n - 1)}
 
 
+def gfpgan_flops(out_size: int = 512, nsf: int = 512,
+                 channel_multiplier: float = 2.0, narrow: float = 1.0,
+                 different_w: bool = True, sft_half: bool = True,
+                 num_mlp: int = 8, input_is_latent: bool = True
+                 ) -> tuple[float, float]:
+    """The FLOPs of one GFPGANv1Clean face from its channel table
+    (``gfpgan_channels``): its convs (2 per multiply-add), and its linears
+    with the modulated convs' demodulation products; the resizes and the
+    elementwise work are left out."""
+    def conv(r, k, cin, cout):
+        return 2.0 * r * r * k * k * cin * cout
+
+    log_size = int(math.log2(out_size))
+    u = gfpgan_channels(channel_multiplier, narrow * 0.5)
+    c = gfpgan_channels(channel_multiplier, narrow)
+    convs = conv(out_size, 1, 3, u[out_size]) + conv(4, 3, u[8], u[4])
+    cin = u[out_size]
+    for i in range(log_size, 2, -1):            # down: r -> r / 2
+        r, cout = 2 ** i, u[2 ** (i - 1)]
+        convs += (conv(r, 3, cin, cin) + conv(r // 2, 3, cin, cout)
+                  + conv(r // 2, 1, cin, cout))
+        cin = cout
+    for i in range(3, log_size + 1):            # up: r / 2 -> r, SFT convs
+        r, cout = 2 ** i, u[2 ** i]
+        sft = cout if sft_half else 2 * cout
+        convs += (conv(r // 2, 3, cin, cin) + conv(r, 3, cin, cout)
+                  + conv(r, 1, cin, cout)
+                  + 2 * (conv(r, 3, cout, cout) + conv(r, 3, cout, sft)))
+        cin = cout
+    num_latent = 2 * log_size - 2
+    rows = num_latent if different_w else 1
+    linear = 2.0 * u[4] * 16 * rows * nsf
+    if not input_is_latent:
+        linear += num_mlp * rows * 2.0 * nsf * nsf
+
+    def modconv(r, k, cin, cout, demod):
+        nonlocal convs, linear
+        convs += conv(r, k, cin, cout)
+        linear += 2.0 * nsf * cin + (2.0 * cin * cout if demod else 0.0)
+
+    modconv(4, 3, c[4], c[4], True)
+    modconv(4, 1, c[4], 3, False)
+    cin = c[4]
+    for i in range(3, log_size + 1):
+        r, cout = 2 ** i, c[2 ** i]
+        modconv(r, 3, cin, cout, True)
+        modconv(r, 3, cout, cout, True)
+        modconv(r, 1, cout, 3, False)
+        cin = cout
+    return convs, linear
+
+
+def _face_stage_split(expert, frames) -> tuple[float, float]:
+    """Seconds of the expert's detections on ``frames`` and of the whole
+    stage (``process_frames_selective``) on them, each ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        expert.detect_faces(f)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    expert.process_frames_selective(frames)
+    torch.cuda.synchronize()
+    return t1 - t0, time.perf_counter() - t1
+
+
+def _tf32_drift(frames, expert) -> str:
+    """What cuDNN's TF32 would change: the detector's head outputs on the
+    first frame and the restorer's output on its first face, TF32 against
+    fp32 (max abs), and whether the decoded boxes stay."""
+    params = nn_detector(expert.device)
+    box = expert.detect_faces(frames[0])[0]
+    x, y, w, h = box
+    crop = torch.from_numpy(np.ascontiguousarray(
+        frames[0][y:y + h, x:x + w])).cuda().float() / 255.0
+    inp = resize(crop, (128, 128), method="linear")[None]
+    outs = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            head = face_net.apply(params, face_net.net_input(
+                frames[0], expert.device))[0]
+            rest = _face_net_apply(expert.params, inp)
+        outs[tf32] = (head.cpu().numpy(), rest)
+    torch.backends.cudnn.allow_tf32 = False
+    same = (face_net.decode(outs[True][0]) == face_net.decode(outs[False][0]))
+    return (f"TF32 vs fp32: detector head max_abs "
+            f"{np.abs(outs[True][0] - outs[False][0]).max():.3e} (boxes "
+            f"{'unchanged' if same else 'CHANGED'}), restorer "
+            f"{(outs[True][1] - outs[False][1]).abs().max().item() * 255:.3f}"
+            f" LSB")
+
+
+@phase("16 face path")
+def face_path(device_line: str) -> dict:
+    """The face stage through ``run_auto_frames``, routing with the
+    detector, the stage alone at 720x1280 on the card against the CPU, and
+    GFPGAN at 512 through ``$VETPU_GFPGAN_CKPT``."""
+    frames = face_clip(16, 180, 320)
+    kw = {"engine": "realesrgan", "enable_face_expert": True}
+    run_auto_frames(frames[:4], **kw)                 # warm-up, not counted
+    (out, stats), counts, secs = _counted(lambda: run_auto_frames(frames,
+                                                                  **kw))
+    plan = stats["routing_plan"]
+    order = plan["processing_order"]
+    prominence = plan["content_analysis"]["face_prominence"]
+    print(f"route with enable_face_expert: model {stats['model']}, order "
+          f"{order}; face_prominence {prominence:.4f}; faces restored "
+          f"{stats.get('faces_restored')}, stage "
+          f"{stats.get('face_restoration_sec', 0):.3f} s; launches {counts};"
+          f" {secs:.3f} s end to end ({device_line})")
+    check(prominence > 0.03, f"face_prominence {prominence}")
+    check("face_restoration" in order
+          and order[order.index("face_restoration") - 1] == "sota_realesrgan",
+          f"the plan is {order}")
+    check(stats.get("face_restoration") is True
+          and stats.get("faces_restored", 0) > 0
+          and "face_restoration_error" not in stats
+          and "fallback_from" not in stats,
+          f"the face stage: {stats.get('face_restoration_error')}")
+    check(counts == _only(), f"the face route launched {counts}")
+    check(len(out) == 16 and out[0].shape == (720, 1280, 3),
+          f"{len(out)} frames of {out[0].shape}")
+
+    router = DegradationRouter(available_models=probe_available())
+    sampled = np.stack([frames[i] for i in sample_indices(len(frames))])
+    torch.cuda.synchronize()
+    route_s, det_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        router.analyze_frames(sampled, frame_count=16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        face_area_ratio(sampled)
+        torch.cuda.synchronize()
+        route_s.append(t1 - t0)
+        det_s.append(time.perf_counter() - t1)
+    route_ms = 1e3 * statistics.median(route_s)
+    det_ms = 1e3 * statistics.median(det_s)
+    print(f"routing 12 sampled 180x320 frames: {route_ms:.3f} ms with the "
+          f"detector (median of 5), the detector alone (4 frames) "
+          f"{det_ms:.3f} ms, so {route_ms - det_ms:.3f} ms without it "
+          f"({device_line})")
+
+    big = list(build_handler("realesrgan").enhance_frames(iter(frames)))
+    expert = FaceRestorationExpert()
+    cpu = FaceRestorationExpert(device="cpu")
+    _face_stage_split(expert, big[:2])                # warm-up, not counted
+    (det, stage), stage_counts, _ = _counted(_face_stage_split, expert, big)
+    check(stage_counts == _only(), f"the face stage launched {stage_counts}")
+    n = len(big)
+    print(f"face stage 720x1280, {n} frames: {1e3 * stage / n:.3f} ms a "
+          f"frame ({stage:.3f} s): detection {1e3 * det / n:.3f} ms a frame,"
+          f" scoring and restoration {1e3 * (stage - det) / n:.3f} "
+          f"({device_line})")
+    launches, dev, top = _kernel_profile(lambda: expert.detect_faces(big[0]))
+    print(f"  one frame's detection: {launches} device kernels, "
+          f"{dev:.3f} ms device time; top (ms): {'; '.join(top)}"
+          if launches else "  device kernels: not measured")
+    box = expert.detect_faces(big[0])[0]
+    launches, dev, top = _kernel_profile(
+        lambda: expert.restore_face(big[0], box, 0.6))
+    print(f"  one face's restoration: {launches} device kernels, "
+          f"{dev:.3f} ms device time; top (ms): {'; '.join(top)}"
+          if launches else "  device kernels: not measured")
+    print(f"  {_tf32_drift(big, expert)}")
+
+    t0 = time.perf_counter()
+    card_boxes = [expert.detect_faces(f) for f in big]
+    cpu_boxes = [cpu.detect_faces(f) for f in big]
+    got, st = expert.process_frames_selective(big)
+    ref, st_cpu = cpu.process_frames_selective(big)
+    cpu_s = time.perf_counter() - t0
+    lsb = max(np.abs(a.astype(np.int16) - b).max() for a, b in zip(got, ref))
+    moved = max(np.abs(a.astype(np.int16) - b).max() for a, b in zip(ref,
+                                                                      big))
+    print(f"face stage, card vs CPU ({cpu_s:.1f} s for both): boxes "
+          f"{'equal' if card_boxes == cpu_boxes else 'DIFFER'} on {n} frames"
+          f" ({sum(map(len, cpu_boxes))} boxes); faces restored "
+          f"{st['faces_restored']} / {st_cpu['faces_restored']}; max "
+          f"{lsb} LSB (tol {FACE_MAX_LSB}); the stage moves pixels by up to "
+          f"{moved} LSB")
+    check(card_boxes == cpu_boxes, "the card's boxes differ from the CPU's")
+    check(st["faces_restored"] == st_cpu["faces_restored"] > 0,
+          "the card restored other faces than the CPU")
+    check(lsb <= FACE_MAX_LSB, "the card's restored frames differ")
+    check(moved > 1, "the stage left the frames as they were")
+    torch.cuda.empty_cache()
+    return {"ms_frame": 1e3 * stage / n, "gfpgan": _gfpgan_face(
+        big[0], box, device_line)}
+
+
+def _gfpgan_face(frame, box, device_line: str) -> float:
+    """GFPGANv1Clean at the v1.4 release configuration, seeded weights in a
+    ``.pth`` served through ``$VETPU_GFPGAN_CKPT``: one face's ms (the
+    bare graph at 512 and the expert's restoration of a box), its bound,
+    device kernels, and the card's output against the CPU's."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    params = gfpgan_official_init(torch.Generator().manual_seed(SEED))
+    for conv in params["stylegan_decoder"]["style_convs"] + [
+            params["stylegan_decoder"]["style_conv1"]]:
+        conv["w"].fill_(0.1)          # noise strengths: the noise counts
+    n_params = sum(t.numel() for t in flatten_params(params).values())
+    prev = os.environ.get("VETPU_GFPGAN_CKPT")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "GFPGANv1.4.pth"
+        torch.save(_torch_state_dict(params), path)
+        os.environ["VETPU_GFPGAN_CKPT"] = str(path)
+        try:
+            expert = FaceRestorationExpert()
+        finally:
+            if prev is None:
+                del os.environ["VETPU_GFPGAN_CKPT"]
+            else:
+                os.environ["VETPU_GFPGAN_CKPT"] = prev
+    check(expert.gfpgan_params is not None,
+          "the checkpoint did not load into GFPGANv1Clean")
+    served = flatten_params(expert.gfpgan_params)
+    check(all(torch.equal(served[k].cpu(), v)
+              for k, v in flatten_params(params).items()),
+          "the served GFPGAN differs from the checkpoint")
+    size = expert._gfpgan_size
+    x = (torch.rand((1, size, size, 3), generator=torch.Generator()
+                    .manual_seed(SEED)) * 2.0 - 1.0)
+    xc = x.cuda()
+    with torch.inference_mode(), full_fp32():
+        fwd = lambda: gfpgan_official_apply(expert.gfpgan_params, xc)
+        y, counts, _ = _counted(fwd)
+        ms = time_ms(fwd, 2, 5)
+        launches, dev, top = _kernel_profile(fwd)
+    check(counts == _only(), f"GFPGAN launched {counts}")
+    face_ms = time_ms(lambda: expert.restore_face(frame, box, 0.6), 2, 5)
+    convs, linear = gfpgan_flops()
+    flops = convs + linear
+    nbytes = 4 * (n_params + 2 * x.numel())
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"GFPGANv1Clean 512 (v1.4 config, {n_params / 1e6:.2f} M "
+          f"parameters, seeded .pth via $VETPU_GFPGAN_CKPT), fp32: "
+          f"{ms:.3f} ms a face (the bare graph), {face_ms:.3f} ms the "
+          f"expert's restoration of a box; bound {bound:.3f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{flops / 1e9:.1f} GFLOP at fp32, {convs / 1e9:.1f} of it convs;"
+          f" {nbytes / 1e6:.0f} MB) ({device_line})")
+    if launches:
+        print(f"  {launches} device kernels, {dev:.3f} ms device time "
+              f"(idle {1 - dev / ms:.3f}); top (ms): {'; '.join(top)}")
+    cpu_params = cast_params(expert.gfpgan_params, torch.float32,
+                             torch.device("cpu"))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = gfpgan_official_apply(cpu_params, x)
+    cpu_s = time.perf_counter() - t0
+    err = (y.cpu() - ref).abs().max().item()
+    print(f"GFPGAN 512, card vs CPU ({cpu_s:.1f} s on the CPU): max_abs "
+          f"{err:.3e} (tol {GFPGAN_MAX_ABS}) on outputs up to "
+          f"{ref.abs().max().item():.3f} (std {ref.std().item():.3f})")
+    check(bool(torch.isfinite(y).all()), "GFPGAN's output is not finite")
+    check(err <= GFPGAN_MAX_ABS, "the card's GFPGAN differs from the CPU's")
+    del expert
+    torch.cuda.empty_cache()
+    return ms
+
+
 SCAN_CU = "video_enhancer_tpu_torch/csrc/selective_scan.cu"
 
 
@@ -2204,6 +2548,7 @@ def main() -> int:
     realesrgan_paths(f"{env['kind']}, {env['smi']}")
     fmv_ssd = fmv_ssd_path(f"{env['kind']}, {env['smi']}")
     hfr_stage(big, f"{env['kind']}, {env['smi']}")
+    face_path(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],

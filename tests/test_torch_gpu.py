@@ -8,7 +8,9 @@ SiLU also at the shapes the served paths give them; the exact time-sharded
 fast_mamba_vsr on a one-rank NCCL group; the temporal stage's Farneback
 flow and ``temporal_smooth`` on the card against the CPU; the SSD at
 fast_mamba_vsr_ssd's shapes (past 65,535 sequences); realesrgan's window in
-bf16 against fp32; a RIFE midframe on the card against the CPU.
+bf16 against fp32; a RIFE midframe on the card against the CPU; the face
+path's cv2 counterparts, detector chain, face stage and GFPGANv1Clean on
+the card against the CPU.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -1424,3 +1426,80 @@ def test_rife_pair_on_the_card_matches_cpu(cuda):
     lsb = (torch.round(got.cpu() * 255) - torch.round(ref * 255)).abs()
     assert lsb.max().item() <= 3 and lsb.mean().item() <= 0.05
     assert (ref - 0.5 * (clip[:1] + clip[1:])).abs().max() * 255 > 5
+
+
+def _face_frames(n, h, w):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import face_clip
+
+    return face_clip(n, h, w)
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (180, 320), (256, 256),
+                                (48, 64)])
+def test_face_ops_on_the_card_match_cpu(cuda, hw):
+    """``resize_area`` (each of cv2's routes), ``rgb_to_ycrcb``,
+    ``morph_close`` and ``laplacian``: the card equals the CPU."""
+    from video_enhancer_tpu_torch.ops.color import rgb_to_ycrcb
+    from video_enhancer_tpu_torch.ops.imgproc import laplacian, morph_close
+    from video_enhancer_tpu_torch.ops.resize import resize_area
+
+    f = torch.from_numpy(_face_frames(1, *hw)[0])
+    fc = f.to(cuda)
+    assert torch.equal(resize_area(fc, (128, 128)).cpu(),
+                       resize_area(f, (128, 128)))
+    ycc = rgb_to_ycrcb(fc)
+    assert torch.equal(ycc.cpu(), rgb_to_ycrcb(f))
+    mask = ((ycc[..., 1] > 133) & (ycc[..., 2] < 127)).to(torch.uint8) * 255
+    assert torch.equal(morph_close(mask).cpu(), morph_close(mask.cpu()))
+    gray = ycc[..., 0].float()
+    assert torch.equal(laplacian(gray).cpu(), laplacian(gray.cpu()))
+
+
+def test_face_stage_on_the_card_matches_cpu(cuda):
+    """The detector chain's boxes on the card equal the CPU's, the face
+    stage restores the same faces within 1 LSB, and no hand-written kernel
+    is launched."""
+    from video_enhancer_tpu_torch.analysis.faces import (detect_faces,
+                                                         face_area_ratio)
+    from video_enhancer_tpu_torch.runtime.face_handler import \
+        FaceRestorationExpert
+
+    frames = _face_frames(6, 180, 320) + _face_frames(2, 64, 96)
+    for f in frames:
+        assert detect_faces(f, cuda) == detect_faces(f, "cpu")
+    clip = frames[:6]
+    assert face_area_ratio(clip, device=cuda) == face_area_ratio(
+        clip, device="cpu") > 0.03
+    kernels.reset_launch_counts()
+    got, stats = FaceRestorationExpert(device=cuda).process_frames_selective(
+        clip)
+    assert sum(kernels.launch_counts.values()) == 0
+    ref, ref_stats = FaceRestorationExpert(
+        device="cpu").process_frames_selective(clip)
+    assert stats["faces_restored"] == ref_stats["faces_restored"] > 0
+    for a, b in zip(got, ref):
+        assert abs(a.astype(int) - b).max() <= 1
+
+
+def test_gfpgan_on_the_card_matches_cpu(cuda):
+    """GFPGANv1Clean at out_size 64 (nsf 64, narrow 1/8, seeded) in fp32
+    with TF32 off: the card against the CPU within 1e-4 on [-1, 1]."""
+    from video_enhancer_tpu_torch.device import full_fp32
+    from video_enhancer_tpu_torch.models.official_gfpgan import (
+        gfpgan_official_apply, gfpgan_official_init)
+    from video_enhancer_tpu_torch.runtime.vsr_handler import cast_params
+
+    params = gfpgan_official_init(torch.Generator().manual_seed(0),
+                                  out_size=64, num_style_feat=64,
+                                  narrow=1 / 8)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator()
+                   .manual_seed(1)) * 2 - 1
+    ref = gfpgan_official_apply(params, x, num_style_feat=64)
+    with full_fp32():
+        got = gfpgan_official_apply(cast_params(params, torch.float32, cuda),
+                                    x.to(cuda), num_style_feat=64)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4

@@ -9,7 +9,8 @@ drives rvrt (an explicit engine and the fallback manager) and the
 strict-latency route to fast_mamba_vsr; one, likewise, drives the route to
 seedvr2 with its quality gate; one, likewise, serves realesrgan,
 realesrgan_fast and fast_mamba_vsr_ssd and runs the frame-interpolation
-stage (RIFE)."""
+stage (RIFE); one, likewise, routes a clip with faces through the detector
+chain and runs the face stage, on both entry points."""
 
 from __future__ import annotations
 
@@ -111,6 +112,26 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+FACES = r"""
+import json, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+from chip_smoke import face_clip
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_frames
+res = {}
+out, stats = run_auto_frames(face_clip(8, 48, 64), engine="bicubic",
+                             enable_face_expert=True, device="cpu")
+plan = stats["routing_plan"]
+res["frames"] = [plan["content_analysis"]["face_prominence"] > 0.03,
+                 "face_restoration" in plan["processing_order"],
+                 stats.get("face_restoration", False),
+                 stats.get("faces_restored", 0) > 0, len(out),
+                 sorted(k for k in stats if k.endswith("_error"))]
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, check=True,
@@ -131,7 +152,9 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "models.seedvr2", "models.diffusion", "ops.prng",
                  "ops.warp", "ops.conv", "ops.color", "ops.optflow",
                  "ops.resize", "models.realesrgan", "models.official_arch",
-                 "models.rife", "runtime.rife_handler"):
+                 "models.rife", "runtime.rife_handler", "analysis.faces",
+                 "analysis.face_net", "runtime.face_handler",
+                 "models.official_gfpgan", "ops.imgproc"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -173,3 +196,11 @@ def test_new_models_and_hfr_run_without_jax_cv2_or_yaml():
     assert res == {name: [name, False, 5] for name in (
         "realesrgan", "realesrgan_fast", "fast_mamba_vsr_ssd")} | {
         "hfr": [True, 9, None]}
+
+
+def test_face_route_runs_without_jax_cv2_or_yaml():
+    """The router's detector chain (its face prominence above the policy's
+    threshold) and the face stage in memory run with those packages
+    absent, with no error."""
+    res = _run(FACES)
+    assert res == {"frames": [True, True, True, True, 8, []]}

@@ -4,9 +4,9 @@ against the JAX package's, on the CPU.
 Scores are compared at 1e-5 absolute (both sides fp32; measured gaps
 ~2e-7). Plans are compared whole: the decisions (primary, experts, order,
 model config, budget) exactly, the scores in them at 1e-5, on clips whose
-scores stay clear of every threshold. The JAX router's file reads are
-replaced by frames in memory, and its face detector by 0.0, the value the
-port records (face detection is not ported).
+scores stay clear of every threshold, ``face_prominence`` (the detector
+chain's face-area ratio, analysis/faces.py) with them. The JAX router's
+file reads are replaced by frames in memory.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from video_enhancer_tpu_torch.runtime import qualification as tqual
 from video_enhancer_tpu_torch.runtime.registry import MODELS, probe_available
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import dim_clip  # noqa: E402
+from chip_smoke import dim_clip, face_clip  # noqa: E402
 
 TOL = 1e-5
 SERVED = set(MODELS)
@@ -78,7 +78,6 @@ def _jax_plan(monkeypatch, frames, available, **kw):
     monkeypatch.setattr(jrouter, "get_video_metadata", lambda p: meta)
     monkeypatch.setattr(jrouter, "sample_frames",
                         lambda p, num_samples=12: frames)
-    monkeypatch.setattr(jrouter, "_detect_faces_ratio", lambda f: 0.0)
     router = jrouter.DegradationRouter(available_models=set(available))
     return router.analyze_and_route("mem", **kw)
 
@@ -239,5 +238,63 @@ def test_analyze_and_route_on_a_file_matches_jax(tmp_path):
     sampled = sample_frames(str(path)).astype(np.float64) / 255.0
     exact = np.abs(sampled[1:] - sampled[:-1]).mean() / 0.12
     assert abs(got["degradations"]["temporal_inconsistency"] - exact) <= 1e-6
-    want["content_analysis"]["face_prominence"] = 0.0
     _assert_same_plan(got, want, tol=5e-5)
+
+
+@pytest.mark.parametrize("enable_face_expert", [None, True])
+def test_analyze_and_route_on_a_face_file_matches_jax(tmp_path,
+                                                      enable_face_expert):
+    """A file with faces (chip_smoke.py's face clip): the same nonzero
+    face prominence and the same plan; with ``enable_face_expert=True``
+    both ask for face restoration after the primary, and left to the policy
+    neither does (its default is off, and the detector chain's validity
+    report is under the trust floor)."""
+    from video_enhancer_tpu_torch.io.video import write_frames
+
+    path = tmp_path / "faces.mp4"
+    write_frames(path, face_clip(16, 64, 96), (64, 96), fps=24.0)
+    want = jrouter.DegradationRouter(available_models=SERVED
+                                     ).analyze_and_route(
+        str(path), enable_face_expert=enable_face_expert)
+    got = DegradationRouter(available_models=SERVED).analyze_and_route(
+        str(path), enable_face_expert=enable_face_expert, device="cpu")
+    assert "fallback" not in got
+    assert got["content_analysis"]["face_prominence"] > 0.03
+    assert ("face_restoration" in got["processing_order"]) is bool(
+        enable_face_expert)
+    _assert_same_plan(got, want, tol=5e-5)
+
+
+@pytest.mark.parametrize("trusted", [False, True])
+def test_auto_face_rule_matches_jax(monkeypatch, trusted):
+    """Left at None, ``enable_face_expert`` is the policy's default AND the
+    detector chain's validity report clearing its floor, as in JAX
+    (video_enhancer_tpu/analysis/router.py:79-88): with a policy whose
+    default is on, the face expert is asked for only where the chain is
+    trusted (the bundled report is not; patched to trusted in both)."""
+    from video_enhancer_tpu.analysis import faces as jfaces
+    from video_enhancer_tpu_torch.analysis import router as trouter
+
+    if trusted:
+        monkeypatch.setattr(jrouter, "face_chain_trusted", lambda: True)
+        monkeypatch.setattr(trouter, "face_chain_trusted", lambda: True)
+    else:
+        assert jfaces.face_chain_trusted() is False
+    jpol = j_default_policy()
+    jpol = dataclasses.replace(jpol, defaults=dataclasses.replace(
+        jpol.defaults, enable_face_expert=True))
+    tpol = tconfig.default_policy()
+    tpol = dataclasses.replace(tpol, defaults=dataclasses.replace(
+        tpol.defaults, enable_face_expert=True))
+    frames = np.stack(face_clip(12, 64, 96))
+    meta = types.SimpleNamespace(height=64, width=96, fps=24.0,
+                                 frame_count=12)
+    monkeypatch.setattr(jrouter, "get_video_metadata", lambda p: meta)
+    monkeypatch.setattr(jrouter, "sample_frames",
+                        lambda p, num_samples=12: frames)
+    want = jrouter.DegradationRouter(
+        jpol, available_models=SERVED).analyze_and_route("mem")
+    got = DegradationRouter(tpol, available_models=SERVED).analyze_frames(
+        frames, fps=24.0, frame_count=12, device="cpu")
+    assert got["expert_routing"]["experts"]["face_restoration"] is trusted
+    _assert_same_plan(got, want)

@@ -12,10 +12,15 @@ thresholds from the port's copy of the policy (config.py). Two entries:
 - ``analyze_and_route``: samples 12 frames of a file through OpenCV
   (io/video.py) and routes them, as the JAX entry of that name does.
 
-Face detection is not ported: ``face_prominence`` is 0.0, the value the
-JAX router's ``_detect_faces_ratio`` returns when detection fails, so the
-face expert is never chosen. A failure anywhere in routing returns the
-fallback plan (``"fallback": True``), as in the JAX package.
+On every call, as in the JAX router, ``face_prominence`` is the detector
+chain's face-area ratio of the sampled frames (analysis/faces.py
+``face_area_ratio``, on the same device), best effort: a failure there
+gives 0.0. The face expert is asked for when ``enable_face_expert`` is
+true and the prominence is above the policy's threshold; left at None,
+``enable_face_expert`` is the policy's default and the chain's validity
+report clearing its floor (``face_chain_trusted``). A failure anywhere
+else in routing returns the fallback plan (``"fallback": True``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -30,10 +35,21 @@ import torch
 from ..config import LatencyClass, Policy, default_policy
 from ..device import resolve_device
 from ..ops.degradation import degradation_scores
+from .faces import face_area_ratio, face_chain_trusted
 
 log = logging.getLogger(__name__)
 
 __all__ = ["DegradationRouter"]
+
+
+def _detect_faces_ratio(frames, device: torch.device) -> float:
+    """Face prominence of the sampled frames; 0.0 when detection fails."""
+    try:
+        return face_area_ratio(frames, device=device)
+    except Exception:
+        log.warning("face detection failed; face_prominence 0.0",
+                    exc_info=True)
+        return 0.0
 
 
 class DegradationRouter:
@@ -102,7 +118,8 @@ class DegradationRouter:
               else latency_class)
         defaults = self.policy.defaults
         if enable_face_expert is None:
-            enable_face_expert = defaults.enable_face_expert
+            enable_face_expert = (defaults.enable_face_expert
+                                  and face_chain_trusted())
         if enable_hfr is None:
             enable_hfr = defaults.enable_hfr
 
@@ -112,6 +129,7 @@ class DegradationRouter:
         else:
             clip = torch.from_numpy(np.asarray(frames)).to(
                 resolve_device(device))
+        face_ratio = _detect_faces_ratio(frames, clip.device)
         clip = clip.float() / 255.0
         scores = {k: float(v) for k, v in degradation_scores(clip).items()}
         n_frames = clip.shape[0] if frame_count is None else frame_count
@@ -125,7 +143,7 @@ class DegradationRouter:
             "unknown": self._unknown_score(scores),
         }
         content = {
-            "face_prominence": 0.0,
+            "face_prominence": face_ratio,
             "scene_change_ratio": scores["scene_change_ratio"],
             "motion_complexity": scores["motion_complexity"],
             "brightness": scores["brightness"],

@@ -9,7 +9,10 @@ serving mesh (:38-41), the entries of the models the port serves (vsrm
 :44-53, fast_mamba_vsr :54-63, fast_mamba_vsr_ssd :64-78, seedvr2 :79-88,
 ditvr :89-101, rvrt :102-108, realesrgan :109-115, realesrgan_fast
 :116-125, cnn_upscaler :126-130, bicubic :131-134) and the ``enabled``
-flag of every model of the policy. ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
+flag of every model of the policy, ``face_expert`` (:140-143, off) among
+them: as in the JAX package, nothing reads more of that entry (the face
+stage runs when ``enable_face_expert`` asks for it,
+runtime/face_handler.py). ``LatencyClass`` is video_enhancer_tpu/config/types.py:19-23 and
 ``MeshConfig`` :90-106.
 
 As in the JAX package's ``load_policy`` (config/__init__.py:50-61), a set

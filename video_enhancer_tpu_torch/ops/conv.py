@@ -52,10 +52,13 @@ def _triple(v) -> tuple[int, int, int]:
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding="SAME") -> torch.Tensor:
     """``x (B, H, W, Cin)``, ``w (Cout, Cin, kh, kw)`` -> ``(B, H', W',
-    Cout)``: SAME padding at stride 1, or ``padding`` ``((lo, hi), (lo,
-    hi))`` at any stride."""
+    Cout)``: SAME padding (at stride 2 and k 3 on an even side, (0, 1)), or
+    ``padding`` ``((lo, hi), (lo, hi))``, at any stride."""
     if stride == 1 and padding == "SAME":
         return conv3d(x[:, None], w[:, :, None], b)[:, 0]
+    if padding == "SAME":
+        padding = [_same(k, n, stride) for k, n in zip(w.shape[2:],
+                                                       x.shape[1:3])]
     (t, bo), (le, ri) = padding
     xi = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo))
     out = F.conv2d(xi, w.to(x.dtype), None if b is None else b.to(x.dtype),

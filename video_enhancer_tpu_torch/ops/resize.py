@@ -18,11 +18,12 @@ downsample widens the triangle by the scale (antialias, its default).
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "resize", "image_resize"]
+__all__ = ["interp_matrix", "resize", "image_resize", "resize_area"]
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -133,3 +134,116 @@ def image_resize(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     h_in, w_in = img.shape[-3], img.shape[-2]
     return _separable(img.float(), _jax_linear_matrix, (h_in, out_hw[0]),
                       (w_in, out_hw[1]))
+
+
+@functools.lru_cache(maxsize=64)
+def _area_taps(n_in: int, n_out: int, scale: float
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` along one axis: for each output,
+    its source indices and fp32 weights in cv2's order, padded with weight
+    0 to the longest list; ``(n_out, taps)`` int64 and float32."""
+    taps = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        taps.append(row)
+    width = max(len(r) for r in taps)
+    idx = np.zeros((n_out, width), np.int64)
+    wts = np.zeros((n_out, width), np.float32)
+    for d, row in enumerate(taps):
+        for t, (s, a) in enumerate(row):
+            idx[d, t], wts[d, t] = s, np.float32(a)
+    return idx, wts
+
+
+@functools.lru_cache(maxsize=64)
+def _area_linear_coeffs(n_in: int, n_out: int
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """The area coefficients of cv2's linear route along one axis: source
+    ``floor(d * scale)`` and its fixed-point weights ``(1 - f, f)`` times
+    2048, rounded; the neighbour clamped to the last index."""
+    inv = n_out / n_in
+    scale = 1.0 / inv
+    src = np.zeros(n_out, np.int64)
+    wts = np.zeros((n_out, 2), np.int64)
+    for d in range(n_out):
+        s = math.floor(d * scale)
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else f - np.float32(math.floor(f))
+        if s >= n_in - 1:
+            f, s = np.float32(0.0), n_in - 1
+        src[d] = s
+        wts[d] = np.rint(np.float32([np.float32(1.0) - f, f])
+                         * np.float32(2048))
+    return src, wts
+
+
+@functools.lru_cache(maxsize=64)
+def _area_tables(kind: str, n_in: int, n_out: int, scale: float,
+                 device: torch.device) -> tuple[torch.Tensor, ...]:
+    """One axis's tables on ``device``, made once (a copy to the card a
+    call would cost a sync each): "area" -> source indices ``(taps,
+    n_out)`` and fp32 weights ``(taps, n_out)``; "linear" -> sources, their
+    clamped neighbours and int64 weights ``(2, n_out)``."""
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if kind == "area":
+        idx, wts = _area_taps(n_in, n_out, scale)
+        return put(idx.T), put(wts.T)
+    src, wts = _area_linear_coeffs(n_in, n_out)
+    return put(src), put(np.minimum(src + 1, n_in - 1)), put(wts.T)
+
+
+def _area_sum(x: torch.Tensor, dim: int, idx: torch.Tensor,
+              wts: torch.Tensor) -> torch.Tensor:
+    """fp32 sum over the taps in order along ``dim`` of ``x`` (fp32)."""
+    shape = [1] * x.ndim
+    shape[dim] = -1
+    out = None
+    for i, w in zip(idx, wts):
+        term = x.index_select(dim, i) * w.view(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def resize_area(frame_u8: torch.Tensor, out_hw: tuple[int, int]
+                ) -> torch.Tensor:
+    """``cv2.resize(frame, (w, h), interpolation=cv2.INTER_AREA)`` of a
+    uint8 ``(H, W, C)`` frame on its device, bit for bit."""
+    h_in, w_in = frame_u8.shape[:2]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return frame_u8.clone()
+    dev = frame_u8.device
+    sx, sy = 1.0 / (w_out / w_in), 1.0 / (h_out / h_in)
+    if sx >= 1 and sy >= 1:
+        ix, iy = round(sx), round(sy)
+        if abs(sx - ix) < 2.220446049250313e-16 and \
+                abs(sy - iy) < 2.220446049250313e-16:
+            x = frame_u8.int().reshape(h_out, iy, w_out, ix, -1)
+            s = x.sum((1, 3))
+            if ix == iy == 2:
+                return ((s + 2) >> 2).to(torch.uint8)
+            y = s.float() * float(np.float32(1.0) / np.float32(ix * iy))
+            return torch.round(y).clamp(0, 255).to(torch.uint8)
+        x = _area_sum(frame_u8.float(), 1,
+                      *_area_tables("area", w_in, w_out, sx, dev))
+        y = _area_sum(x, 0, *_area_tables("area", h_in, h_out, sy, dev))
+        return torch.round(y).clamp(0, 255).to(torch.uint8)
+    c0, c1, a = _area_tables("linear", w_in, w_out, sx, dev)
+    r0, r1, b = _area_tables("linear", h_in, h_out, sy, dev)
+    x = frame_u8.int()
+    hz = (x.index_select(1, c0) * a[0, :, None]
+          + x.index_select(1, c1) * a[1, :, None])      # (H, w_out, C)
+    b = b[:, :, None, None]
+    t = (((hz.index_select(0, r0) >> 4) * b[0]) >> 16) \
+        + (((hz.index_select(0, r1) >> 4) * b[1]) >> 16)
+    return ((t + 2) >> 2).clamp(0, 255).to(torch.uint8)

@@ -24,6 +24,13 @@ the primary's uint8 output (over 255, processed, rounded back): in memory
 for ``run_auto_frames`` and, as the JAX pipeline does, on the written file
 for ``run_auto_pipeline``.
 
+- Face restoration (``face_restoration``, runtime/face_handler.py, the
+  plan holds it when ``enable_face_expert`` is asked for and the router saw
+  faces) restores the poor faces of every frame (``FaceRestorationExpert``
+  at its defaults: ``process_frames_selective`` in memory,
+  ``process_video_selective`` rewriting the file); it sets
+  ``stats["face_restoration"]``, ``stats["face_restoration_sec"]`` and
+  ``stats["faces_restored"]``.
 - Temporal consistency (``experts.temporal_smooth``) rewrites the file at
   its fps; it sets ``stats["temporal_smoothing"]`` and times itself in
   ``stats["temporal_smoothing_sec"]``.
@@ -33,9 +40,10 @@ for ``run_auto_pipeline``.
   ``stats["hfr"]``, ``stats["hfr_interpolation_sec"]`` and, when RIFE fell
   back to blending pairs, ``stats["hfr_blend_fallbacks"]``.
 
-As in the JAX pipeline a post stage is best effort: its failure is recorded
-as ``stats["<stage>_error"]``, with no retry elsewhere. Face restoration is
-not ported: where the plan asks for it, ``"not ported"`` is recorded there.
+The stages run in the JAX pipeline's order: face, then temporal
+consistency, then frame interpolation. As in the JAX pipeline a post stage
+is best effort: its failure is recorded as ``stats["<stage>_error"]``,
+with no retry elsewhere.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..config import Policy, default_policy
 from ..device import resolve_device
 from ..io.video import sample_indices
 from .experts import preprocess_clip, temporal_smooth
+from .face_handler import FaceRestorationExpert
 from .registry import build_handler, probe_available
 from .rife_handler import RIFEHandler
 from .vsr_handler import VSRHandler
@@ -61,12 +70,12 @@ from .vsr_handler import VSRHandler
 log = logging.getLogger(__name__)
 
 __all__ = ["run_auto_frames", "run_auto_pipeline", "preprocess_frames",
-           "apply_degradation_context", "smooth_frames", "hfr_frames"]
+           "apply_degradation_context", "face_frames", "smooth_frames",
+           "hfr_frames"]
 
-POST_STAGES = ("face_restoration", "temporal_consistency",
-               "hfr_interpolation")
-# each ported post stage's flag and the prefix of its time in the stats
-_STAGE_STATS = {"temporal_consistency": ("temporal_smoothing",
+# each post stage's flag and the prefix of its time in the stats
+_STAGE_STATS = {"face_restoration": ("face_restoration", "face_restoration"),
+                "temporal_consistency": ("temporal_smoothing",
                                          "temporal_smoothing"),
                 "hfr_interpolation": ("hfr", "hfr_interpolation")}
 
@@ -99,15 +108,10 @@ def apply_degradation_context(handler, plan: dict) -> None:
 def _finish_stats(stats: dict, handler, plan: dict, t0: float,
                   stages: dict) -> dict:
     """Run the post stages the plan asks for (``stages[stage]()``, which
-    returns any stats of its own; face restoration is not ported), then
-    record the conditioning the primary ran with, the plan and the total
-    time."""
+    returns any stats of its own), then record the conditioning the primary
+    ran with, the plan and the total time."""
     for stage in plan["processing_order"]:
-        if stage not in POST_STAGES:
-            continue
-        if stage not in stages:
-            log.warning("post stage %s is not ported", stage)
-            stats[f"{stage}_error"] = "not ported"
+        if stage not in _STAGE_STATS:
             continue
         t1 = time.time()
         try:
@@ -125,6 +129,15 @@ def _finish_stats(stats: dict, handler, plan: dict, t0: float,
     stats["routing_plan"] = plan
     stats["total_time_sec"] = time.time() - t0
     return stats
+
+
+def face_frames(frames_u8, device: torch.device) -> tuple[list, dict]:
+    """The face stage on uint8 frames, on ``device``: the expert at its
+    defaults. Returns the frames and the stage's stats
+    (``faces_restored``)."""
+    out, stats = FaceRestorationExpert(
+        device=device).process_frames_selective(frames_u8)
+    return out, {"faces_restored": stats["faces_restored"]}
 
 
 def smooth_frames(frames_u8, device: torch.device) -> list[np.ndarray]:
@@ -225,6 +238,10 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
              "output_resolution": list(out[0].shape[:2]) if out else [],
              "scale": handler.scale, **counts, **fallback}
 
+    def faces():
+        out[:], extra = face_frames(out, dev)
+        return extra
+
     def smooth():
         out[:] = smooth_frames(out, dev)
 
@@ -234,7 +251,8 @@ def run_auto_frames(frames_u8, fps: float = 30.0, engine: str = "auto",
         return extra
 
     return out, _finish_stats(stats, handler, plan, t0, {
-        "temporal_consistency": smooth, "hfr_interpolation": hfr})
+        "face_restoration": faces, "temporal_consistency": smooth,
+        "hfr_interpolation": hfr})
 
 
 def run_auto_pipeline(input_path, output_path, engine: str = "auto",
@@ -281,6 +299,7 @@ def run_auto_pipeline(input_path, output_path, engine: str = "auto",
             stats["fallback_from"] = primary
             stats["fallback_error"] = str(e)
         return _finish_stats(stats, handler, plan, t0, {
+            "face_restoration": lambda: _apply_faces(output_path, dev),
             "temporal_consistency":
                 lambda: _apply_temporal_smoothing(output_path, dev),
             "hfr_interpolation": lambda: _apply_hfr(output_path, dev)})
@@ -302,6 +321,13 @@ def _preprocess_video(input_path: str, experts: dict, device: torch.device,
     tmp_files.append(tmp)
     write_frames(tmp, frames, (meta.height, meta.width), fps=meta.fps)
     return tmp
+
+
+def _apply_faces(path, device: torch.device) -> dict:
+    """The face stage on a written video, rewritten in place."""
+    stats = FaceRestorationExpert(device=device).process_video_selective(
+        path, path)
+    return {"faces_restored": stats["faces_restored"]}
 
 
 def _apply_temporal_smoothing(path, device: torch.device) -> None:

@@ -38,6 +38,7 @@ from ..device import resolve_device
 from ..io.pipeline import iter_windows
 from ..ops.blend import overlap_add_blend
 from ..ops.color import rgb_to_gray
+from ..ops.imgproc import laplacian
 from ..parallel.inference import make_mesh_sharded_clip_fn
 
 __all__ = ["VSRHandler", "cast_params", "window_quality"]
@@ -67,11 +68,7 @@ def window_quality(frames_u8: torch.Tensor) -> float:
     on any device."""
     mid = frames_u8[frames_u8.shape[0] // 2]
     gray = rgb_to_gray((mid.float() / 255.0 * 255.0).to(torch.uint8))
-    p = torch.nn.functional.pad(gray.float()[None, None], (1, 1, 1, 1),
-                                mode="reflect")[0, 0]
-    lap = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
-           - 4.0 * p[1:-1, 1:-1])
-    var = lap.double().var(correction=0).item()
+    var = laplacian(gray.float()).double().var(correction=0).item()
     return min(var / 500.0, 1.0)
 
 
