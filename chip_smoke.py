@@ -140,7 +140,21 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    the v1.4 release configuration (512, seeded weights in a ``.pth``
    served through ``$VETPU_GFPGAN_CKPT``): one face's ms beside its bound
    (``gfpgan_flops``), device kernels, and its output against the CPU's
-   (``GFPGAN_MAX_ABS``).
+   (``GFPGAN_MAX_ABS``);
+17. the entry points: phase 4's clip written as raw ``.avi`` by the port's
+   writer; the router's pick of it on the CPU (seedvr2: its compression
+   score is 0.99); ``python -m video_enhancer_tpu_torch.cli`` ``metadata``,
+   ``enhance --engine auto`` (that pick, no fallback) and ``eval`` as
+   subprocesses, each exiting 0; then the REST job server in this process
+   (``ApiServer``, ``serve(port=0, background=True)``): the clip POSTed to
+   ``/api/v1/process/auto`` with ``vsr_strategy=vsrm``, its plan at upload
+   naming the CPU's pick, polled to ``completed``, downloaded as
+   ``video/x-msvideo`` and decoded by the port's reader, its frames equal to
+   ``build_handler("vsrm").enhance_frames`` on the same frames (0 LSB, both
+   on the card), with exactly 60 SSD and 30 fused-SSM launches (5 windows x
+   12 and x 6) and no other kernel from the POST to completion; the
+   upload-to-completed wall time, the job's frames/s and the CLI enhance's
+   wall time.
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
@@ -163,7 +177,12 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.request
+import uuid
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -174,7 +193,8 @@ from video_enhancer_tpu_torch.analysis.faces import (face_area_ratio,
                                                      nn_detector)
 from video_enhancer_tpu_torch.config import MODELS, default_policy
 from video_enhancer_tpu_torch.device import full_fp32
-from video_enhancer_tpu_torch.io.video import sample_indices
+from video_enhancer_tpu_torch.io.video import (read_video, sample_indices,
+                                               write_video)
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
                                              official_arch, rvrt, seedvr2,
@@ -224,6 +244,8 @@ from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
                                                          cast_params,
                                                          window_quality)
 from video_enhancer_tpu_torch.runtime.weights import flatten_params
+from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
+from video_enhancer_tpu_torch.serving.http import serve
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -2526,6 +2548,130 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
     return out
 
 
+def _cli(*args: str) -> tuple[dict, float]:
+    """``python -m video_enhancer_tpu_torch.cli *args`` from this checkout:
+    its JSON line and its wall seconds; a non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "video_enhancer_tpu_torch.cli",
+                          *args], capture_output=True, text=True,
+                         timeout=600, cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"cli {args[0]} exited {out.returncode}: "
+          f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), secs
+
+
+def _http(port: int, path: str, body: bytes | None = None,
+          ctype: str | None = None) -> tuple[int, str, bytes]:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body)
+    if ctype:
+        req.add_header("Content-Type", ctype)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def _post_clip(port: int, path: str, **fields) -> dict:
+    b = uuid.uuid4().hex
+    head = "".join(f'--{b}\r\nContent-Disposition: form-data; name="{k}"'
+                   f"\r\n\r\n{v}\r\n" for k, v in fields.items())
+    body = (f'{head}--{b}\r\nContent-Disposition: form-data; name="file"; '
+            f'filename="{Path(path).name}"\r\n\r\n').encode() \
+        + Path(path).read_bytes() + f"\r\n--{b}--\r\n".encode()
+    status, _, raw = _http(port, "/api/v1/process/auto", body,
+                           f"multipart/form-data; boundary={b}")
+    check(status == 202, f"upload answered {status}: {raw[:500]!r}")
+    return json.loads(raw)
+
+
+@phase("17 entry points")
+def entry_points(device_line: str) -> dict:
+    """The CLI as subprocesses and a vsrm job through the REST server, both
+    on raw ``.avi`` files of phase 4's clip."""
+    n, h, w = 16, 180, 320
+    frames = synthetic_clip(n, h, w)
+    with tempfile.TemporaryDirectory() as d:
+        src = write_video(f"{d}/clip.avi", np.stack(frames), fps=24.0)
+        pick = DegradationRouter(
+            default_policy(), available_models=probe_available()
+        ).analyze_and_route(src, device="cpu")["expert_routing"][
+            "primary_model"]
+        print(f"the router's pick of phase 4's clip on the CPU: {pick}")
+        check(pick == "seedvr2", f"the CPU router picks {pick}")
+
+        meta, _ = _cli("metadata", src)
+        check((meta["width"], meta["height"], meta["frame_count"],
+               meta["fps"], meta["codec"]) == (w, h, n, 24.0, "\x00" * 4),
+              f"metadata {meta}")
+        stats, cli_secs = _cli("enhance", src, f"{d}/auto.avi", "--engine",
+                               "auto")
+        errors = sorted(k for k in stats if k.endswith("_error"))
+        check(stats["model"] == pick and "fallback_from" not in stats
+              and not errors and stats["frames_processed"] == n,
+              f"cli enhance: model {stats['model']}, errors {errors}, "
+              f"{stats.get('fallback_error')}")
+        ev, _ = _cli("eval", f"{d}/auto.avi", src)
+        check(set(ev) == {"psnr", "ssim", "temporal_consistency"}
+              and all(math.isfinite(v) for v in ev.values()),
+              f"cli eval {ev}")
+        print(f"cli: metadata {meta['width']}x{meta['height']}, "
+              f"{meta['frame_count']} frames; enhance --engine auto "
+              f"({stats['model']}, order "
+              f"{stats['routing_plan']['processing_order']}) "
+              f"{cli_secs:.3f} s wall as a subprocess; eval psnr "
+              f"{ev['psnr']:.3f} dB, ssim {ev['ssim']:.4f} ({device_line})")
+
+        srv = ApiServer(data_dir=f"{d}/srv", start_scheduler=False)
+        check(srv.device.type == "cuda", "the server is not on the card")
+        httpd = serve(create_app(srv), host="127.0.0.1", port=0,
+                      background=True)
+        port = httpd.server_address[1]
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t_post = time.time()
+            job = _post_clip(port, src, vsr_strategy="vsrm")
+            check(job["strategy"] == "vsrm", f"job {job}")
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                rec = json.loads(_http(port, f"/api/v1/job/{job['job_id']}")[2])
+                if rec.get("status") in ("completed", "failed"):
+                    break
+                time.sleep(0.25)            # 60 requests a minute an address
+            counts = dict(kernels.launch_counts)
+            check(rec.get("status") == "completed", f"job {rec}")
+            wall = rec["completed_at"] - t_post
+            routed = rec["routing_plan"]["expert_routing"]["primary_model"]
+            check(routed == pick, f"the plan at upload names {routed}")
+            status, ctype, raw = _http(port, f"/api/v1/job/{job['job_id']}"
+                                             "/download")
+            check(status == 200 and ctype == "video/x-msvideo",
+                  f"download {status} {ctype}")
+            Path(f"{d}/got.avi").write_bytes(raw)
+            got = read_video(f"{d}/got.avi")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    want = _only(ssd_shared=60, fused_bidir_ssm=30)
+    print(f"job launches {counts}")
+    check(counts == want, f"job launches {counts} != {want}")
+    ref = np.stack(list(build_handler("vsrm").enhance_frames(iter(frames))))
+    check(got.shape == ref.shape == (n, 4 * h, 4 * w, 3),
+          f"job frames {got.shape}")
+    lsb = int(np.abs(got.astype(np.int16) - ref.astype(np.int16)).max())
+    check(lsb == 0, f"job frames {lsb} LSB from the handler's")
+    res = rec["result"]
+    print(f"REST job, vsrm x4 {h}x{w} -> {4 * h}x{4 * w}, {n} frames: "
+          f"upload to completed {wall:.3f} s wall ({n / wall:.2f} frames/s "
+          f"end to end); the handler's enhance_video {res['fps']:.2f} "
+          f"frames/s ({res['processing_time_sec']:.3f} s); frames equal to "
+          f"the in-memory handler's (0 LSB); {len(raw) / 2**20:.1f} MiB "
+          f"downloaded ({device_line})")
+    return {"counts": counts, "job_wall_s": wall, "cli_enhance_s": cli_secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
@@ -2549,6 +2695,7 @@ def main() -> int:
     fmv_ssd = fmv_ssd_path(f"{env['kind']}, {env['smi']}")
     hfr_stage(big, f"{env['kind']}, {env['smi']}")
     face_path(f"{env['kind']}, {env['smi']}")
+    entry_points(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],

@@ -1,8 +1,9 @@
 """The port, chip_smoke.py and scripts/torch_ab_harness.py import nothing of
-JAX, OpenCV, PyYAML or the JAX package: the card's machine has none of them
-(OpenCV only inside the port's file-IO functions). Checked in fresh
-interpreters: one imports every module of the port, chip_smoke.py and the
-A/B script; one, where those packages cannot be
+JAX, OpenCV, PyYAML, psutil or the JAX package: the card's machine has no
+JAX, OpenCV or PyYAML, and may lack psutil. OpenCV is imported only where a
+file is not raw AVI (io/video.py); nothing on an ``.avi`` needs it.
+Checked in fresh interpreters: one imports every module of the port,
+chip_smoke.py and the A/B script; one, where those packages cannot be
 imported at all, drives the auto route on frames in memory, its temporal
 stage included; one, likewise,
 drives rvrt (an explicit engine and the fallback manager) and the
@@ -10,7 +11,13 @@ strict-latency route to fast_mamba_vsr; one, likewise, drives the route to
 seedvr2 with its quality gate; one, likewise, serves realesrgan,
 realesrgan_fast and fast_mamba_vsr_ssd and runs the frame-interpolation
 stage (RIFE); one, likewise, routes a clip with faces through the detector
-chain and runs the face stage, on both entry points."""
+chain and runs the face stage, on both entry points; one, likewise, runs
+the file paths on ``.avi`` files the port wrote (vsrm's ``enhance_video``,
+``run_auto_pipeline`` with its intermediate file and its temporal stage,
+RIFE's and the face expert's file entries); one, likewise, runs the CLI
+(demo, metadata, enhance, eval) and the REST job server (an ``.avi`` job
+to the end, and an ``.mp4`` upload, which ends ``failed`` with an error
+naming the missing OpenCV)."""
 
 from __future__ import annotations
 
@@ -19,8 +26,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import cv2
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
-BAD = ("jax", "jaxlib", "cv2", "yaml", "video_enhancer_tpu")
+BAD = ("jax", "jaxlib", "cv2", "yaml", "psutil", "video_enhancer_tpu")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -132,8 +142,116 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
-def _run(code: str) -> dict:
-    out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+FILES = r"""
+import json, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)       # beside the other test workers
+import numpy as np
+from chip_smoke import dim_clip
+from video_enhancer_tpu_torch.io.video import read_frames, write_frames
+from video_enhancer_tpu_torch.runtime.pipeline import run_auto_pipeline
+from video_enhancer_tpu_torch.runtime.registry import build_handler
+d = tempfile.mkdtemp(dir=sys.argv[2])
+src = d + "/in.avi"
+write_frames(src, dim_clip(8, 16, 16), (16, 16), fps=24.0)
+res = {}
+for key, run in (
+        ("vsrm", lambda out: build_handler("vsrm", device="cpu")
+         .enhance_video(src, out)),
+        ("auto", lambda out: run_auto_pipeline(src, out, device="cpu"))):
+    stats = run(d + "/" + key + ".avi")
+    res[key] = [stats["model"], "fallback_from" in stats,
+                list(np.stack(list(read_frames(d + "/" + key + ".avi")))
+                     .shape),
+                sorted(k for k in stats if k.endswith("_error"))]
+res["auto"].append(stats.get("temporal_smoothing", False))
+from video_enhancer_tpu_torch.runtime.face_handler import FaceRestorationExpert
+from video_enhancer_tpu_torch.runtime.rife_handler import RIFEHandler
+stats = RIFEHandler(device="cpu").interpolate_video(src, d + "/hfr.avi")
+res["rife"] = [stats["frames_processed"], stats["output_fps"]]
+stats = FaceRestorationExpert(device="cpu").process_video_selective(
+    src, d + "/faces.avi")
+res["faces"] = len(list(read_frames(d + "/faces.avi")))
+print(json.dumps(res))
+""" % (BAD,)
+
+
+ENTRY = r"""
+import contextlib, io, json, sys, tempfile, time, urllib.request, uuid
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)       # beside the other test workers
+from video_enhancer_tpu_torch import cli
+from video_enhancer_tpu_torch.io.video import read_video
+from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
+from video_enhancer_tpu_torch.serving.http import serve
+d = tempfile.mkdtemp(dir=sys.argv[2])
+
+def run(*argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return [rc, json.loads(buf.getvalue().strip().splitlines()[-1])]
+
+res = {"demo": run("demo", d + "/demo.avi", "--frames", "6", "--height",
+                   "24", "--width", "32")[0]}
+res["metadata"] = run("metadata", d + "/demo.avi")
+rc, stats = run("enhance", d + "/demo.avi", d + "/up.avi", "--engine",
+                "bicubic", "--device", "cpu")
+res["enhance"] = [rc, stats["frames_processed"], stats["audio"]]
+rc, ev = run("eval", d + "/up.avi", d + "/demo.avi", "--device", "cpu")
+res["eval"] = [rc, sorted(ev), ev["psnr"] > 20]
+
+srv = ApiServer(data_dir=d + "/srv", device="cpu", start_scheduler=False)
+httpd = serve(create_app(srv), host="127.0.0.1", port=0, background=True)
+url = "http://127.0.0.1:%%d" %% httpd.server_address[1]
+
+def call(path, body=None, ctype=None):
+    req = urllib.request.Request(url + path, data=body)
+    if ctype:
+        req.add_header("Content-Type", ctype)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+def job(path, strategy):
+    b = uuid.uuid4().hex
+    name = path.rsplit("/", 1)[-1]
+    body = ("--%%s\r\nContent-Disposition: form-data; name=\"vsr_strategy\""
+            "\r\n\r\n%%s\r\n--%%s\r\nContent-Disposition: form-data; "
+            "name=\"file\"; filename=\"%%s\"\r\n\r\n" %% (b, strategy, b, name)
+            ).encode() + open(path, "rb").read() + ("\r\n--%%s--\r\n" %% b
+                                                    ).encode()
+    _, _, raw = call("/api/v1/process/auto", body,
+                     "multipart/form-data; boundary=" + b)
+    job_id = json.loads(raw)["job_id"]
+    for _ in range(400):
+        rec = json.loads(call("/api/v1/job/" + job_id)[2])
+        if rec["status"] in ("completed", "failed"):
+            return job_id, rec
+        time.sleep(0.25)
+    return job_id, rec
+
+job_id, rec = job(d + "/demo.avi", "bicubic")
+status, ctype, raw = call("/api/v1/job/%%s/download" %% job_id)
+open(d + "/got.avi", "wb").write(raw)
+res["avi_job"] = [rec["status"], ctype, list(read_video(d + "/got.avi").shape)]
+_, rec = job(sys.argv[3], "bicubic")
+res["mp4_job"] = [rec["status"], "needs OpenCV" in rec.get("error", "")]
+res["metrics"] = call("/metrics")[0]
+httpd.shutdown()
+httpd.server_close()
+print(json.dumps(res))
+""" % (BAD,)
+
+
+def _run(code: str, *args) -> dict:
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT),
+                          *map(str, args)],
                          capture_output=True, text=True, check=True,
                          cwd=ROOT, timeout=300)
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -154,7 +272,13 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "ops.resize", "models.realesrgan", "models.official_arch",
                  "models.rife", "runtime.rife_handler", "analysis.faces",
                  "analysis.face_net", "runtime.face_handler",
-                 "models.official_gfpgan", "ops.imgproc"):
+                 "models.official_gfpgan", "ops.imgproc", "io.avi",
+                 "io.demo", "io.audio", "cli", "utils.metrics",
+                 "agents.enhancer", "runtime.jobstore", "runtime.storage",
+                 "runtime.scheduler", "utils.memory", "utils.errors",
+                 "utils.auth", "utils.security", "utils.perf",
+                 "utils.logging_config", "serving.http", "serving.app",
+                 "serving.server"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -204,3 +328,39 @@ def test_face_route_runs_without_jax_cv2_or_yaml():
     absent, with no error."""
     res = _run(FACES)
     assert res == {"frames": [True, True, True, True, 8, []]}
+
+
+def test_file_paths_run_on_avi_without_jax_cv2_or_yaml(tmp_path):
+    """vsrm's ``enhance_video``, ``run_auto_pipeline`` (its preprocessed
+    intermediate file and its temporal stage on the written output), RIFE's
+    ``interpolate_video`` and the face expert's ``process_video_selective``
+    on an ``.avi`` the port wrote, with those packages absent: no
+    fallback, no stage error."""
+    res = _run(FILES, tmp_path)
+    assert res == {"vsrm": ["vsrm", False, [8, 64, 64, 3], []],
+                   "auto": ["ditvr", False, [8, 16, 16, 3], [], True],
+                   "rife": [15, 48.0], "faces": 8}
+
+
+def test_cli_and_server_run_on_avi_without_jax_cv2_yaml_or_psutil(tmp_path):
+    """The CLI's four commands and a server job on ``.avi`` files; an
+    ``.mp4`` upload ends ``failed`` naming OpenCV; /metrics answers without
+    psutil."""
+    mp4 = tmp_path / "clip.mp4"
+    vw = cv2.VideoWriter(str(mp4), cv2.VideoWriter_fourcc(*"mp4v"), 24.0,
+                         (48, 32))
+    for f in np.random.default_rng(0).integers(0, 256, (8, 32, 48, 3),
+                                               dtype=np.uint8):
+        vw.write(f)
+    vw.release()
+    res = _run(ENTRY, tmp_path, mp4)
+    meta = res.pop("metadata")
+    assert meta == [0, {"path": meta[1]["path"], "width": 32, "height": 24,
+                        "fps": 24.0, "frame_count": 6, "duration_sec": 0.25,
+                        "codec": "\x00" * 4}]
+    assert res == {"demo": 0, "enhance": [0, 6, "dropped (no ffmpeg)"],
+                   "eval": [0, ["psnr", "ssim", "temporal_consistency"],
+                            True],
+                   "avi_job": ["completed", "video/x-msvideo",
+                               [6, 48, 64, 3]],
+                   "mp4_job": ["failed", True], "metrics": 200}

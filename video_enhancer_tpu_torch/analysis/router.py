@@ -9,8 +9,8 @@ thresholds from the port's copy of the policy (config.py). Two entries:
 - ``analyze_frames``: the router's work on frames already sampled (uint8
   ``(T, H, W, 3)``), with the scores computed on the card unless
   ``device="cpu"``; no OpenCV;
-- ``analyze_and_route``: samples 12 frames of a file through OpenCV
-  (io/video.py) and routes them, as the JAX entry of that name does.
+- ``analyze_and_route``: samples 12 frames of a file (io/video.py: raw
+  AVI without OpenCV) and routes them, as the JAX entry of that name does.
 
 On every call, as in the JAX router, ``face_prominence`` is the detector
 chain's face-area ratio of the sampled frames (analysis/faces.py
@@ -35,6 +35,7 @@ import torch
 from ..config import LatencyClass, Policy, default_policy
 from ..device import resolve_device
 from ..ops.degradation import degradation_scores
+from ..utils.perf import get_tracker
 from .faces import face_area_ratio, face_chain_trusted
 
 log = logging.getLogger(__name__)
@@ -95,20 +96,26 @@ class DegradationRouter:
                           num_samples: int = 12,
                           device: str | torch.device | None = None
                           ) -> dict[str, Any]:
-        """Sample ``num_samples`` frames of a file (OpenCV) and route them."""
+        """Sample ``num_samples`` frames of a file (io/video.py) and route
+        them."""
         from ..io.video import get_video_metadata, sample_frames
 
+        tracker = get_tracker()
+        op = tracker.start_operation("analysis", "router", path=str(video_path))
         t0 = time.time()
         try:
             meta = get_video_metadata(video_path)
             frames = sample_frames(video_path, num_samples=num_samples)
-            return self._route(frames, meta.fps, meta.frame_count,
+            plan = self._route(frames, meta.fps, meta.frame_count,
                                latency_class, allow_diffusion,
                                allow_zero_shot, enable_face_expert,
                                enable_hfr, device, t0)
         except Exception as e:  # routing never stops the pipeline
             log.warning("routing failed; fallback plan", exc_info=True)
+            tracker.finish_operation(op, success=False, error=str(e))
             return self._fallback_plan(str(e))
+        tracker.finish_operation(op, success=True)
+        return plan
 
     # -- internals ---------------------------------------------------------
     def _route(self, frames, fps, frame_count, latency_class,

@@ -57,6 +57,7 @@ from ..ops.color import rgb_to_gray
 from ..ops.imgproc import laplacian
 from ..ops.optflow import gaussian_blur
 from ..ops.resize import resize
+from ..utils.perf import track_enhancement_performance
 from .vsr_handler import cast_params
 from .weights import try_load_params
 
@@ -263,10 +264,11 @@ class FaceRestorationExpert:
         stats["processing_time_sec"] = time.time() - t0
         return out, stats
 
+    @track_enhancement_performance("face_restoration")
     def process_video_selective(self, input_path, output_path,
                                 face_threshold: float | None = None,
                                 max_analysis_frames: int = 50) -> dict:
-        """File to file through OpenCV (io/video.py); ``output_path`` may
+        """File to file (io/video.py); ``output_path`` may
         be ``input_path``."""
         from ..io.video import get_video_metadata, read_frames, write_frames
 

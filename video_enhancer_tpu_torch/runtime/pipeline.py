@@ -10,8 +10,10 @@ Counterpart of video_enhancer_tpu/runtime/pipeline.py, with two entries:
   A VSR handler's stats carry ``windows_skipped`` (the windows seedvr2's
   quality gate passed through), as its ``enhance_video`` stats do.
 - ``run_auto_pipeline(input_path, output_path, ...) -> stats``: the same
-  flow file to file through OpenCV, with the preprocessed video written to
-  an intermediate file, as the JAX pipeline does. It takes the JAX
+  flow file to file (io/video.py: raw ``.avi`` with no OpenCV, other
+  containers through it), with the preprocessed video written to an
+  intermediate file, as the JAX pipeline does (raw AVI when the input is
+  one, mp4v otherwise; likewise the frame-interpolation stage's). It takes the JAX
   pipeline's keywords; ``scale`` and ``enable_temporal_smoothing`` change
   nothing there, and nothing here.
 
@@ -60,7 +62,7 @@ import torch
 from ..analysis import DegradationRouter
 from ..config import Policy, default_policy
 from ..device import resolve_device
-from ..io.video import sample_indices
+from ..io.video import sample_indices, scratch_suffix
 from .experts import preprocess_clip, temporal_smooth
 from .face_handler import FaceRestorationExpert
 from .registry import build_handler, probe_available
@@ -316,7 +318,7 @@ def _preprocess_video(input_path: str, experts: dict, device: torch.device,
 
     meta = get_video_metadata(input_path)
     frames = preprocess_frames(list(read_frames(input_path)), experts, device)
-    fd, tmp = tempfile.mkstemp(suffix=".mp4")
+    fd, tmp = tempfile.mkstemp(suffix=scratch_suffix(input_path))
     os.close(fd)
     tmp_files.append(tmp)
     write_frames(tmp, frames, (meta.height, meta.width), fps=meta.fps)
@@ -343,7 +345,7 @@ def _apply_temporal_smoothing(path, device: torch.device) -> None:
 def _apply_hfr(path, device: torch.device) -> dict:
     """The frame-interpolation stage on a written video: rewritten with
     2T - 1 frames at twice its fps (through a temporary file beside it)."""
-    tmp = f"{path}.hfr.mp4"
+    tmp = f"{path}.hfr{scratch_suffix(path)}"
     rife = RIFEHandler(device=device)
     rife.interpolate_video(path, tmp, interpolation_factor=2)
     Path(tmp).replace(path)

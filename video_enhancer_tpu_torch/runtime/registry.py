@@ -134,12 +134,15 @@ def load_params(name: str, entry: ModelEntry | None = None) -> dict:
     return params
 
 
-def probe_available(policy: Policy | None = None) -> set[str]:
+def probe_available(policy: Policy | None = None, *,
+                    include_disqualified: bool = False) -> set[str]:
     """The served models the policy enables, minus those whose bundled
-    weights measure no gain (runtime/qualification.py)."""
+    weights measure no gain (runtime/qualification.py) unless
+    ``include_disqualified``: explicit requests are not overridden by the
+    measurement, as in the JAX package."""
     policy = policy or default_policy()
-    return ({name for name in policy.enabled_models() if name in MODELS}
-            - disqualified_models())
+    out = {name for name in policy.enabled_models() if name in MODELS}
+    return out if include_disqualified else out - disqualified_models()
 
 
 def clear_cache() -> None:

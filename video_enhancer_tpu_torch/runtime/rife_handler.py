@@ -20,10 +20,10 @@ Counterpart of video_enhancer_tpu/runtime/rife_handler.py:
   pair, as the JAX handler and the reference do; here it is also logged
   with its traceback and counted in ``blend_fallbacks``;
 - ``interpolate_frames`` (uint8 frames in memory) and ``interpolate_video``
-  (file to file through OpenCV, :89-126): ``log2(factor)`` doublings
+  (file to file through io/video.py, :89-126): ``log2(factor)`` doublings
   (``target_fps`` sets the factor from the input's fps), rounded (halves to
-  even) and clamped back to uint8. The JAX package's perf decorator has no
-  counterpart; the call is timed in its stats.
+  even) and clamped back to uint8; ``interpolate_video`` is one operation
+  of the perf tracker (utils/perf.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..device import resolve_device
 from ..models import rife
 from ..models.official_arch import ifnet_official_apply, ifnet_official_init
 from ..ops.resize import image_resize
+from ..utils.perf import track_enhancement_performance
 from .calibration import calibrate_interp
 from .vsr_handler import cast_params
 from .weights import try_load_params
@@ -140,11 +141,12 @@ class RIFEHandler:
         u8 = torch.clamp(torch.round(clip * 255.0), 0, 255).to(torch.uint8)
         return list(u8.cpu().numpy())
 
+    @track_enhancement_performance("rife")
     def interpolate_video(self, input_path, output_path,
                           interpolation_factor: int = 2,
                           target_fps: float | None = None,
                           quality: str = "balanced") -> dict:
-        """File to file through OpenCV: ``interpolate_frames`` at the factor
+        """File to file (io/video.py): ``interpolate_frames`` at the factor
         (``target_fps / fps``, rounded, when ``target_fps`` is given),
         written at the input's fps times ``2 ** doublings``."""
         from ..io.video import get_video_metadata, read_frames, write_frames

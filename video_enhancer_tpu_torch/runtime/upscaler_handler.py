@@ -2,8 +2,8 @@
 
 Counterpart of video_enhancer_tpu/runtime/upscaler_handler.py, with the
 CNN at its default architecture (models/upscaler.py). Frames go through in
-batches of 8 (the last batch padded by repeating its last frame; only its
-real frames come out). The CNN runs in
+batches of ``batch_size`` (8 by default; the last batch padded by
+repeating its last frame; only its real frames come out). The CNN runs in
 ``dtype`` (bf16 by default) behind the calibrated blend toward bicubic
 (s = 0.7); bicubic runs in fp32. The methods follow the port's VSRHandler:
 ``process_frames`` takes a float batch ``(B, H, W, 3)`` on the handler's
@@ -25,6 +25,7 @@ from ..models import upscaler
 from .calibration import calibrate_vsr
 from .vsr_handler import cast_params
 from .weights import try_load_params
+from ..utils.perf import track_enhancement_performance
 
 __all__ = ["CnnUpscalerHandler"]
 
@@ -60,23 +61,28 @@ class CnnUpscalerHandler:
         ``(B, sH, sW, 3)`` float32."""
         return self._apply(self.params, frames.to(self.dtype)).float()
 
-    def enhance_frames(self, frames: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
+    def enhance_frames(self, frames: Iterable[np.ndarray],
+                       batch_size: int = _BATCH) -> Iterator[np.ndarray]:
         """uint8 ``(H, W, 3)`` frames in, upscaled uint8 frames out, one
-        per input frame, in order."""
-        for win in iter_windows(frames, _BATCH, _BATCH):
+        per input frame, in order, ``batch_size`` frames a forward."""
+        for win in iter_windows(frames, batch_size, batch_size):
             batch = torch.from_numpy(win.frames).to(self.device).float() / 255.0
             out = self.process_frames(batch)[:win.valid]
             u8 = torch.clamp(torch.round(out * 255.0), 0, 255)
             yield from u8.to(torch.uint8).cpu().numpy()
 
-    def enhance_video(self, input_path, output_path) -> dict:
-        """File to file through ``enhance_frames`` (OpenCV IO)."""
+    @track_enhancement_performance("cnn_upscaler")
+    def enhance_video(self, input_path, output_path,
+                      batch_size: int = _BATCH) -> dict:
+        """File to file through ``enhance_frames`` (io/video.py)."""
         from ..io.video import get_video_metadata, read_frames, write_frames
 
         t0 = time.time()
         meta = get_video_metadata(input_path)
         out_hw = (meta.height * self.scale, meta.width * self.scale)
-        n = write_frames(output_path, self.enhance_frames(read_frames(input_path)),
+        n = write_frames(output_path,
+                         self.enhance_frames(read_frames(input_path),
+                                             batch_size),
                          out_hw, fps=meta.fps)
         dt = time.time() - t0
         return {"status": "success", "model": self.name,

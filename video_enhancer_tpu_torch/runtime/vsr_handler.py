@@ -40,6 +40,7 @@ from ..ops.blend import overlap_add_blend
 from ..ops.color import rgb_to_gray
 from ..ops.imgproc import laplacian
 from ..parallel.inference import make_mesh_sharded_clip_fn
+from ..utils.perf import get_tracker
 
 __all__ = ["VSRHandler", "cast_params", "window_quality"]
 
@@ -185,17 +186,28 @@ class VSRHandler:
             stats["windows_skipped"] = skipped
 
     def enhance_video(self, input_path, output_path) -> dict:
-        """File to file through ``enhance_frames`` (OpenCV IO)."""
+        """File to file through ``enhance_frames`` (io/video.py), one
+        operation of the handler's name in the perf tracker."""
         from ..io.video import get_video_metadata, read_frames, write_frames
 
+        tracker = get_tracker()
+        op = tracker.start_operation("enhance_video", self.name,
+                                     input=str(input_path))
         t0 = time.time()
-        meta = get_video_metadata(input_path)
-        s = self.scale
-        out_hw = (meta.height * s, meta.width * s)
-        counts = {"windows_skipped": 0}
-        n = write_frames(output_path,
-                         self.enhance_frames(read_frames(input_path), counts),
-                         out_hw, fps=meta.fps)
+        try:
+            meta = get_video_metadata(input_path)
+            s = self.scale
+            out_hw = (meta.height * s, meta.width * s)
+            counts = {"windows_skipped": 0}
+            n = write_frames(output_path,
+                             self.enhance_frames(read_frames(input_path),
+                                                 counts),
+                             out_hw, fps=meta.fps)
+        except Exception as e:
+            tracker.finish_operation(op, success=False, error=str(e))
+            raise
+        tracker.update_operation(op, frames_done=n)
+        tracker.finish_operation(op, success=True)
         dt = time.time() - t0
         return {"status": "success", "model": self.name,
                 "frames_processed": n, "processing_time_sec": dt,
