@@ -154,7 +154,22 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    on the card), with exactly 60 SSD and 30 fused-SSM launches (5 windows x
    12 and x 6) and no other kernel from the POST to completion; the
    upload-to-completed wall time, the job's frames/s and the CLI enhance's
-   wall time.
+   wall time;
+18. measured quality: ``train.evalsuite.write_qualification_report`` on
+   the card (6 seeds, every model of ``ALL_MODELS`` on both eval families,
+   fp32 with TF32 off, the kernels in their fp32 forms; the report to a
+   temporary file): each of the 20 gains beside the committed
+   ``weights/QUALIFICATION.json`` (``QUALITY_TOL_DB``), every gate of
+   tests/test_bundled_weights.py (``GATES``), the disqualified set equal
+   to the committed report's, each model's kernel rows launched
+   (``EVAL_KERNELS``) and no plain version of a kernel on a card tensor,
+   each kernel's first eval call timed again against its plain version
+   on its own inputs (the ``:eval`` rows of the kernels line), the
+   report's wall time and each model's share; the eval CLI as a
+   subprocess (vsrm on ``alt``, the report's gain); the LPIPS proxy's
+   ``severity_ladder_corr`` on the card against the CPU; the coordinator's
+   workflow on phase 17's ``.avi`` clip, its quality metrics equal to
+   ``assess_clips`` on the same output.
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
@@ -174,6 +189,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -188,6 +204,8 @@ import numpy as np
 import torch
 
 from video_enhancer_tpu_torch import kernels
+from video_enhancer_tpu_torch.agents import CoordinatorAgent
+from video_enhancer_tpu_torch.agents.quality import assess_clips
 from video_enhancer_tpu_torch.analysis import DegradationRouter, face_net
 from video_enhancer_tpu_torch.analysis.faces import (face_area_ratio,
                                                      nn_detector)
@@ -195,6 +213,7 @@ from video_enhancer_tpu_torch.config import MODELS, default_policy
 from video_enhancer_tpu_torch.device import full_fp32
 from video_enhancer_tpu_torch.io.video import (read_video, sample_indices,
                                                write_video)
+from video_enhancer_tpu_torch.io.demo import make_demo_frames
 from video_enhancer_tpu_torch.io.pipeline import iter_windows
 from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
                                              official_arch, rvrt, seedvr2,
@@ -202,6 +221,9 @@ from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
 from video_enhancer_tpu_torch.models.official_gfpgan import (
     gfpgan_channels, gfpgan_official_apply, gfpgan_official_init)
 from video_enhancer_tpu_torch.nn import ssm
+from video_enhancer_tpu_torch.ops import attention as attn_mod
+from video_enhancer_tpu_torch.ops import scan as scan_mod
+from video_enhancer_tpu_torch.ops import ssd as ssd_mod
 from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,
@@ -233,6 +255,8 @@ from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
 from video_enhancer_tpu_torch.runtime.face_handler import (
     FaceRestorationExpert, _face_net_apply)
 from video_enhancer_tpu_torch.runtime.fallback import ModelFallbackManager
+from video_enhancer_tpu_torch.runtime.qualification import \
+    disqualified_models
 from video_enhancer_tpu_torch.runtime.pipeline import (
     apply_degradation_context, preprocess_frames, run_auto_frames)
 from video_enhancer_tpu_torch.runtime.registry import (build_handler,
@@ -246,6 +270,7 @@ from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
 from video_enhancer_tpu_torch.runtime.weights import flatten_params
 from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
 from video_enhancer_tpu_torch.serving.http import serve
+from video_enhancer_tpu_torch.train import evalsuite, lpips
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -2672,6 +2697,329 @@ def entry_points(device_line: str) -> dict:
     return {"counts": counts, "job_wall_s": wall, "cli_enhance_s": cli_secs}
 
 
+# --- phase 18: measured quality ------------------------------------------
+
+# each card gain against the committed weights/QUALIFICATION.json, in dB
+QUALITY_TOL_DB = 0.005
+# tests/test_bundled_weights.py GATES: (ind, alt) lower bounds in dB, each
+# gain strictly above its gate
+GATES = {"vsrm": (0.3, 0.0), "fast_mamba_vsr": (0.3, 0.0),
+         "fast_mamba_vsr_ssd": (0.02, 0.02), "rvrt": (0.2, 0.0),
+         "realesrgan": (0.5, -0.15), "realesrgan_fast": (0.25, 0.0),
+         "cnn_upscaler": (0.06, -0.15), "ditvr": (1.0, -1.6),
+         "seedvr2": (0.3, -0.3), "rife": (1.4, -0.45)}
+# the kernel rows each model's eval launches (no other)
+EVAL_KERNELS = {"vsrm": ("ssd_shared", "fused_bidir_ssm"),
+                "fast_mamba_vsr": ("fused_bidir_ssm",),
+                "fast_mamba_vsr_ssd": ("ssd_shared",),
+                "rvrt": ("window_attention",),
+                "ditvr": ("flash_attention",),
+                "seedvr2": ("flash_attention",)}
+EVAL_SOURCES = {
+    "ssd_shared": ("video_enhancer_tpu_torch/csrc/ssd_shared.cu",
+                   "video_enhancer_tpu/ops/ssd.py:325"),
+    "fused_bidir_ssm": ("video_enhancer_tpu_torch/csrc/fused_bissm.cu",
+                        "video_enhancer_tpu/ops/scan.py:941"),
+    "flash_attention": ("video_enhancer_tpu_torch/csrc/flash_attn.cu",
+                        "video_enhancer_tpu/ops/attention.py:118"),
+    "window_attention": ("video_enhancer_tpu_torch/csrc/window_attn.cu",
+                         "video_enhancer_tpu/ops/attention.py:232")}
+LPIPS_TOL = 1e-4
+
+
+class _EvalHooks:
+    """Inside: each kernel's CUDA entry keeps the arguments of its first
+    call for each model (``model`` is set as the report goes), and the
+    plain version of every kernel of the eval counts the calls it gets
+    with a card tensor (attention_ref only where the flash kernel would
+    serve: unbiased, 256 tokens or more on both sides)."""
+
+    CUDA = {"ssd_shared": (ssd_mod, "_ssd_shared_cuda"),
+            "fused_bidir_ssm": (scan_mod, "_fused_bidir_ssm_cuda"),
+            "flash_attention": (attn_mod, "_flash_cuda"),
+            "window_attention": (attn_mod, "_window_cuda")}
+    PLAIN = [(ssd_mod, "ssd_shared_plain"),
+             (scan_mod, "fused_bidir_ssm_plain"),
+             (attn_mod, "window_attention_plain"),
+             (rvrt, "window_attention_plain"),
+             (attn_mod, "attention_ref")]
+
+    def __init__(self):
+        self.model = None
+        self.calls: dict = {}
+        self.plain_on_card: list = []
+        self._saved = []
+
+    def _capture(self, key, fn):
+        def run(*args):
+            self.calls.setdefault((self.model, key), (fn, args))
+            return fn(*args)
+        return run
+
+    def _guard(self, name, fn):
+        def run(q, *args, **kw):
+            if q.is_cuda:
+                bias = kw.get("bias", args[2] if len(args) > 2 else None)
+                long_seq = (name != "attention_ref" or (
+                    bias is None and q.shape[2] >= 256
+                    and args[0].shape[2] >= 256))
+                if long_seq:
+                    self.plain_on_card.append((self.model, name,
+                                               tuple(q.shape)))
+            return fn(q, *args, **kw)
+        return run
+
+    def __enter__(self):
+        for key, (mod, attr) in self.CUDA.items():
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._capture(key, fn))
+        for mod, attr in self.PLAIN:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._guard(attr, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+
+
+def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
+    """One kernel's first eval call, timed again on its own inputs against
+    its plain version (and the library call where there is one)."""
+    f32 = torch.float32
+    if key == "ssd_shared":
+        x, dt, A, Bm, Cm, reverse = args
+        b, L, H, P = x.shape
+        shp = dict(b=b, L=L, H=H, P=P, N=Bm.shape[-1])
+
+        def plain():
+            return ssd_mod.ssd_shared_plain(x, dt, A, Bm, Cm,
+                                            reverse=reverse)
+        nbytes, flops = _ssd_cost(f32, ssd_mod._SSD_Q, shp)
+        lib = None
+    elif key == "fused_bidir_ssm":
+        u, cw, Af, r = args[0], args[2], args[9], args[13]
+        shp = dict(B=u.shape[0], L=u.shape[1], D=u.shape[2], N=Af.shape[1],
+                   dt_rank=r, K=cw.shape[-1])
+
+        def plain():
+            return scan_mod.fused_bidir_ssm_plain(*args)
+        nbytes, flops = _bissm_cost(f32, shp)
+        lib = None
+    elif key == "flash_attention":
+        q, k, v, scale = args
+        shp = dict(B=q.shape[0], H=q.shape[1], Lq=q.shape[2], Lk=k.shape[2],
+                   Dh=q.shape[3])
+
+        def plain():
+            return attn_mod.attention_ref(q, k, v, scale=scale)
+        nbytes, flops = _flash_cost(f32, **shp)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib():
+            return sdpa(q, k, v, scale=scale)
+    else:
+        q, k, v, bias, scale = args
+        shp = dict(nW=q.shape[0], H=q.shape[1], N=q.shape[2], Dh=q.shape[3])
+
+        def plain():
+            return attn_mod.window_attention_plain(q, k, v, bias,
+                                                   scale=scale)
+        nbytes, flops = _window_cost(f32, **shp)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        mask = bias.float()[None]
+
+        def lib():
+            return sdpa(q, k, v, attn_mask=mask, scale=scale)
+    with torch.inference_mode(), full_fp32():
+        got = fn(*args)
+        ref = plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        tol = TOL[(key, "float32")]
+        check(rel <= tol, f"{key} at {model}'s eval shape {shp}: rel {rel} "
+                          f"> {tol}")
+        ms = time_ms(lambda: fn(*args))
+        plain_ms = time_ms(plain, warmup=1, iters=3)
+        lib_ms = time_ms(lib) if lib is not None else None
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    print(f"{key} at {model}'s eval shape {shp} fp32: max_abs_err "
+          f"{err:.3e} rel {rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, library "
+          f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms")
+    source, replaces = EVAL_SOURCES[key]
+    return {"name": f"{key}:eval {model} fp32", "route": "cuda",
+            "source": source, "replaces": replaces, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms}
+
+
+def _quality_report(d: str, device_line: str) -> tuple[dict, list]:
+    """The report on the card with per-model launches, times and the
+    unrounded gains; checks them; returns the report and the ``:eval``
+    kernel rows."""
+    committed = json.loads(
+        (evalsuite.WEIGHTS_DIR / "QUALIFICATION.json").read_text())["models"]
+    raw: dict = {}
+    real_gain = evalsuite.bundled_gain
+    marks: list = []
+    hooks = _EvalHooks()
+
+    def gain(name, family, n_seeds=8, device=None):
+        if not marks or marks[-1][0] != name:     # a model's first family
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter(),
+                          dict(kernels.launch_counts)))
+            hooks.model = name
+        raw[(name, family)] = real_gain(name, family, n_seeds=n_seeds,
+                                        device=device)
+        return raw[(name, family)]
+
+    kernels.reset_launch_counts()
+    evalsuite.bundled_gain = gain
+    t0 = time.perf_counter()
+    try:
+        with hooks:
+            report = evalsuite.write_qualification_report(
+                path=f"{d}/QUALIFICATION.json", n_seeds=6)
+        torch.cuda.synchronize()
+    finally:
+        evalsuite.bundled_gain = real_gain
+    wall = time.perf_counter() - t0
+    marks.append((None, time.perf_counter(), dict(kernels.launch_counts)))
+    per_model = {}
+    for (name, t_a, c_a), (_, t_b, c_b) in zip(marks, marks[1:]):
+        per_model[name] = ({k: c_b[k] - c_a[k] for k in c_a}, t_b - t_a)
+
+    check(sorted(report["models"]) == sorted(evalsuite.ALL_MODELS),
+          f"report models {sorted(report['models'])}")
+    print(f"quality report, 6 seeds, 10 models x 2 families on the card: "
+          f"{wall:.2f} s wall ({device_line})")
+    worst = 0.0
+    for name in evalsuite.ALL_MODELS:
+        counts, secs = per_model[name]
+        for fam, gate in zip(("ind", "alt"), GATES[name]):
+            g, ref = raw[(name, fam)], committed[name][fam]
+            worst = max(worst, abs(g - ref))
+            print(f"  {name:18s} {fam}: card {g:+.6f} dB (report "
+                  f"{report['models'][name][fam]:+.3f}), committed "
+                  f"{ref:+.3f}, diff {g - ref:+.6f}; gate > {gate}")
+            check(abs(g - ref) <= QUALITY_TOL_DB,
+                  f"{name} {fam}: card {g:.6f} vs committed {ref}")
+            check(g > gate, f"{name} {fam}: {g:.6f} dB under its gate {gate}")
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"    {secs:.2f} s ({100 * secs / wall:.1f}% of the report); "
+              f"launches {launched}")
+        want = EVAL_KERNELS.get(name, ())
+        check(set(launched) == set(want),
+              f"{name}: launched {sorted(launched)}, expected {sorted(want)}")
+    print(f"largest |card - committed|: {worst:.6f} dB (tol "
+          f"{QUALITY_TOL_DB})")
+    check(not hooks.plain_on_card,
+          f"plain versions ran on card tensors: {hooks.plain_on_card[:5]}")
+
+    saved = os.environ.get("VETPU_QUALIFICATION")
+    try:
+        os.environ["VETPU_QUALIFICATION"] = f"{d}/QUALIFICATION.json"
+        card_dq = disqualified_models()
+        os.environ.pop("VETPU_QUALIFICATION")
+        committed_dq = disqualified_models()
+    finally:
+        if saved is not None:
+            os.environ["VETPU_QUALIFICATION"] = saved
+    print(f"disqualified: card {sorted(card_dq)}, committed "
+          f"{sorted(committed_dq)}")
+    check(card_dq == committed_dq, "the disqualified sets differ")
+
+    rows = [_eval_kernel_row(model, key, fn, args)
+            for (model, key), (fn, args) in sorted(hooks.calls.items())]
+    for row in rows:
+        model = row["name"].split(":eval ")[1].split()[0]
+        row["launches"] = per_model[model][0][row["name"].split(":")[0]]
+    return report, rows
+
+
+@phase("18 measured quality")
+def measured_quality(device_line: str) -> list:
+    """The qualification report on the card, the eval CLI, the LPIPS
+    proxy and the coordinator's workflow; returns the ``:eval`` kernel
+    rows."""
+    with tempfile.TemporaryDirectory() as d:
+        report, rows = _quality_report(d, device_line)
+
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "video_enhancer_tpu_torch.train.evalsuite",
+             "vsrm", "--family", "alt", "--n-seeds", "6"],
+            capture_output=True, text=True, timeout=600,
+            cwd=Path(__file__).resolve().parent)
+        secs = time.perf_counter() - t0
+        check(out.returncode == 0, f"eval CLI exited {out.returncode}: "
+              f"{out.stderr[-3000:]}")
+        cli = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"eval CLI vsrm alt: {cli} in {secs:.2f} s wall as a "
+              f"subprocess ({device_line})")
+        check(cli["gain_db"] == report["models"]["vsrm"]["alt"],
+              f"the CLI's gain {cli['gain_db']} != the report's")
+
+        frames = make_demo_frames(16, (160, 160))
+        with full_fp32():
+            t0 = time.perf_counter()
+            corr = lpips.severity_ladder_corr(lpips.load_proxy(), frames,
+                                              n_ladders=8, seed=777)
+            card_s = time.perf_counter() - t0
+        corr_cpu = lpips.severity_ladder_corr(lpips.load_proxy("cpu"),
+                                              frames, n_ladders=8, seed=777)
+        print(f"LPIPS proxy severity_ladder_corr: card {corr:.6f} "
+              f"({card_s:.2f} s), CPU {corr_cpu:.6f}")
+        check(corr >= 0.8 and abs(corr - corr_cpu) <= LPIPS_TOL,
+              f"LPIPS correlation {corr} (CPU {corr_cpu})")
+
+        src = write_video(f"{d}/clip.avi", np.stack(synthetic_clip(16, 180,
+                                                                   320)),
+                          fps=24.0)
+        coord = CoordinatorAgent()
+        check(coord.assessor.device.type == "cuda", "the agents are not on "
+                                                    "the card")
+        assess = coord.assessor.process_task
+
+        def snapshot_then_assess(task):
+            Path(f"{d}/assessed.avi").write_bytes(
+                Path(task.output_path).read_bytes())
+            return assess(task)
+
+        coord.assessor.process_task = snapshot_then_assess
+        t0 = time.perf_counter()
+        wf = coord.run_workflow(src, f"{d}/out.avi", assess_quality=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(wf.status == "completed", f"workflow {wf.status}: "
+                                        f"{wf.results.get('error')}")
+        enhanced = torch.from_numpy(read_video(f"{d}/assessed.avi")).cuda()
+        ref = torch.from_numpy(read_video(src)).cuda().float() / 255.0
+        enhanced = enhanced.float() / 255.0
+        if enhanced.shape[1:3] != ref.shape[1:3]:
+            ref = resize(ref, tuple(enhanced.shape[1:3]))
+        again = {k: float(v) for k, v in assess_clips(enhanced, ref).items()}
+        q = wf.results["quality"]
+        diff = {k: q[k] - v for k, v in again.items() if q[k] != v}
+        summary = wf.results["summary"]
+        print(f"coordinator workflow on the card: {wf.status}, model "
+              f"{summary['model_used']}, {summary['frames']} frames, "
+              f"{secs:.2f} s wall; escalated: {'escalation' in wf.results}; "
+              f"psnr {q['psnr']:.3f} dB, ssim {q['ssim']:.4f}, lpips_proxy "
+              f"{q['lpips_proxy']:.5f}, category {q['category']}; metrics "
+              f"recomputed on the same output: differences {diff} "
+              f"({device_line})")
+        check(not diff, f"workflow metrics differ from assess_clips: {diff}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
@@ -2696,6 +3044,7 @@ def main() -> int:
     hfr_stage(big, f"{env['kind']}, {env['smi']}")
     face_path(f"{env['kind']}, {env['smi']}")
     entry_points(f"{env['kind']}, {env['smi']}")
+    eval_rows = measured_quality(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -2717,7 +3066,7 @@ def main() -> int:
               "ssd_shared:fast_mamba_vsr_ssd":
                   fmv_ssd["counts"]["ssd_shared"],
               "ssd_shared:b 368640": fmv_ssd["wide_counts"]["ssd_shared"]}
-    print(json.dumps({"kernels": kernel_record(rec, counts)}))
+    print(json.dumps({"kernels": kernel_record(rec, counts) + eval_rows}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["kind"], "count": env["count"]}}))

@@ -11,9 +11,8 @@ both run in this process on the same raw ``.avi`` files:
   CNN runs in fp32 on both sides here: in bf16, as both CLIs serve it,
   XLA's and torch's bf16 convs round apart and 215 of these 46,080 values
   read 2 LSB apart (the handler test holds the CNN in fp32 likewise);
-- ``demo`` writes the JAX package's frames bit for bit outside the label's
-  box (``io.demo.LABEL_BOX``, ``cv2.getTextSize`` of the label), with ink
-  inside it.
+- ``demo`` writes the JAX package's frames bit for bit, the label
+  included; ``make_demo_frames`` equals JAX's for every label 000-999.
 
 The JAX CLI's persistent-cache set-up (utils/jaxenv.py) is skipped: it
 writes a cache beside the package.
@@ -105,20 +104,21 @@ def test_enhance_within_one_lsb_of_the_jax_handler(tmp_path, capsys,
     assert np.abs(got - want).max() <= 1
 
 
-def test_demo_matches_jax_outside_the_label_box(tmp_path, capsys):
+def test_demo_matches_jax(tmp_path, capsys):
     n, h, w = 6, 64, 120
     res = _json(tcli.main, ["demo", str(tmp_path / "d.avi"), "--frames",
                             str(n), "--height", str(h), "--width", str(w)],
                 capsys)
     assert res["status"] == "success"
-    got, want = read_video(tmp_path / "d.avi"), j_demo_frames(n, (h, w))
-    x0, y0, x1, y1 = tdemo.LABEL_BOX
-    for t in range(n):
-        (tw, th), base = cv2.getTextSize(f"frame {t:03d}",
-                                         cv2.FONT_HERSHEY_SIMPLEX, 0.6, 1)
-        assert (x0, y0, x1, y1) == (8, 24 - th, 8 + tw, 24 + base)
-    outside = np.ones((h, w), bool)
-    outside[y0:y1, x0:x1] = False
-    np.testing.assert_array_equal(got[:, outside], want[:, outside])
-    ink = (got[:, y0:y1, x0:x1] == 255).all(-1).sum((1, 2))
-    assert (ink > 50).all()
+    np.testing.assert_array_equal(read_video(tmp_path / "d.avi"),
+                                  j_demo_frames(n, (h, w)))
+
+
+def test_demo_labels_000_to_999_match_jax():
+    """Every label, on a frame just large enough to hold it, and clipped
+    by smaller frames: equal bit for bit."""
+    np.testing.assert_array_equal(tdemo.make_demo_frames(1000, (28, 96)),
+                                  j_demo_frames(1000, (28, 96)))
+    for h, w in ((20, 60), (32, 48)):
+        np.testing.assert_array_equal(tdemo.make_demo_frames(120, (h, w)),
+                                      j_demo_frames(120, (h, w)))

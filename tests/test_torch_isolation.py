@@ -17,7 +17,10 @@ the file paths on ``.avi`` files the port wrote (vsrm's ``enhance_video``,
 RIFE's and the face expert's file entries); one, likewise, runs the CLI
 (demo, metadata, enhance, eval) and the REST job server (an ``.avi`` job
 to the end, and an ``.mp4`` upload, which ends ``failed`` with an error
-naming the missing OpenCV)."""
+naming the missing OpenCV); one, likewise, runs the eval CLI (``python -m
+video_enhancer_tpu_torch.train.evalsuite``, its data made with the port's
+host ops and JPEG round trip) and the coordinator's workflow on an
+``.avi``."""
 
 from __future__ import annotations
 
@@ -249,6 +252,33 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+EVAL = r"""
+import contextlib, io, json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+d = sys.argv[2]
+for name in %r:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)       # beside the other test workers
+buf = io.StringIO()
+sys.argv = ["evalsuite", "cnn_upscaler", "--n-seeds", "1", "--device", "cpu"]
+with contextlib.redirect_stdout(buf):
+    try:
+        runpy.run_module("video_enhancer_tpu_torch.train.evalsuite",
+                         run_name="__main__")
+    except SystemExit as e:
+        rc = e.code
+res = {"eval": [rc, json.loads(buf.getvalue().strip().splitlines()[-1])]}
+from video_enhancer_tpu_torch.agents import CoordinatorAgent
+from video_enhancer_tpu_torch.io.demo import write_demo_video
+write_demo_video(d + "/in.avi", frames=6, size_hw=(24, 32))
+wf = CoordinatorAgent(device="cpu").run_workflow(d + "/in.avi",
+                                                 d + "/out.avi")
+res["workflow"] = [wf.status, sorted(wf.results), wf.results.get("error")]
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str, *args) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT),
                           *map(str, args)],
@@ -278,7 +308,10 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "runtime.scheduler", "utils.memory", "utils.errors",
                  "utils.auth", "utils.security", "utils.perf",
                  "utils.logging_config", "serving.http", "serving.app",
-                 "serving.server"):
+                 "serving.server", "ops.cvhost", "io.jpeg", "train.data",
+                 "train.evalgen", "train.evalsuite", "train.lpips",
+                 "agents.quality", "agents.analyzer", "agents.coordinator",
+                 "agents.communication"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -364,3 +397,18 @@ def test_cli_and_server_run_on_avi_without_jax_cv2_yaml_or_psutil(tmp_path):
                    "avi_job": ["completed", "video/x-msvideo",
                                [6, 48, 64, 3]],
                    "mp4_job": ["failed", True], "metrics": 200}
+
+
+def test_eval_cli_and_coordinator_run_without_jax_or_cv2(tmp_path):
+    """The eval CLI measures cnn_upscaler's bundled weights (the ``ind``
+    data: the port's demo frames, host ops and JPEG round trip), and the
+    coordinator's workflow (analysis, enhancement, quality assessment with
+    the LPIPS proxy) completes on an ``.avi``, with those packages
+    absent."""
+    res = _run(EVAL, tmp_path)
+    assert (tmp_path / "out.avi").is_file()
+    rc, out = res["eval"]
+    assert rc == 0 and out["model"] == "cnn_upscaler"
+    assert out["family"] == "ind" and isinstance(out["gain_db"], float)
+    assert res["workflow"] == ["completed", ["analysis", "enhancement",
+                                             "quality", "summary"], None]

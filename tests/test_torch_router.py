@@ -241,6 +241,23 @@ def test_analyze_and_route_on_a_file_matches_jax(tmp_path):
     _assert_same_plan(got, want, tol=5e-5)
 
 
+def test_analyze_and_route_takes_the_jax_keywords(tmp_path):
+    """Every keyword of the JAX router's ``analyze_and_route`` is taken
+    (``license_mode`` among them), here on a missing file: the same
+    fallback plan on both sides."""
+    missing = str(tmp_path / "none.mp4")
+    kw = dict(latency_class="strict", allow_diffusion=False,
+              allow_zero_shot=False, license_mode="permissive",
+              enable_face_expert=False, enable_hfr=True, num_samples=4)
+    want = jrouter.DegradationRouter(
+        available_models=SERVED).analyze_and_route(missing, **kw)
+    got = DegradationRouter(available_models=SERVED).analyze_and_route(
+        missing, device="cpu", **kw)
+    for plan in (got, want):
+        plan["content_analysis"].pop("error")
+    assert got == want and got["fallback"]
+
+
 @pytest.mark.parametrize("enable_face_expert", [None, True])
 def test_analyze_and_route_on_a_face_file_matches_jax(tmp_path,
                                                       enable_face_expert):

@@ -91,13 +91,15 @@ class DegradationRouter:
                           LatencyClass.STANDARD,
                           allow_diffusion: bool = True,
                           allow_zero_shot: bool = True,
-                             enable_face_expert: bool | None = None,
+                          license_mode: str = "permissive",
+                          enable_face_expert: bool | None = None,
                           enable_hfr: bool | None = None,
                           num_samples: int = 12,
                           device: str | torch.device | None = None
                           ) -> dict[str, Any]:
         """Sample ``num_samples`` frames of a file (io/video.py) and route
-        them."""
+        them. ``license_mode`` is taken as the JAX router takes it
+        (router.py:67), where it changes nothing."""
         from ..io.video import get_video_metadata, sample_frames
 
         tracker = get_tracker()

@@ -28,8 +28,8 @@ import os
 from typing import Any, Mapping
 
 __all__ = ["LatencyClass", "DegradationThresholds", "LatencyBudget",
-           "PipelineDefaults", "MeshConfig", "ModelEntry", "Policy",
-           "MODELS", "ENABLED", "default_policy"]
+           "PipelineDefaults", "MeshConfig", "ModelEntry", "QualityGates",
+           "Policy", "MODELS", "ENABLED", "default_policy"]
 
 
 class LatencyClass(str, enum.Enum):
@@ -170,6 +170,17 @@ def _models_from_env() -> dict[str, ModelEntry]:
 
 
 @dataclasses.dataclass(frozen=True)
+class QualityGates:
+    """Minimum acceptable output quality (policy_v1.yaml ``quality_gates``,
+    read by the quality agent)."""
+
+    min_psnr: float = 25.0
+    min_ssim: float = 0.8
+    min_vmaf: float = 70.0
+    escalate_on_failure: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class Policy:
     """The parts of the JAX package's ``Policy`` that the auto route reads."""
 
@@ -182,6 +193,7 @@ class Policy:
         default_factory=_models_from_env)
     enabled: Mapping[str, bool] = dataclasses.field(
         default_factory=lambda: dict(ENABLED))
+    quality_gates: QualityGates = QualityGates()
 
     def enabled_models(self) -> list[str]:
         return [name for name, on in self.enabled.items() if on]

@@ -59,8 +59,7 @@ def init(gen: torch.Generator, dim: int = 64, num_blocks: int = 6,
 
 def _spatial_ssm(p, x, kernels):
     b, t, h, w, c = x.shape
-    y = bissd_apply(p, x.reshape(b * t, h * w, c),
-                    use_kernel=None if kernels else False)
+    y = bissd_apply(p, x.reshape(b * t, h * w, c), use_kernel=kernels)
     return y.reshape(b, t, h, w, c)
 
 
@@ -96,9 +95,9 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4, heads: int = 4,
           kernels: bool = True, time_axis=None) -> torch.Tensor:
     """``(B, T, H, W, 3)`` in [0, 1] -> ``(B, T, scale*H, scale*W, 3)``.
 
-    ``kernels=True`` keeps the JAX package's dispatch (the SSD kernel for
-    half-precision input, the fused SSM kernel always, or with
-    ``time_axis`` the scan kernels by ``selective_scan``'s rule); ``False``
+    ``kernels=True`` runs the SSD kernel and the fused SSM kernel in every
+    dtype (the JAX package takes its plain chunked SSD for fp32 input), or
+    with ``time_axis`` the scan kernels by ``selective_scan``'s rule; ``False``
     runs the plain PyTorch versions, the reference the kernels are held
     against. ``time_axis``: the clip is this rank's T shard (see the module
     docstring)."""

@@ -174,13 +174,17 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     ``padding`` is ``"SAME"`` or the JAX package's explicit ``((lo, hi),)``
     (ssm's causal ``((k - 1, 0),)`` and anti-causal ``((0, k - 1),)``).
     Computed in fp32 and cast back to ``x``'s dtype, as the JAX package's
-    conv accumulates in fp32 (ops/conv.py:126-149)."""
+    conv accumulates in fp32 (ops/conv.py:126-149). The result is
+    contiguous in every dtype: a half-precision cast makes it so in one
+    pass, and for fp32 input, where the cast copies nothing, the trailing
+    ``contiguous()`` copies the transposed view (the SSD kernel reads rows
+    in place)."""
     C, k = w.shape[0], w.shape[2]
     (lo, hi), = [_same(k)] if padding == "SAME" else padding
     xi = F.pad(x.float().transpose(1, 2), (lo, hi))
     out = F.conv1d(xi, w.float(), None if b is None else b.float(), groups=C)
-    return out.transpose(1, 2).to(x.dtype,
-                                  memory_format=torch.contiguous_format)
+    return out.transpose(1, 2).to(
+        x.dtype, memory_format=torch.contiguous_format).contiguous()
 
 
 def depthwise_conv1d_silu_plain(x: torch.Tensor, w: torch.Tensor,
