@@ -12,13 +12,18 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
 3. kernels against their plain PyTorch versions at the main paths' shapes,
    in fp32 (TF32 off) and bf16, each with its tolerance; the flash kernel
    at ditvr's shape and at seedvr2's (one head of 128 over the 3600 tokens
-   of each frame's 45x80 level, 8 frames), also at ragged lengths (one
+   of each frame's 45x80 level, 8 frames), at shapes only several ranks
+   give (ditvr's gathered K/V at two ranks, q (1, 6, 1800, 64) against k/v
+   (1, 6, 3600, 64); the 3b preset's 24 heads of 96 at 3600 tokens), at
+   the 3b forward's (1, 24, 14400, 96) in bf16 against the plain version
+   run head by head, also at ragged lengths (one
    across a 128-row tile edge, Dh 48), the
    fused SSM also at fast_mamba_vsr's shape and at a count of sequences
    that is not a multiple of the sequences a block, the SSD (bf16, both
    directions) also at fast_mamba_vsr_ssd's temporal shape (57,600
-   sequences of 16 steps, 2 heads of 48, N 8) and at 368,640 sequences
-   (one launch a call past 65,535), each with its plain time and bound,
+   sequences of 16 steps, 2 heads of 48, N 8), at 368,640 sequences
+   (one launch a call past 65,535) and at the 8 steps a rank scans when
+   that window is split over two, each with its plain time and bound,
    the four Mamba-1 scans at the shapes of phases 8-9 (the short scan with
    a nonzero h0, and a control: run with h0 = 0 it must read far from the
    plain version), the shared bidirectional scan (row 10) at vsrm's and
@@ -169,7 +174,20 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    subprocess (vsrm on ``alt``, the report's gain); the LPIPS proxy's
    ``severity_ladder_corr`` on the card against the CPU; the coordinator's
    workflow on phase 17's ``.avi`` clip, its quality metrics equal to
-   ``assess_clips`` on the same output.
+   ``assess_clips`` on the same output;
+19. the exact sharded restorers and FSDP on a one-rank NCCL mesh
+   (``make_mesh()``), bundled weights in bf16, each against the
+   single-device model within the window tolerances, with its launches,
+   ms, frames/s and peak memory: ``make_exact_sharded_seedvr2`` on one
+   window of 8 of phase 11's clip (3 flash launches, as single-device);
+   ``make_exact_sharded_ditvr`` on 8 frames of phase 5's clip (14,400
+   tokens: the ring, no flash launch against 8) and on 2 (3,600: gathered
+   K/V, 8 flash launches); ``make_exact_sharded_fmv`` on
+   fast_mamba_vsr_ssd's weights and phase 14's first window (16 SSD
+   launches); ``make_sharded_ditvr(preset="3b")`` drawn on the card in
+   bf16 (seeded, a live head): its parameter bytes and peak memory, one
+   forward on an 8-frame 180x320 window (32 flash launches at (1, 24,
+   14400, 96)) against ``ditvr.apply`` on the same tensors.
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
@@ -247,8 +265,11 @@ from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, ssd_shared_kernel,
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
                                                           calibrate_vsr)
 from video_enhancer_tpu_torch.parallel.inference import (
-    make_exact_sharded_fmv, make_exact_sharded_vsrm, make_sharded_clip_fn)
+    make_exact_sharded_ditvr, make_exact_sharded_fmv,
+    make_exact_sharded_seedvr2, make_exact_sharded_vsrm, make_sharded_clip_fn)
 from video_enhancer_tpu_torch.parallel.mesh import make_mesh
+from video_enhancer_tpu_torch.parallel.model_parallel import \
+    make_sharded_ditvr
 from video_enhancer_tpu_torch.parallel.spatial import \
     make_spatially_sharded_clip_fn
 from video_enhancer_tpu_torch.runtime.experts import temporal_smooth
@@ -286,6 +307,8 @@ SSD_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=16)
 # 65,535 blocks of a grid's y and z
 SSD_FMV_SHAPE = dict(b=180 * 320, L=16, H=2, P=48, N=8)
 SSD_WIDE_SHAPE = dict(SSD_FMV_SHAPE, b=2 * 360 * 512)
+# its local scan when the window's 16 frames are split over two ranks
+SSD_SHARDED_SHAPE = dict(SSD_FMV_SHAPE, L=8)
 BISSM_SHAPE = dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4, K=5)
 # fast_mamba_vsr at 180x320, chunk 16: dim 48 -> inner 96, N 8, rank 3
 BISSM_FMV_SHAPE = dict(B=180 * 320, L=16, D=96, N=8, dt_rank=3, K=5)
@@ -298,6 +321,14 @@ FLASH_SHAPE = dict(B=2, H=3, L=10080, Dh=128)
 # one head of 128 channels over each frame's 45 x 80 = 3600 tokens (232
 # query tiles of 128, the last one 16 rows)
 FLASH_SEEDVR2_SHAPE = dict(B=8, H=1, L=45 * 80, Dh=128)
+# shapes only several ranks give (phase 19 runs one): ditvr's gathered K/V
+# at two ranks, Lq = L / 2 against Lk = L (L 3600, 6 heads of 64); the 3b
+# preset's head width (24 heads of 96, padded to 128) at 3600 tokens, and
+# at the 14,400 tokens of the 3b forward on an 8-frame 180x320 window
+# (phase 19 (d), held there against the plain version head by head)
+FLASH_GATHERED = dict(B=1, H=6, Lq=1800, Lk=3600, Dh=64)
+FLASH_3B_SHAPE = dict(B=1, H=24, L=3600, Dh=96)
+FLASH_3B_WINDOW = dict(B=1, H=24, L=14400, Dh=96)
 FLASH_RAGGED = [dict(B=2, H=3, Lq=300, Lk=1000, Dh=64),
                 dict(B=2, H=3, Lq=300, Lk=1000, Dh=128),
                 dict(B=2, H=3, Lq=129, Lk=1000, Dh=48)]
@@ -587,13 +618,17 @@ def _flash_cost(dtype, B, H, Lq, Lk, Dh) -> tuple[float, float]:
 
 def flash_vs_plain() -> dict:
     """The flash kernel against attention_ref at ditvr's and seedvr2's
-    shapes and at ragged lengths; at the two paths' shapes its time beside
-    the plain version's and SDPA's."""
+    shapes, at the shapes only several ranks give (gathered K/V with Lq !=
+    Lk, the 3b head width) and at ragged lengths; at the named shapes its
+    time beside the plain version's and SDPA's; then at the 3b window's
+    shape."""
     rec = {}
     named = {"flash_attention": FLASH_SHAPE,
-             "flash_attention:seedvr2": FLASH_SEEDVR2_SHAPE}
+             "flash_attention:seedvr2": FLASH_SEEDVR2_SHAPE,
+             "flash_attention:3b head width": FLASH_3B_SHAPE}
     cases = [(key, dict(B=s["B"], H=s["H"], Lq=s["L"], Lk=s["L"],
                         Dh=s["Dh"])) for key, s in named.items()]
+    cases += [("flash_attention:gathered K/V", FLASH_GATHERED)]
     cases += [(None, shp) for shp in FLASH_RAGGED]
     for ci, (key, shp) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
@@ -617,14 +652,60 @@ def flash_vs_plain() -> dict:
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 lib_ms = time_ms(lambda: sdpa(q, k, v))
                 nbytes, flops = _flash_cost(dtype, **shp)
-                print(f"{key} path shape bf16: plain {plain_ms:.3f} ms, "
-                      f"scaled_dot_product_attention {lib_ms:.4f} ms")
+                bound = max(nbytes / H100_BYTES_PER_S,
+                            flops / H100_BF16_FLOPS) * 1e3
+                print(f"{key} shape bf16: plain {plain_ms:.3f} ms, "
+                      f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms")
                 rec[key] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bytes=nbytes, flops=flops,
                     peak=H100_BF16_FLOPS)
             del got, ref, q, k, v
+    rec["flash_attention:3b"] = flash_3b_vs_plain()
     return rec
+
+
+def _attention_by_head(q, k, v) -> torch.Tensor:
+    """attention_ref one head at a time (the whole call's fp32 logits would
+    take 20 GB at the 3b window's shape)."""
+    return torch.cat([attention_ref(q[:, h:h + 1], k[:, h:h + 1],
+                                    v[:, h:h + 1])
+                      for h in range(q.shape[1])], dim=1)
+
+
+def flash_3b_vs_plain() -> dict:
+    """The flash kernel at the 3b forward's shape (1, 24, 14400, 96), bf16,
+    against attention_ref head by head; its time beside that plain
+    version's and SDPA's."""
+    s = FLASH_3B_WINDOW
+    shp = dict(B=s["B"], H=s["H"], Lq=s["L"], Lk=s["L"], Dh=s["Dh"])
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q, k, v = _flash_inputs(dtype, gen, **shp)
+    got = flash_attention(q, k, v)
+    ref = _attention_by_head(q, k, v)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()),
+          "flash_attention 3b: non-finite")
+    err, rel = rel_err(got, ref)
+    tol = TOL[("flash_attention", "bfloat16")]
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: _attention_by_head(q, k, v), warmup=1,
+                       iters=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v))
+    nbytes, flops = _flash_cost(dtype, **shp)
+    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    print(f"flash_attention:3b {shp} bf16: max_abs_err {err:.3e} rel "
+          f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain (by head) "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} "
+          f"ms, bound {bound:.4f} ms ({flops / 1e12:.3f} TFLOP)")
+    check(rel <= tol, f"flash_attention:3b: rel {rel} > {tol}")
+    del got, ref, q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=nbytes, flops=flops, peak=H100_BF16_FLOPS)
 
 
 def _window_inputs(dtype, gen, nW, H, N, Dh):
@@ -1088,12 +1169,14 @@ def kernels_vs_plain(ptxas_log: str) -> dict:
 
 def ssd_fmv_vs_plain(Q: int) -> dict:
     """The SSD kernel against its plain version at fast_mamba_vsr_ssd's
-    temporal shapes, bf16, both directions: at 180x320 (b 57,600) and at
-    b 368,640 (one launch a call past 65,535 sequences); ms, plain ms and
-    the bound of each, and the plan (route, one block a sequence)."""
+    temporal shapes, bf16, both directions: at 180x320 (b 57,600), at
+    b 368,640 (one launch a call past 65,535 sequences) and at the 8 steps
+    a rank scans when the window is split over two; ms, plain ms and the
+    bound of each, and the plan (route, one block a sequence)."""
     rec = {}
     for key, shape in (("ssd_shared:fast_mamba_vsr_ssd", SSD_FMV_SHAPE),
-                       ("ssd_shared:b 368640", SSD_WIDE_SHAPE)):
+                       ("ssd_shared:b 368640", SSD_WIDE_SHAPE),
+                       ("ssd_shared:L 8", SSD_SHARDED_SHAPE)):
         dtype = torch.bfloat16
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
         args = _ssd_inputs(dtype, gen, shape)
@@ -2557,6 +2640,8 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
         "ssd_shared:b 368640": (
             "video_enhancer_tpu_torch/csrc/ssd_shared.cu",
             "video_enhancer_tpu/ops/ssd.py:325"),
+        "flash_attention:3b": ("video_enhancer_tpu_torch/csrc/flash_attn.cu",
+                               "video_enhancer_tpu/ops/attention.py:118"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -3020,6 +3105,159 @@ def measured_quality(device_line: str) -> list:
     return rows
 
 
+def _held(name: str, y_s, y_1, c_s, want_s, c_1, want_1, secs: float,
+          n: int, device_line: str, note: str = "") -> None:
+    """Phase 19's checks of one sharded call against the single-device
+    model: launches, shape, finiteness and the window tolerances."""
+    diff = (y_s.float() - y_1.float()).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    print(f"{name}: launches {_nonzero(c_s)} (expected {_nonzero(want_s)}), "
+          f"single-device {_nonzero(c_1)}; vs single-device max_abs "
+          f"{mx:.4e} (tol {WINDOW_MAX_ABS}), mean_abs {mean:.4e} (tol "
+          f"{WINDOW_MEAN_ABS}); {secs * 1e3:.2f} ms = {n / secs:.2f} "
+          f"frames/s{note} ({device_line})")
+    check(c_s == want_s, f"{name}: sharded launches {c_s} != {want_s}")
+    check(c_1 == want_1, f"{name}: single launches {c_1} != {want_1}")
+    check(tuple(y_s.shape) == tuple(y_1.shape)
+          and bool(torch.isfinite(y_s.float()).all()),
+          f"{name}: output {tuple(y_s.shape)} not finite or not "
+          f"{tuple(y_1.shape)}")
+    check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
+          f"{name}: the sharded output differs from the single-device model")
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _clip_of(frames) -> torch.Tensor:
+    return (torch.from_numpy(np.stack(frames)).cuda().float()
+            / 255.0)[None].to(torch.bfloat16)
+
+
+def _sharded_vs_single(name, fn, single, params, clip, want_s, want_1,
+                       device_line):
+    """One warm-up call of the sharded ``fn``, then it and the
+    single-device ``single`` counted and held to each other; returns the
+    sharded call's counts and its peak memory."""
+    with torch.inference_mode():
+        fn(params, clip)
+        torch.cuda.reset_peak_memory_stats()
+        y_s, c_s, t_s = _counted(fn, params, clip)
+        peak = torch.cuda.max_memory_allocated()
+        y_1, c_1, t_1 = _counted(single, params, clip)
+    _held(name, y_s, y_1, c_s, want_s, c_1, want_1, t_s, clip.shape[1],
+          device_line, f", peak memory {peak / 1e9:.3f} GB; single-device "
+                       f"{t_1 * 1e3:.2f} ms")
+    return c_s, peak
+
+
+@phase("19 exact sharded restorers and FSDP")
+def sharded_restorers(device_line: str) -> dict:
+    """On a one-rank NCCL mesh: the exact T-sharded seedvr2, ditvr (the
+    ring at 8 frames, gathered K/V at 2) and fast_mamba_vsr_ssd against the
+    single-device models with the bundled weights in bf16; then ditvr at
+    the 3b preset with FSDP-sharded parameters (seeded, bf16, a live head)
+    against ``ditvr.apply`` on the same tensors."""
+    mesh = make_mesh()
+    counts = {}
+    try:
+        check(mesh.device.type == "cuda" and mesh.num_devices == 1,
+              f"mesh {mesh.shape} on {mesh.device}")
+        time_axis = mesh.axis("time")
+
+        # (a) seedvr2 on one window of 8 of phase 11's clip
+        params = cast_params(load_params("seedvr2"), torch.bfloat16,
+                             mesh.device)
+        want = _only(flash_attention=3)
+        counts["seedvr2"], _ = _sharded_vs_single(
+            "seedvr2 8 frames", make_exact_sharded_seedvr2(time_axis),
+            lambda p, c: seedvr2.apply(p, c), params,
+            _clip_of(blocky_clip(16, 180, 320)[:8]), want, want, device_line)
+
+        # (b) ditvr on 8 frames of phase 5's clip (14,400 tokens: the
+        # ring, no flash launch) and on 2 (3,600: gathered K/V, the flash
+        # kernel in each block)
+        params = cast_params(load_params("ditvr"), torch.bfloat16,
+                             mesh.device)
+        heads = int(MODELS["ditvr"].extra.get("heads", 6))
+        frames = dim_clip(16, 180, 320)
+        fn = make_exact_sharded_ditvr(time_axis, heads=heads)
+        want = _only(flash_attention=len(params["blocks"]))
+
+        def single(p, c):
+            return ditvr.apply(p, c, heads=heads)
+
+        counts["ditvr ring"], counts["ditvr ring peak"] = _sharded_vs_single(
+            "ditvr 8 frames (ring)", fn, single, params,
+            _clip_of(frames[:8]), _only(), want, device_line)
+        counts["ditvr"], _ = _sharded_vs_single(
+            "ditvr 2 frames (gathered K/V)", fn, single, params,
+            _clip_of(frames[:2]), want, want, device_line)
+
+        # (c) fast_mamba_vsr_ssd on phase 14's first 16-frame window
+        params = cast_params(load_params("fast_mamba_vsr_ssd"),
+                             torch.bfloat16, mesh.device)
+        want = _only(ssd_shared=2 * len(params["layers"]))
+        counts["fast_mamba_vsr_ssd"], _ = _sharded_vs_single(
+            "fast_mamba_vsr_ssd x4 16 frames",
+            make_exact_sharded_fmv(time_axis, scale=4),
+            lambda p, c: fast_mamba_vsr.apply(p, c, scale=4), params,
+            _clip_of(synthetic_clip(30, 180, 320)[:16]), want, want,
+            device_line)
+        del params
+        torch.cuda.empty_cache()
+        counts["3b"] = _fsdp_3b(mesh, frames[:8], device_line)
+    finally:
+        mesh.destroy()
+    return counts
+
+
+def _fsdp_3b(mesh, frames, device_line: str) -> dict:
+    """Phase 19 (d): ``make_sharded_ditvr(preset="3b")`` in bf16 on the
+    card, the zero-init head given seeded weights; one forward on an
+    8-frame 180x320 window (14,400 tokens, 32 flash launches at (1, 24,
+    14400, 96)) against ``ditvr.apply`` on the same tensors."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards, fn = make_sharded_ditvr(mesh, preset="3b", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 19)
+    head = shards["head"]["w"]
+    shards["head"]["w"] = (torch.randn(head.shape, generator=gen,
+                                       device=mesh.device) * 0.02).to(
+                                           head.dtype)
+    leaves = flatten_params(shards).values()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params = sum(t.numel() for t in leaves)
+    init_peak = torch.cuda.max_memory_allocated()
+    cfg = ditvr.SIZE_PRESETS["3b"]
+    print(f"ditvr 3b under FSDP (one rank): {n_params / 1e9:.3f} B "
+          f"parameters, {nbytes / 1e9:.3f} GB in bf16; drawn on the card in "
+          f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB")
+    clip = _clip_of(frames)
+    with torch.inference_mode():
+        fn(shards, clip)
+        torch.cuda.reset_peak_memory_stats()
+        y_s, c_s, t_s = _counted(fn, shards, clip)
+        peak = torch.cuda.max_memory_allocated()
+        y_1, c_1, t_1 = _counted(
+            lambda: ditvr.apply(shards, clip, heads=cfg["heads"]))
+    want = _only(flash_attention=cfg["depth"])
+    _held("ditvr 3b FSDP 8 frames", y_s, y_1, c_s, want, c_1, want, t_s,
+          clip.shape[1], device_line,
+          f", peak memory {peak / 1e9:.3f} GB (parameters {nbytes / 1e9:.3f}"
+          f" GB); ditvr.apply on the same tensors {t_1 * 1e3:.2f} ms")
+    moved = (y_s.float() - clip.float()).abs().mean().item()
+    print(f"ditvr 3b: mean |output - input| {moved:.4e} (the live head)")
+    check(moved > 1e-4, "the 3b output is its input: the head is not live")
+    del shards, y_s, y_1
+    torch.cuda.empty_cache()
+    return {"counts": c_s, "bytes": nbytes, "params": n_params,
+            "peak": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
@@ -3045,6 +3283,7 @@ def main() -> int:
     face_path(f"{env['kind']}, {env['smi']}")
     entry_points(f"{env['kind']}, {env['smi']}")
     eval_rows = measured_quality(f"{env['kind']}, {env['smi']}")
+    restorers = sharded_restorers(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -3065,7 +3304,10 @@ def main() -> int:
               # rows 1-2 on fast_mamba_vsr_ssd's path: phase 14
               "ssd_shared:fast_mamba_vsr_ssd":
                   fmv_ssd["counts"]["ssd_shared"],
-              "ssd_shared:b 368640": fmv_ssd["wide_counts"]["ssd_shared"]}
+              "ssd_shared:b 368640": fmv_ssd["wide_counts"]["ssd_shared"],
+              # the 3b head width: phase 19 (d)
+              "flash_attention:3b":
+                  restorers["3b"]["counts"]["flash_attention"]}
     print(json.dumps({"kernels": kernel_record(rec, counts) + eval_rows}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

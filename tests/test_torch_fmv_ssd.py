@@ -163,10 +163,15 @@ def test_registry_selections_match_jax(monkeypatch, name, strength):
 
 
 def test_sharded_ssd_mixer_is_not_ported():
+    """The ssd mixer runs under ``time_axis`` (tests/
+    test_torch_sequence_parallel.py); what it still refuses, before any
+    exchange, is a T shard shorter than its conv's halo (k // 2 = 2), with
+    the JAX package's message (nn/ssm.py:375-377)."""
     params = tfmv.init(torch.Generator().manual_seed(0), dim=8, num_layers=1,
                        state_dim=4, temporal_mixer="ssd")
-    with pytest.raises(NotImplementedError, match="time-sharded form"):
-        tfmv.apply(params, torch.zeros(1, 2, 4, 4, 3), time_axis=object())
+    with pytest.raises(ValueError) as e:
+        tfmv.apply(params, torch.zeros(1, 1, 4, 4, 3), time_axis=object())
+    assert str(e.value) == "local T shard (1) smaller than conv halo (2)"
 
 
 def test_unknown_mixer_is_refused():

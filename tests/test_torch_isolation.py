@@ -311,7 +311,8 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "serving.server", "ops.cvhost", "io.jpeg", "train.data",
                  "train.evalgen", "train.evalsuite", "train.lpips",
                  "agents.quality", "agents.analyzer", "agents.coordinator",
-                 "agents.communication"):
+                 "agents.communication", "ops.ring",
+                 "parallel.model_parallel", "models.seedvr2_sizes"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 

@@ -145,9 +145,16 @@ def test_environment_is_read_at_call_time(monkeypatch, bundled, env, value):
 
 
 def test_apply_refuses_time_axis(bundled):
-    with pytest.raises(NotImplementedError, match="time_axis"):
+    """seedvr2 runs under ``time_axis`` (tests/
+    test_torch_sequence_parallel.py); what it still refuses there, before
+    any exchange, is the multi-step DDIM loop, with the JAX package's
+    message (models/seedvr2.py:218-222)."""
+    with pytest.raises(ValueError) as e:
         tseedvr2.apply(bundled[1], torch.zeros((1, 2, 4, 4, 3)),
-                       time_axis="time")
+                       num_steps=2, time_axis=object())
+    assert str(e.value) == ("multi-step DDIM sampling is not T-sharded; use "
+                            "the one-step path (num_steps=1) under a time "
+                            "mesh")
 
 
 def test_build_handler_serves_seedvr2_at_full_width(shaped_jax_init):

@@ -1,16 +1,23 @@
 """Diffusion backbone: the noise schedule and the 3-D video UNet.
 
-Counterpart of video_enhancer_tpu/models/diffusion.py without
-``time_axis``: the schedule's tables and DDIM step (:35-99), the multi-step
-``sample_loop`` (:102-130, a Python loop), and the UNet (:138-324): a
-SiLU timestep MLP, 3x3x3 ResBlocks with GroupNorm, stride-(1, 2, 2) down
-convs, transposed up convs, and at the levels in ``attn_levels`` the
-factorised attention block: spatial attention within each frame as one
-head of the level's full width, which the shared dispatcher
-(ops/attention.py) sends to the flash kernel on the card (``kernels=False``
-takes the plain form), plus ``site_attention`` over time at every site,
-summed into one projection. Layout ``(B, T, H, W, C)``; H and W must be
-divisible by 2 ** (levels - 1).
+Counterpart of video_enhancer_tpu/models/diffusion.py: the schedule's
+tables and DDIM step (:35-99), the multi-step ``sample_loop`` (:102-130, a
+Python loop), and the UNet (:138-324): a SiLU timestep MLP, 3x3x3 ResBlocks
+with GroupNorm, stride-(1, 2, 2) down convs, transposed up convs, and at
+the levels in ``attn_levels`` the factorised attention block: spatial
+attention within each frame as one head of the level's full width, which
+the shared dispatcher (ops/attention.py) sends to the flash kernel on the
+card (``kernels=False`` takes the plain form), plus ``site_attention`` over
+time at every site, summed into one projection. Layout ``(B, T, H, W, C)``;
+H and W must be divisible by 2 ** (levels - 1).
+
+With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
+the UNet runs exactly over the whole clip (:150-324): every conv with a
+T-kernel of 3 (and the transposed up convs) sees a 1-frame halo of its
+neighbours, zero frames at the global edges, and is trimmed after;
+GroupNorm sums its statistics over the axis; the spatial attention stays
+within each frame, so local; the site attention's K and V are gathered
+over T.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from .. import nn
 from ..ops import prng
 from ..ops.attention import attention, site_attention
 from ..ops.conv import conv_transpose3d
+from ..parallel.temporal import halo_exchange_time
 
 __all__ = ["NoiseSchedule", "make_schedule", "sample_loop", "unet_init",
            "unet_apply"]
@@ -146,12 +154,23 @@ def _resblock_init(gen, cin, cout, t_dim):
     return p
 
 
-def _resblock_apply(p, x, t_emb, groups=8):
-    h = F.silu(nn.group_norm_apply(p["norm1"], x, groups))
-    h = nn.conv3d_apply(p["conv1"], h)
+def _c3_sharded(p, x, time_axis, stride=1):
+    """conv3d; over a T shard (``time_axis``), a conv with a T-kernel of 3
+    sees a 1-frame halo (zero frames at the global edges, the unsharded
+    SAME padding) and the halo's outputs are trimmed. T stride 1."""
+    if time_axis is None or p["w"].shape[2] == 1:
+        return nn.conv3d_apply(p, x, stride=stride)
+    out = nn.conv3d_apply(p, halo_exchange_time(x, 1, time_axis, edge="zero"),
+                          stride=stride)
+    return out[:, 1:out.shape[1] - 1]
+
+
+def _resblock_apply(p, x, t_emb, groups=8, time_axis=None):
+    h = F.silu(nn.group_norm_apply(p["norm1"], x, groups, axis=time_axis))
+    h = _c3_sharded(p["conv1"], h, time_axis)
     h = h + nn.dense_apply(p["t_proj"], t_emb)[:, None, None, None, :]
-    h = F.silu(nn.group_norm_apply(p["norm2"], h, groups))
-    h = nn.conv3d_apply(p["conv2"], h)
+    h = F.silu(nn.group_norm_apply(p["norm2"], h, groups, axis=time_axis))
+    h = _c3_sharded(p["conv2"], h, time_axis)
     skip = nn.conv3d_apply(p["skip"], x) if "skip" in p else x
     return skip + h
 
@@ -162,12 +181,14 @@ def _attnblock_init(gen, c):
             "proj": nn.dense_init(gen, c, c, scale=0.0)}
 
 
-def _attnblock_apply(p, x, groups=8, heads=4, kernels=True):
+def _attnblock_apply(p, x, groups=8, heads=4, kernels=True,
+                     time_axis=None):
     """Spatial attention in each frame (one head of width c: the flash
     kernel's ``(B*T, 1, H*W, c)``) plus temporal ``site_attention`` at each
-    site with ``heads`` heads, summed into one output projection."""
+    site with ``heads`` heads (over a T shard, against K and V gathered
+    over the axis), summed into one output projection."""
     b, t, h, w, c = x.shape
-    n = nn.group_norm_apply(p["norm"], x, groups)
+    n = nn.group_norm_apply(p["norm"], x, groups, axis=time_axis)
     q, k, v = nn.dense_apply(p["qkv"], n.reshape(b, t * h * w, c)).chunk(
         3, dim=-1)
 
@@ -182,7 +203,11 @@ def _attnblock_apply(p, x, groups=8, heads=4, kernels=True):
         return (z.reshape(b, t, h, w, c).permute(0, 2, 3, 1, 4)
                 .reshape(b * h * w, t, c))
 
-    a_t = site_attention(sites(q), sites(k), sites(v), heads)
+    kt, vt = sites(k), sites(v)
+    if time_axis is not None:
+        kt = time_axis.all_gather(kt, dim=1, tiled=True)
+        vt = time_axis.all_gather(vt, dim=1, tiled=True)
+    a_t = site_attention(sites(q), kt, vt, heads)
     a_t = (a_t.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
            .reshape(b, t * h * w, c))
     return x + nn.dense_apply(p["proj"], a_sp + a_t).reshape(b, t, h, w, c)
@@ -232,35 +257,47 @@ def unet_init(gen: torch.Generator, in_channels: int = 6,
 
 
 def unet_apply(params: dict, x: torch.Tensor, t: torch.Tensor,
-               t_dim: int = 128, groups: int = 8,
-               kernels: bool = True) -> torch.Tensor:
+               t_dim: int = 128, groups: int = 8, kernels: bool = True,
+               time_axis=None) -> torch.Tensor:
     """``x (B, T, H, W, in)``, ``t (B,)`` timesteps (integer or float) ->
-    ``(B, T, H, W, out)``."""
+    ``(B, T, H, W, out)``. ``time_axis``: x is this rank's T shard (see the
+    module docstring)."""
     t_emb = nn.sinusoidal_embedding(t.float(), t_dim).to(x.dtype)
     t_emb = nn.mlp_apply(params["t_mlp"], t_emb, act=F.silu)
 
-    h = nn.conv3d_apply(params["stem"], x)
+    def attn(p, h):
+        return _attnblock_apply(p, h, groups, kernels=kernels,
+                                time_axis=time_axis)
+
+    h = _c3_sharded(params["stem"], x, time_axis)
     skips = []
     for stage in params["down"]:
-        h = _resblock_apply(stage["res"], h, t_emb, groups)
+        h = _resblock_apply(stage["res"], h, t_emb, groups, time_axis)
         if "attn" in stage:
-            h = _attnblock_apply(stage["attn"], h, groups, kernels=kernels)
+            h = attn(stage["attn"], h)
         skips.append(h)
         if "down" in stage:
-            h = nn.conv3d_apply(stage["down"], h, stride=(1, 2, 2))
+            h = _c3_sharded(stage["down"], h, time_axis, stride=(1, 2, 2))
 
-    h = _resblock_apply(params["mid1"], h, t_emb, groups)
-    h = _attnblock_apply(params["mid_attn"], h, groups, kernels=kernels)
-    h = _resblock_apply(params["mid2"], h, t_emb, groups)
+    h = _resblock_apply(params["mid1"], h, t_emb, groups, time_axis)
+    h = attn(params["mid_attn"], h)
+    h = _resblock_apply(params["mid2"], h, t_emb, groups, time_axis)
 
     for stage in params["up"]:
         h = _resblock_apply(stage["res"], torch.cat([h, skips.pop()], dim=-1),
-                            t_emb, groups)
+                            t_emb, groups, time_axis)
         if "attn" in stage:
-            h = _attnblock_apply(stage["attn"], h, groups, kernels=kernels)
+            h = attn(stage["attn"], h)
         if "up" in stage:
-            h = conv_transpose3d(h, stage["up"]["w"], stage["up"]["b"],
-                                 stride=(1, 2, 2))
+            up = stage["up"]
+            if time_axis is None:
+                h = conv_transpose3d(h, up["w"], up["b"], stride=(1, 2, 2))
+            else:
+                he = conv_transpose3d(
+                    halo_exchange_time(h, 1, time_axis, edge="zero"),
+                    up["w"], up["b"], stride=(1, 2, 2))
+                h = he[:, 1:he.shape[1] - 1]
 
-    h = F.silu(nn.group_norm_apply(params["out_norm"], h, groups))
-    return nn.conv3d_apply(params["out_conv"], h)
+    h = F.silu(nn.group_norm_apply(params["out_norm"], h, groups,
+                                   axis=time_axis))
+    return _c3_sharded(params["out_conv"], h, time_axis)

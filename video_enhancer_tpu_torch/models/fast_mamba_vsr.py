@@ -29,9 +29,10 @@ The temporal mixer is chosen at ``init`` (JAX :83-87):
 With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
 the model runs exactly over the whole clip: the temporal SSM is
 ``bissm_apply_sharded`` (the distributed scans, four short-scan kernels a
-layer on the card) and the final temporal conv exchanges 1-frame halos,
-zeroed at the global edges. The sharded form of the ssd mixer is not
-ported and raises NotImplementedError.
+layer on the card), or on the ssd mixer ``bissd_apply_sharded`` (the
+distributed SSD scan, two SSD kernels a layer at (B*H*W, T / n, 2, 48, 8)),
+and the final temporal conv exchanges 1-frame halos, zeroed at the global
+edges.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..nn.ssm import (bissd_apply, bissd_init, bissm_apply,
-                      bissm_apply_sharded, bissm_init)
+from ..nn.ssm import (bissd_apply, bissd_apply_sharded, bissd_init,
+                      bissm_apply, bissm_apply_sharded, bissm_init)
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
 from ..parallel.temporal import halo_exchange_time
@@ -100,10 +101,9 @@ def _temporal_bimamba(p, x, kernels, time_axis=None):
     seq = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
     if "norm_scale" in p:
         if time_axis is not None:
-            raise NotImplementedError(
-                "the time-sharded form of fast_mamba_vsr's ssd temporal mixer "
-                "is not ported yet; run it unsharded")
-        y = bissd_apply(p, seq, use_kernel=kernels)
+            y = bissd_apply_sharded(p, seq, time_axis, use_kernel=kernels)
+        else:
+            y = bissd_apply(p, seq, use_kernel=kernels)
     elif time_axis is not None:
         y = bissm_apply_sharded(p, seq, time_axis,
                                 impl=None if kernels else "ref")

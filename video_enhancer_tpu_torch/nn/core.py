@@ -116,14 +116,26 @@ def group_norm_init(dim: int) -> dict:
 
 
 def group_norm_apply(p: dict, x: torch.Tensor, groups: int,
-                     eps: float = 1e-5) -> torch.Tensor:
+                     eps: float = 1e-5, axis=None) -> torch.Tensor:
     """GroupNorm of channels-last ``(B, ..., C)``: fp32 statistics (ddof 0)
     over every non-batch position and the group's ``C // groups``
     consecutive channels, then scale and bias in fp32, cast back
-    (nn/core.py:129-152 without ``axis_name``)."""
+    (nn/core.py:129-152). With ``axis`` (parallel/mesh.py), x is this
+    rank's T shard and the statistics are the whole clip's: the fp32 sum
+    and sum of squares of each shard, summed over the axis (``psum``), the
+    variance ``E[x^2] - mean^2`` clamped at 0, as the JAX package computes
+    them under ``axis_name``."""
     *lead, c = x.shape
     xf = x.float().reshape(lead[0], -1, groups, c // groups)
-    var, mu = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+    if axis is None:
+        var, mu = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+    else:
+        cnt = xf.shape[1] * xf.shape[3] * axis.size
+        s, ss = axis.psum(torch.stack([
+            xf.sum(dim=(1, 3), keepdim=True),
+            (xf * xf).sum(dim=(1, 3), keepdim=True)]))
+        mu = s / cnt
+        var = torch.clamp(ss / cnt - mu * mu, min=0.0)
     y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 

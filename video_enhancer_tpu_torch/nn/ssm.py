@@ -6,10 +6,11 @@ Counterparts of video_enhancer_tpu/nn/ssm.py ``ssm_init``/``ssm_apply``
 (:34-114), ``bimamba_init``/``bimamba_apply`` (:117-125, 560-581), their
 T-sharded forms ``bimamba_apply_sharded`` (:128-169) and
 ``bissm_apply_sharded`` (:495-541), ``bissd_init``/``bissd_apply``
-(:257-352) and ``bissm_init``/``bissm_apply`` (:414-492). Sequence layout
-``(batch, L, dim)``; parameters in PyTorch's layouts (depthwise ``conv_w
-(C, 1, K)``, dense ``w (out, in)``). The sharded forms take the local shard
-of a sequence split over a time axis (parallel/mesh.py ``TimeAxis``).
+(:257-352), its T-sharded form ``bissd_apply_sharded`` (:355-410) and
+``bissm_init``/``bissm_apply`` (:414-492). Sequence layout ``(batch, L,
+dim)``; parameters in PyTorch's layouts (depthwise ``conv_w (C, 1, K)``,
+dense ``w (out, in)``). The sharded forms take the local shard of a
+sequence split over a time axis (parallel/mesh.py ``TimeAxis``).
 """
 
 from __future__ import annotations
@@ -23,11 +24,13 @@ from ..ops.conv import depthwise_conv1d, depthwise_conv1d_silu
 from ..ops.scan import (fused_bidir_ssm, selective_scan,
                         selective_scan_bidir, selective_scan_bidir_shared)
 from ..ops.ssd import ssd_shared
-from ..parallel.temporal import halo_exchange_time, temporal_parallel_scan
+from ..parallel.temporal import (halo_exchange_time, ssd_parallel_scan,
+                                 temporal_parallel_scan)
 from .core import dense_apply, dense_init
 
 __all__ = ["ssm_init", "ssm_apply", "bimamba_init", "bimamba_apply",
            "bimamba_apply_sharded", "bissd_init", "bissd_apply",
+           "bissd_apply_sharded",
            "bissm_init", "bissm_apply", "bissm_apply_sharded"]
 
 
@@ -216,7 +219,8 @@ def bissd_apply(p: dict, x: torch.Tensor, chunk: int = 256,
         xbc = depthwise_conv1d_silu(xbc, p["conv_w"].to(xbc.dtype),
                                     p["conv_b"])
     elif conv_impl == "grouped":
-        xbc = F.silu(depthwise_conv1d(xbc, p["conv_w"], p["conv_b"]))
+        xbc = F.silu(depthwise_conv1d(xbc, p["conv_w"].to(xbc.dtype),
+                                      p["conv_b"]))
     else:
         raise ValueError(f"unknown conv_impl {conv_impl!r}")
     u = xbc[..., :inner]
@@ -231,6 +235,60 @@ def bissd_apply(p: dict, x: torch.Tensor, chunk: int = 256,
                     use_kernel=use_kernel)
          + ssd_shared(uh, dt_b, -torch.exp(p["A_log_b"]), Bm, Cm,
                       chunk=chunk, reverse=True, use_kernel=use_kernel))
+    y = y.reshape(b, L, inner) + u * p["D"].to(u.dtype)
+
+    y = y * F.silu(z)
+    yf = y.float()
+    y = (yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+         * p["norm_scale"].float()).to(x.dtype)
+    return dense_apply(p["out_proj"], y)
+
+
+def bissd_apply_sharded(p: dict, x: torch.Tensor, axis, chunk: int = 64,
+                        use_kernel: bool | None = None) -> torch.Tensor:
+    """Exact ``bissd_apply`` over a sequence split across ``axis``. x: this
+    rank's shard ``(B, L_loc, dim)``. The centred SAME conv sees a halo of
+    ``k // 2`` steps (zero steps at the global edges: in_proj has no bias,
+    so they stay the zeros the unsharded padding gives), run as the plain
+    depthwise conv and SiLU, then trimmed; both directions run the
+    distributed SSD scan (parallel/temporal.py ``ssd_parallel_scan``, its
+    local scans on the SSD kernel by ``ssd_shared``'s rule or
+    ``use_kernel``); D skip, gated RMS norm, out_proj as unsharded."""
+    heads = p["A_log_f"].shape[0]
+    inner = p["D"].shape[0]
+    state_dim = (p["conv_w"].shape[0] - inner) // 2
+    P = inner // heads
+    halo = p["conv_w"].shape[-1] // 2
+    if x.shape[1] < halo:
+        raise ValueError(
+            f"local T shard ({x.shape[1]}) smaller than conv halo ({halo})")
+
+    zxbcdt = dense_apply(p["in_proj"],
+                         halo_exchange_time(x, halo, axis, edge="zero"))
+    z = zxbcdt[..., :inner]
+    xbc = zxbcdt[..., inner:2 * inner + 2 * state_dim]
+    dt_raw = zxbcdt[..., -heads:].float()
+    xbc = F.silu(depthwise_conv1d(xbc, p["conv_w"].to(xbc.dtype),
+                                  p["conv_b"]))
+
+    def trim(a):
+        return a[:, halo:a.shape[1] - halo]
+
+    # the SSD kernel reads x, B and C as evenly strided rows: one copy
+    z, xbc, dt_raw = trim(z), trim(xbc).contiguous(), trim(dt_raw)
+    u = xbc[..., :inner]
+    Bm = xbc[..., inner:inner + state_dim]
+    Cm = xbc[..., inner + state_dim:]
+
+    b, L, _ = u.shape
+    uh = u.reshape(b, L, heads, P)
+    dt_f = F.softplus(dt_raw + p["dt_bias_f"].float())
+    dt_b = F.softplus(dt_raw + p["dt_bias_b"].float())
+    y = (ssd_parallel_scan(uh, dt_f, -torch.exp(p["A_log_f"]), Bm, Cm, axis,
+                           chunk=chunk, use_kernel=use_kernel)
+         + ssd_parallel_scan(uh, dt_b, -torch.exp(p["A_log_b"]), Bm, Cm,
+                             axis, chunk=chunk, reverse=True,
+                             use_kernel=use_kernel))
     y = y.reshape(b, L, inner) + u * p["D"].to(u.dtype)
 
     y = y * F.silu(z)

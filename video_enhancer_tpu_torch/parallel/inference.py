@@ -9,14 +9,16 @@ Counterpart of video_enhancer_tpu/parallel/inference.py:
   mesh path (runtime/vsr_handler.py);
 - ``make_sharded_clip_fn`` (:175-217): B over ``data``, T over ``time``,
   frame halos always (at one rank, replicated edge frames);
-- ``_make_exact_sharded`` (:27-44), ``make_exact_sharded_vsrm`` (:47-58)
-  and ``make_exact_sharded_fmv`` (:87-119): each rank runs the model on its
-  T shard with ``time_axis`` set, so every temporal scan runs the
-  distributed prefix-combine and every temporal coupling exchanges real
-  context; the output equals the single-device output up to the order of
-  sums. JAX's factories pass ``scan_impl="ref"``, which neither model
-  forwards on its ``time_axis`` path, so the port passes nothing: the scans
-  keep the dispatch rule (on the card, the short kernel with state).
+- ``_make_exact_sharded`` (:27-44), ``make_exact_sharded_vsrm`` (:47-58),
+  ``make_exact_sharded_seedvr2`` (:61-70), ``make_exact_sharded_ditvr``
+  (:73-84) and ``make_exact_sharded_fmv`` (:87-119): each rank runs the
+  model on its T shard with ``time_axis`` set, so every temporal scan runs
+  the distributed prefix-combine, every temporal coupling exchanges real
+  context and every attention over T sees the whole clip; the output
+  equals the single-device output up to the order of sums. JAX's
+  factories pass ``scan_impl="ref"``, which neither model forwards on its
+  ``time_axis`` path, so the port passes nothing: the scans keep the
+  dispatch rule (on the card, the short kernel with state).
 
 The halo factories run the model on each shard extended by its
 neighbours' frames or rows and trim the halo from the output, like the
@@ -37,7 +39,8 @@ from .spatial import halo_exchange_space
 from .temporal import halo_exchange_time
 
 __all__ = ["make_sharded_clip_fn", "make_mesh_sharded_clip_fn",
-           "make_exact_sharded_vsrm", "make_exact_sharded_fmv"]
+           "make_exact_sharded_vsrm", "make_exact_sharded_seedvr2",
+           "make_exact_sharded_ditvr", "make_exact_sharded_fmv"]
 
 
 def _make_exact_sharded(local_apply: Callable, axis: TimeAxis):
@@ -65,6 +68,30 @@ def make_exact_sharded_vsrm(axis: TimeAxis, scale: int = 4, heads: int = 4):
     def local(params, shard):
         return vsrm.apply(params, shard, scale=scale, heads=heads,
                           time_axis=axis)
+
+    return _make_exact_sharded(local, axis)
+
+
+def make_exact_sharded_seedvr2(axis: TimeAxis):
+    """Exact T-sharded seedvr2 (the one-step restoration): halo'd 3-D convs
+    through the UNet and the temporal-consistency module, GroupNorm and the
+    quality statistics summed over the axis, gathered-K/V site attention,
+    the previous frame by halo."""
+    from ..models import seedvr2
+
+    def local(params, shard):
+        return seedvr2.apply(params, shard, time_axis=axis)
+
+    return _make_exact_sharded(local, axis)
+
+
+def make_exact_sharded_ditvr(axis: TimeAxis, heads: int = 6):
+    """Exact T-sharded ditvr: each shard's temporal position offset and
+    sequence-sharded attention over the global tokens (ops/ring.py)."""
+    from ..models import ditvr
+
+    def local(params, shard):
+        return ditvr.apply(params, shard, heads=heads, time_axis=axis)
 
     return _make_exact_sharded(local, axis)
 

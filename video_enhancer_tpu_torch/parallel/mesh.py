@@ -11,9 +11,13 @@ group per line). CPU tensors go through gloo, CUDA tensors through NCCL
 (one card per rank). The group meets through a ``file://`` store, so no
 network port is picked.
 
-A ``Mesh`` passed where a time axis is expected acts as its time axis (its
-``size``, ``index`` and ``all_gather`` are the time axis's), so the exact
-time-sharded factories and the time-axis functions take either.
+Besides ``all_gather``, an axis has JAX's other collectives over a named
+axis: ``psum`` and ``pmax`` (an all-reduce on its group) and ``ppermute``
+(a ring rotation, every rank's send and receive posted together with
+``batch_isend_irecv``, so that neither gloo nor NCCL can deadlock on their
+order). A ``Mesh`` passed where a time axis is expected acts as its time
+axis (its ``size``, ``index`` and collectives are the time axis's), so the
+exact time-sharded factories and the time-axis functions take either.
 
 JAX's ``clip_sharding``, ``frame_sharding`` and ``replicated`` are
 ``NamedSharding``s, which tell XLA how to lay a global array over the
@@ -64,6 +68,45 @@ class Axis:
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
 
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        if self.size == 1:
+            return t
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=op, group=self.group)
+        return out
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of every rank's ``t`` (``jax.lax.psum``)."""
+        return self._reduce(t, dist.ReduceOp.SUM)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of every rank's ``t`` (``jax.lax.pmax``)."""
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def _global(self, index: int) -> int:
+        """The default group's rank of the rank at ``index`` on this axis."""
+        if self.group is None:
+            return index
+        return dist.get_global_rank(self.group, index)
+
+    def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Rotate around the ring: this rank sends ``t`` to the rank
+        ``shift`` places on and returns what the rank ``shift`` places back
+        sent (``jax.lax.ppermute`` with ``[(i, (i + shift) % n)]``). At one
+        rank, ``t`` itself."""
+        n = self.size
+        if n == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        to = self._global((self.index + shift) % n)
+        frm = self._global((self.index - shift) % n)
+        ops = [dist.P2POp(dist.isend, t, to, self.group),
+               dist.P2POp(dist.irecv, out, frm, self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+
 
 # The time axis of the exact time-sharded inference is an Axis (or a Mesh,
 # which acts as its time axis).
@@ -99,6 +142,15 @@ class Mesh:
     def all_gather(self, t: torch.Tensor, dim: int = 0,
                    tiled: bool = False) -> torch.Tensor:
         return self.axes["time"].all_gather(t, dim=dim, tiled=tiled)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.axes["time"].psum(t)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        return self.axes["time"].pmax(t)
+
+    def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        return self.axes["time"].ppermute(t, shift)
 
     def destroy(self) -> None:
         """Tear down the default process group, and with it every axis's."""
