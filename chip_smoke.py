@@ -187,7 +187,29 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    launches); ``make_sharded_ditvr(preset="3b")`` drawn on the card in
    bf16 (seeded, a live head): its parameter bytes and peak memory, one
    forward on an 8-frame 180x320 window (32 flash launches at (1, 24,
-   14400, 96)) against ``ditvr.apply`` on the same tensors.
+   14400, 96)) against ``ditvr.apply`` on the same tensors;
+20. the one-port app, warm start and validation: (a) ``python -m
+   video_enhancer_tpu_torch.app --self-test`` as a subprocess on a free
+   port, polled until ``/health`` answers (its self-test passed, ``/ui``
+   the page as ``text/html``, ``/health`` naming the card), ``validate
+   --mode ci --url`` against it with its four probes ok, then stopped; (b)
+   ``warm_start`` in this process for each model of ``probe_available()``
+   (a seeded 4-frame 64x64 clip in bf16), each ok with its seconds and
+   exactly its launches (``WARM_LAUNCHES``), and ``python -m
+   video_enhancer_tpu_torch.warm_start`` finding the kernel library built;
+   (c) ``validate --mode full`` passing, and each of its five tiny fp32
+   forwards on the card against the same forward on the CPU's plain
+   versions (the window bounds), launches by kernel (``TINY_LAUNCHES``);
+   every kernel call of (b) and (c) at its first shape a model gives held
+   against its plain version on its own inputs (the ``phase 20 kernels``
+   line, before the kernels line); (d) the FLOPs recorded around a served
+   vsrm window (12 SSD + 6 fused SSM) and a ditvr window (8 flash) against
+   the sums from the shapes, and ``device_time_per_call`` of the vsrm
+   window beside its CUDA-event median; (e) a process whose
+   ``$VETPU_POLICY`` disables vsrm routes phase 11's sharp clip (vsrm
+   under the committed policy) elsewhere on the card. The processes of
+   (a), (b), (c) and (e) start together and run beside the work in this
+   process; (d) runs after they have ended.
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
@@ -202,12 +224,14 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ast
 import copy
 import dataclasses
 import functools
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -227,7 +251,8 @@ from video_enhancer_tpu_torch.agents.quality import assess_clips
 from video_enhancer_tpu_torch.analysis import DegradationRouter, face_net
 from video_enhancer_tpu_torch.analysis.faces import (face_area_ratio,
                                                      nn_detector)
-from video_enhancer_tpu_torch.config import MODELS, default_policy
+from video_enhancer_tpu_torch.config import (DEFAULT_POLICY_PATH, MODELS,
+                                             default_policy)
 from video_enhancer_tpu_torch.device import full_fp32
 from video_enhancer_tpu_torch.io.video import (read_video, sample_indices,
                                                write_video)
@@ -292,6 +317,10 @@ from video_enhancer_tpu_torch.runtime.weights import flatten_params
 from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
 from video_enhancer_tpu_torch.serving.http import serve
 from video_enhancer_tpu_torch.train import evalsuite, lpips
+from video_enhancer_tpu_torch.utils.flops import accounting
+from video_enhancer_tpu_torch.utils.timing import device_time_per_call
+from video_enhancer_tpu_torch.validate import TINY_CLIP, tiny_models
+from video_enhancer_tpu_torch.warm_start import warm_start
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA H100 SXM data sheet
@@ -2870,10 +2899,18 @@ class _EvalHooks:
             setattr(mod, attr, fn)
 
 
-def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
-    """One kernel's first eval call, timed again on its own inputs against
-    its plain version (and the library call where there is one)."""
-    f32 = torch.float32
+def _eval_kernel_row(model: str, key: str, fn, args, tag: str = "eval"
+                     ) -> dict:
+    """One kernel's first call in a model's run (``tag``: the eval, phase
+    20's warm start or tiny forwards), timed again on its own inputs
+    against its plain version (and the library call where there is one),
+    in the dtype it was called with."""
+    dtype = args[0].dtype
+    dname = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+    # the scans compute in fp32 in every dtype; attention and the SSD's
+    # products run on the tensor cores in bf16
+    peak = (H100_BF16_FLOPS if dtype == torch.bfloat16
+            and key != "fused_bidir_ssm" else H100_FP32_FLOPS)
     if key == "ssd_shared":
         x, dt, A, Bm, Cm, reverse = args
         b, L, H, P = x.shape
@@ -2882,7 +2919,7 @@ def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
         def plain():
             return ssd_mod.ssd_shared_plain(x, dt, A, Bm, Cm,
                                             reverse=reverse)
-        nbytes, flops = _ssd_cost(f32, ssd_mod._SSD_Q, shp)
+        nbytes, flops = _ssd_cost(dtype, ssd_mod._SSD_Q, shp)
         lib = None
     elif key == "fused_bidir_ssm":
         u, cw, Af, r = args[0], args[2], args[9], args[13]
@@ -2891,7 +2928,7 @@ def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
 
         def plain():
             return scan_mod.fused_bidir_ssm_plain(*args)
-        nbytes, flops = _bissm_cost(f32, shp)
+        nbytes, flops = _bissm_cost(dtype, shp)
         lib = None
     elif key == "flash_attention":
         q, k, v, scale = args
@@ -2900,7 +2937,7 @@ def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
 
         def plain():
             return attn_mod.attention_ref(q, k, v, scale=scale)
-        nbytes, flops = _flash_cost(f32, **shp)
+        nbytes, flops = _flash_cost(dtype, **shp)
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def lib():
@@ -2912,7 +2949,7 @@ def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
         def plain():
             return attn_mod.window_attention_plain(q, k, v, bias,
                                                    scale=scale)
-        nbytes, flops = _window_cost(f32, **shp)
+        nbytes, flops = _window_cost(dtype, **shp)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         mask = bias.float()[None]
 
@@ -2923,21 +2960,22 @@ def _eval_kernel_row(model: str, key: str, fn, args) -> dict:
         ref = plain()
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
-        tol = TOL[(key, "float32")]
-        check(rel <= tol, f"{key} at {model}'s eval shape {shp}: rel {rel} "
-                          f"> {tol}")
+        tol = TOL[(key, str(dtype).split(".")[1])]
+        check(bool(torch.isfinite(got).all()) and rel <= tol,
+              f"{key} at {model}'s {tag} shape {shp} {dname}: rel {rel} > "
+              f"{tol}")
         ms = time_ms(lambda: fn(*args))
         plain_ms = time_ms(plain, warmup=1, iters=3)
         lib_ms = time_ms(lib) if lib is not None else None
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    print(f"{key} at {model}'s eval shape {shp} fp32: max_abs_err "
+    t_ops = flops / peak * 1e3
+    print(f"{key} at {model}'s {tag} shape {shp} {dname}: max_abs_err "
           f"{err:.3e} rel {rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, library "
           f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms")
     source, replaces = EVAL_SOURCES[key]
-    return {"name": f"{key}:eval {model} fp32", "route": "cuda",
+    return {"name": f"{key}:{tag} {model} {dname}", "route": "cuda",
             "source": source, "replaces": replaces, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3258,6 +3296,357 @@ def _fsdp_3b(mesh, frames, device_line: str) -> dict:
             "peak": peak}
 
 
+# --- phase 20: the one-port app, warm start and validation ----------------
+
+# launches of one warm-start clip (4 frames of 64x64: one window, one tile
+# of each model); seedvr2's may be none when its gate passes the window
+WARM_LAUNCHES = {"vsrm": {"ssd_shared": 12, "fused_bidir_ssm": 6},
+                 "fast_mamba_vsr": {"fused_bidir_ssm": 8},
+                 "ditvr": {"flash_attention": 8},
+                 "seedvr2": {"flash_attention": 3},
+                 "rvrt": {"window_attention": 4}}
+# launches of validate's tiny forwards (fp32, widths 8-32): ditvr's 16
+# tokens and seedvr2's 64 a frame stay under the flash kernel's 256 (the
+# JAX package's gate), so both run the plain attention
+TINY_LAUNCHES = {"fast_mamba_vsr": {"fused_bidir_ssm": 1},
+                 "vsrm": {"ssd_shared": 2, "fused_bidir_ssm": 1},
+                 "ditvr": {}, "seedvr2": {}, "rvrt": {"window_attention": 1}}
+# the vsrm window's spatial SSD runs in chunks of 256 (``bissd_apply``'s),
+# the chunk the JAX package's count takes
+VSRM_SSD_CHUNK = 256
+
+
+def _spawn(d: str, tag: str, argv: list[str], env: dict | None = None):
+    """``python *argv`` from this checkout, started now, its output (both
+    streams) in ``d/<tag>.log``; returns the process and that path."""
+    path = Path(d) / f"{tag}.log"
+    with open(path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT,
+            cwd=Path(__file__).resolve().parent,
+            env=None if env is None else {**os.environ, **env})
+    return proc, path
+
+
+def _finish(proc, path: Path, what: str, timeout: int = 600) -> list[str]:
+    """Waits for a process of ``_spawn`` (killing it past ``timeout``);
+    fails unless it exited 0; returns its output's lines."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    text = path.read_text()
+    check(rc == 0, f"{what} exited {rc}: {text[-3000:]}")
+    return text.strip().splitlines()
+
+
+def _json_of(lines: list[str]) -> dict:
+    """The indented JSON report that ends a process's output."""
+    start = max(i for i, x in enumerate(lines) if x == "{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _one_port_app(d: str, kind: str, app, device_line: str) -> None:
+    """(a) The app (started by the caller with ``_spawn``, on ``port``):
+    its UI, /health, and validate --url as a subprocess; stops it."""
+    proc, log_path, port = app
+    try:
+        deadline = time.time() + 300
+        while True:
+            check(proc.poll() is None, f"the app exited {proc.returncode}: "
+                  f"{log_path.read_text()[-3000:]}")
+            try:
+                if _http(port, "/health")[0] == 200:
+                    break
+            except (urllib.error.URLError, OSError):
+                pass
+            check(time.time() < deadline, "the app did not answer /health "
+                                          "in 300 s")
+            time.sleep(0.5)
+        status, ctype, page = _http(port, "/ui")
+        check(status == 200 and ctype == "text/html"
+              and b"Enhance a video" in page, f"/ui answered {status} "
+              f"{ctype}")
+        health = json.loads(_http(port, "/health")[2])
+        check(f"cuda:0 {kind}" in health["devices"], f"/health {health}")
+        t1 = time.perf_counter()
+        report = _json_of(_finish(*_spawn(
+            d, "validate_ci", ["-m", "video_enhancer_tpu_torch.validate",
+                               "--mode", "ci", "--url",
+                               f"http://127.0.0.1:{port}", "--data-dir",
+                               f"{d}/v"]), "validate --url"))
+        val_s = time.perf_counter() - t1
+        probes = {k: v["ok"] for k, v in report["server"].items()}
+        check(report["status"] == "pass" and len(probes) == 4
+              and all(probes.values()), f"validate --url: {report}")
+        check("self-test passed" in log_path.read_text(),
+              "the app's self-test did not pass")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    print(f"app: self-test passed; /ui {len(page)} B text/html; /health "
+          f"devices "
+          f"{health['devices']}; validate --mode ci --url: {probes} in "
+          f"{val_s:.2f} s as a subprocess; imports {report['imports']} "
+          f"({device_line})")
+
+
+def _warm(hooks) -> dict:
+    """(b) warm_start in this process, model by model, launches
+    counted."""
+    counts_by_model = {}
+    for name in sorted(probe_available()):
+        hooks.model = f"warm {name}"
+        res, counts, secs = _counted(warm_start, [name])
+        r = res[name]
+        check(r["ok"], f"warm start of {name}: {r}")
+        launched = _nonzero(counts)
+        want = WARM_LAUNCHES.get(name, {})
+        gated = name == "seedvr2" and not launched
+        print(f"warm {name}: {r['sec']} s ({secs:.2f} s counted), out "
+              f"{r['out_shape']}, launches {launched}"
+              + (" (its gate passed the window through)" if gated else ""))
+        check(launched == want or gated,
+              f"warm {name} launched {launched}, expected {want}")
+        counts_by_model[name] = counts
+    return counts_by_model
+
+
+def _warm_process(proc) -> None:
+    """(b) ``python -m video_enhancer_tpu_torch.warm_start``: every model
+    ready, the kernel library found built."""
+    lines = _finish(*proc, "warm_start")
+    info = ast.literal_eval(next(x for x in lines if x.startswith(
+        "warm kernels: ")).split(": ", 1)[1])
+    check(info["prebuilt"], f"the kernel library was not found built: {info}")
+    print(f"warm_start as a subprocess: {lines[-1]}; kernels {info}")
+
+
+def _validate_process(proc) -> None:
+    """(c) ``validate --mode full``: passed, the five tiny forwards ok on
+    the card."""
+    report = _json_of(_finish(*proc, "validate --mode full"))
+    structures = report["model_structures"]
+    check(report["status"] == "pass" and len(structures) == 5
+          and all(r["ok"] for r in structures.values())
+          and report["device"]["backend"] == "cuda", f"validate: {report}")
+    print(f"validate --mode full as a subprocess: {report['status']}; "
+          f"{structures}")
+
+
+def _live(tree, gen: torch.Generator):
+    """``tree`` with each all-zero float tensor drawn from ``gen`` (N(0,
+    0.02^2)): the zero-initialised heads would hide the backbones from
+    the output."""
+    if isinstance(tree, dict):
+        return {k: _live(v, gen) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_live(v, gen) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point() and not tree.any():
+        return torch.randn(tree.shape, generator=gen) * 0.02
+    return tree
+
+
+def _validation(hooks) -> dict:
+    """(c) Each of validate's tiny backbones on the card against the same
+    forward on the CPU's plain versions, launches counted: its seeded
+    parameters with every zero leaf drawn from the seed, on a seeded clip
+    in [0, 1] (validate's own forward, zero heads on a zero clip, gives
+    zeros)."""
+    counts_by_model = {}
+    for name, (init, apply) in tiny_models().items():
+        hooks.model = f"tiny {name}"
+        gen = torch.Generator().manual_seed(SEED)
+        params = _live(init(gen), gen)
+        clip = torch.rand(TINY_CLIP, generator=gen)
+        with full_fp32(), torch.inference_mode():
+            y, counts, secs = _counted(
+                apply, cast_params(params, torch.float32, "cuda"),
+                clip.cuda())
+            ref = apply(params, clip)
+        diff = (y.float().cpu() - ref.float()).abs()
+        mx, mean = diff.max().item(), diff.mean().item()
+        launched = _nonzero(counts)
+        print(f"tiny {name} {tuple(y.shape)} fp32, card against the CPU's "
+              f"plain versions: max_abs {mx:.3e}, mean_abs {mean:.3e} "
+              f"(mean |output - input| on the CPU "
+              f"{(ref - _resized(clip, ref)).abs().mean().item():.4f}); "
+              f"launches {launched}; {1e3 * secs:.1f} ms")
+        check(bool(torch.isfinite(y).all()) and mx <= WINDOW_MAX_ABS
+              and mean <= WINDOW_MEAN_ABS, f"tiny {name} differs from the "
+                                           f"CPU: {mx}, {mean}")
+        check(launched == TINY_LAUNCHES[name],
+              f"tiny {name} launched {launched}, expected "
+              f"{TINY_LAUNCHES[name]}")
+        counts_by_model[name] = counts
+    return counts_by_model
+
+
+def _resized(clip: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``clip`` (B, T, H, W, 3) at ``like``'s size (cubic), to show that an
+    output is not just its upscaled input."""
+    b, t = clip.shape[:2]
+    out = resize(clip.reshape(b * t, *clip.shape[2:]), tuple(like.shape[2:4]))
+    return out.reshape(like.shape)
+
+
+def _accounting_and_timing(device_line: str) -> None:
+    """(d) FLOPs recorded in a served vsrm and ditvr window against the
+    sums from the shapes; the vsrm window's time per call by the chained
+    slope beside its CUDA-event median."""
+    handler = build_handler("vsrm")
+    frames = synthetic_clip(16, 180, 320)
+    first = torch.from_numpy(np.stack(frames[:handler.chunk])).cuda()
+    first = first.float() / 255.0
+    blocks = len(handler.params["blocks"])
+    with accounting() as acc, torch.inference_mode():
+        handler.process_clip(first)
+    ssd_one = _ssd_cost(torch.bfloat16, VSRM_SSD_CHUNK)[1]
+    fused_one = _bissm_cost(torch.bfloat16)[1]
+    want = 2 * blocks * ssd_one + blocks * fused_one
+    print(f"vsrm window FLOPs recorded {acc[0]:.6e}; from the shapes "
+          f"{2 * blocks} x SSD {ssd_one:.6e} + {blocks} x fused SSM "
+          f"{fused_one:.6e} = {want:.6e}")
+    check(math.isclose(acc[0], want, rel_tol=1e-12),
+          f"vsrm window: recorded {acc[0]} != {want}")
+
+    entry = MODELS["ditvr"]
+    d_handler = build_handler("ditvr")
+    clip = torch.from_numpy(np.stack(dim_clip(entry.window, 180, 320)))
+    clip = clip.cuda().float() / 255.0
+    with accounting() as d_acc, torch.inference_mode():
+        d_handler.process_clip(clip)
+    s = FLASH_SHAPE
+    flash_one = _flash_cost(torch.bfloat16, s["B"], s["H"], s["L"], s["L"],
+                            s["Dh"])[1]
+    depth = entry.extra["depth"]
+    print(f"ditvr window FLOPs recorded {d_acc[0]:.6e}; from the shapes "
+          f"{depth} x flash {flash_one:.6e} = {depth * flash_one:.6e}")
+    check(math.isclose(d_acc[0], depth * flash_one, rel_tol=1e-12),
+          f"ditvr window: recorded {d_acc[0]} != {depth * flash_one}")
+
+    with torch.inference_mode():
+        est = device_time_per_call(handler.process_clip, first, n_small=2,
+                                   n_large=8, repeats=3, max_flops=acc[0])
+        ev = time_ms(lambda: handler.process_clip(first), warmup=1, iters=5)
+    print(f"vsrm window (7 frames of 180x320): device_time_per_call "
+          f"{1e3 * est:.3f} ms (slope of chains of 2/5/8), CUDA-event median "
+          f"{ev:.3f} ms, ratio {1e3 * est / ev:.3f}; the kernels' recorded "
+          f"{acc[0] / 1e9:.3f} GFLOP / slope = "
+          f"{acc[0] / est / 1e12:.3f} TFLOP/s = "
+          f"{100 * acc[0] / est / H100_BF16_FLOPS:.3f}% of 989 TFLOP/s "
+          f"({device_line})")
+
+
+_POLICY_CODE = (
+    "import json, sys, numpy as np, torch\n"
+    "from video_enhancer_tpu_torch.analysis import DegradationRouter\n"
+    "from video_enhancer_tpu_torch.config import default_policy\n"
+    "from video_enhancer_tpu_torch.runtime.registry import probe_available\n"
+    "pol = default_policy()\n"
+    "plan = DegradationRouter(pol, available_models=probe_available(pol)"
+    ").analyze_frames(np.load(sys.argv[1]), fps=24.0, frame_count=16)\n"
+    "print(json.dumps({'vsrm_enabled': pol.models['vsrm'].enabled,\n"
+    "    'primary': plan['expert_routing']['primary_model'],\n"
+    "    'order': plan['processing_order'],\n"
+    "    'card': torch.cuda.get_device_name(0)}))\n")
+
+
+def _policy_spawn(d: str):
+    """(e) Starts the router on the card in a process whose $VETPU_POLICY
+    is a copy of the policy with vsrm disabled, on a clip that the
+    committed policy sends to vsrm (phase 11's sharp clip: phase 4's goes
+    to seedvr2, phase 17); returns the process and the clip."""
+    frames = np.stack(sharp_clip(16, 180, 320))
+    np.save(f"{d}/clip.npy", frames)
+    text = DEFAULT_POLICY_PATH.read_text()
+    on = "  vsrm:\n    license: apache-2.0\n    enabled: true"
+    check(text.count(on) == 1, "vsrm's entry moved in the policy file")
+    Path(f"{d}/policy.yaml").write_text(
+        text.replace(on, on.replace("true", "false")))
+    proc = _spawn(d, "policy", ["-c", _POLICY_CODE, f"{d}/clip.npy"],
+                  env={"VETPU_POLICY": f"{d}/policy.yaml"})
+    return proc, frames
+
+
+def _policy_route(spawned, device_line: str) -> None:
+    """(e) The committed policy sends the clip to vsrm in this process;
+    the process under $VETPU_POLICY sends it elsewhere."""
+    proc, frames = spawned
+    control = DegradationRouter(
+        default_policy(), available_models=probe_available()
+    ).analyze_frames(frames, fps=24.0, frame_count=16)
+    check(control["expert_routing"]["primary_model"] == "vsrm",
+          f"the committed policy routes the sharp clip to "
+          f"{control['expert_routing']['primary_model']}")
+    plan = json.loads(_finish(*proc, "the $VETPU_POLICY process")[-1])
+    print(f"$VETPU_POLICY with vsrm disabled: {plan}; the committed policy: "
+          f"primary vsrm, order {control['processing_order']} "
+          f"({device_line})")
+    check(not plan["vsrm_enabled"] and plan["primary"] != "vsrm",
+          f"the policy in $VETPU_POLICY was not honoured: {plan}")
+
+
+@phase("20 the one-port app, warm start and validation")
+def scaffolding(kind: str, device_line: str) -> list:
+    """The app, warm start and validation on the card, each kernel call
+    at a shape new to this phase held against its plain version, the FLOP
+    records and the timing helper, and $VETPU_POLICY; returns the kernel
+    rows of the new shapes (printed on a line of their own)."""
+    hooks = _EvalHooks()
+    with tempfile.TemporaryDirectory() as d:
+        # the processes start together and run beside the in-process work;
+        # the timing in (d) runs after all of them have ended
+        port = _free_port()
+        app = (*_spawn(d, "app", [
+            "-m", "video_enhancer_tpu_torch.app", "--self-test", "--host",
+            "127.0.0.1", "--port", str(port), "--data-dir", f"{d}/app"]),
+            port)
+        warm_proc = _spawn(d, "warm", ["-m",
+                                       "video_enhancer_tpu_torch.warm_start"])
+        validate_proc = _spawn(d, "validate", [
+            "-m", "video_enhancer_tpu_torch.validate", "--mode", "full",
+            "--data-dir", f"{d}/full"])
+        policy = _policy_spawn(d)
+        try:
+            with hooks:
+                warm = _warm(hooks)
+                tiny = _validation(hooks)
+            check(not hooks.plain_on_card,
+                  f"plain versions ran on card tensors: "
+                  f"{hooks.plain_on_card}")
+            _one_port_app(d, kind, app, device_line)
+            _warm_process(warm_proc)
+            _validate_process(validate_proc)
+            _policy_route(policy, device_line)
+        finally:
+            for proc in (app[0], warm_proc[0], validate_proc[0],
+                         policy[0][0]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        _accounting_and_timing(device_line)
+    rows = []
+    for (model, key), (fn, args) in sorted(hooks.calls.items()):
+        tag, name = model.split()
+        row = _eval_kernel_row(name, key, fn, args, tag=tag)
+        row["launches"] = (warm if tag == "warm" else tiny)[name][key]
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
@@ -3284,6 +3673,7 @@ def main() -> int:
     entry_points(f"{env['kind']}, {env['smi']}")
     eval_rows = measured_quality(f"{env['kind']}, {env['smi']}")
     restorers = sharded_restorers(f"{env['kind']}, {env['smi']}")
+    scaffold_rows = scaffolding(env["kind"], f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -3308,6 +3698,8 @@ def main() -> int:
               # the 3b head width: phase 19 (d)
               "flash_attention:3b":
                   restorers["3b"]["counts"]["flash_attention"]}
+    # phase 20's kernel calls at the shapes new to it, on their own line
+    print("phase 20 kernels: " + json.dumps(scaffold_rows))
     print(json.dumps({"kernels": kernel_record(rec, counts) + eval_rows}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

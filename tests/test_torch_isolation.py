@@ -20,7 +20,9 @@ to the end, and an ``.mp4`` upload, which ends ``failed`` with an error
 naming the missing OpenCV); one, likewise, runs the eval CLI (``python -m
 video_enhancer_tpu_torch.train.evalsuite``, its data made with the port's
 host ops and JPEG round trip) and the coordinator's workflow on an
-``.avi``."""
+``.avi``; one, likewise, starts the one-port app with its self-test up to
+serving (``/ui``, ``/health``), probes it with ``validate --mode ci`` and
+runs ``warm_start``, all on the CPU."""
 
 from __future__ import annotations
 
@@ -279,6 +281,51 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+SCAFFOLD = r"""
+import contextlib, io, json, sys, urllib.request
+sys.path.insert(0, sys.argv[1])
+d = sys.argv[2]
+for name in %r:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)       # beside the other test workers
+from video_enhancer_tpu_torch import app, validate, warm_start
+from video_enhancer_tpu_torch.serving import http
+real_serve, started = http.serve, []
+
+def serve_in_background(router, host, port):
+    started.append(real_serve(router, host="127.0.0.1", port=0,
+                              background=True))
+
+http.serve = serve_in_background
+app.main(["--self-test", "--device", "cpu", "--data-dir", d + "/app"])
+url = "http://127.0.0.1:%%d" %% started[0].server_address[1]
+with urllib.request.urlopen(url + "/ui", timeout=60) as r:
+    res = {"ui": [r.status, r.headers["Content-Type"],
+                  b"Enhance a video" in r.read()]}
+with urllib.request.urlopen(url + "/health", timeout=60) as r:
+    res["health"] = json.loads(r.read())["devices"]
+
+def run(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+rc, out = run(validate.main, ["--mode", "ci", "--url", url, "--device",
+                              "cpu", "--data-dir", d + "/v"])
+report = json.loads(out)
+res["validate"] = [rc, report["status"], report["imports"]["psutil"][:7],
+                   sorted(k for k, v in report["server"].items() if v["ok"])]
+rc, out = run(warm_start.main, ["--device", "cpu", "--models", "bicubic",
+                                "cnn_upscaler", "--size", "16"])
+res["warm_start"] = [rc, out.strip().splitlines()[-1]]
+started[0].shutdown()
+started[0].server_close()
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str, *args) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT),
                           *map(str, args)],
@@ -312,7 +359,11 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "train.evalgen", "train.evalsuite", "train.lpips",
                  "agents.quality", "agents.analyzer", "agents.coordinator",
                  "agents.communication", "ops.ring",
-                 "parallel.model_parallel", "models.seedvr2_sizes"):
+                 "parallel.model_parallel", "models.seedvr2_sizes", "app",
+                 "warm_start", "validate", "config.yaml_subset",
+                 "config.production", "serving.ui", "utils.flops",
+                 "utils.timing", "utils.debug", "utils.recovery",
+                 "utils.protection"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -413,3 +464,16 @@ def test_eval_cli_and_coordinator_run_without_jax_or_cv2(tmp_path):
     assert out["family"] == "ind" and isinstance(out["gain_db"], float)
     assert res["workflow"] == ["completed", ["analysis", "enhancement",
                                              "quality", "summary"], None]
+
+
+def test_app_validate_and_warm_start_run_without_jax_cv2_yaml_or_psutil(
+        tmp_path):
+    """The one-port app (self-test, then serving the UI and the API), the
+    validation of that running app and warm start, on the CPU, with those
+    packages absent: psutil reported missing and not failed."""
+    res = _run(SCAFFOLD, tmp_path)
+    assert res == {
+        "ui": [200, "text/html", True], "health": ["cpu"],
+        "validate": [0, "pass", "missing", ["/api/v1/strategies", "/health",
+                                            "/metrics", "/performance/stats"]],
+        "warm_start": [0, "warm start: 2/2 models ready"]}

@@ -1,22 +1,43 @@
 """Device resolution for the port's entry points.
 
 Entry points run on the card (``cuda``) unless the caller asks for the CPU
-with ``device="cpu"``, as the tests do. Without a card they raise: nothing
-carries on silently on the CPU.
+with ``device="cpu"``, as the tests do, or ``$VETPU_PLATFORM`` does (the
+variable the JAX package's entry points read, video_enhancer_tpu/utils/
+jaxenv.py:23): ``cpu`` means the CPU, ``gpu`` or ``cuda`` the card, any
+other value raises. A device the caller names wins over the variable.
+Without a card they raise: nothing carries on silently on the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
-__all__ = ["resolve_device", "full_fp32"]
+__all__ = ["resolve_device", "platform_device", "full_fp32"]
+
+
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def platform_device(platform: str) -> str:
+    """The device of a platform name as the JAX package's entry points take
+    it (``--platform``, ``$VETPU_PLATFORM``): ``cpu`` or ``cuda`` for
+    ``gpu`` / ``cuda``; any other name (``tpu`` among them) raises."""
+    if platform.lower() not in _PLATFORMS:
+        raise ValueError(f"platform {platform!r}: the port runs on 'cpu' or "
+                         f"'gpu' / 'cuda'")
+    return _PLATFORMS[platform.lower()]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means ``cuda``; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` means ``$VETPU_PLATFORM``'s device when it is set, else
+    ``cuda``; a CUDA device without a card raises."""
+    if device is None:
+        platform = os.environ.get("VETPU_PLATFORM")
+        device = platform_device(platform) if platform else "cuda"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "

@@ -28,9 +28,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "LINK_FLAGS", "KERNEL_DTYPES",
-           "launch_counts", "reset_launch_counts", "build", "library",
-           "dtype_code", "check", "stream_of", "sm_count", "row_stride",
-           "seq_strides"]
+           "launch_counts", "reset_launch_counts", "library_path", "build",
+           "library", "dtype_code", "check", "stream_of", "sm_count",
+           "row_stride", "seq_strides"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -159,6 +159,12 @@ def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
     return "".join(logs)
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags is (or will be)
+    built; a later start that finds it there loads it without a build."""
+    return BUILD_DIR / f"libvetk_{_digest()}.so"
+
+
 def build(ptxas_verbose: bool = False) -> tuple[Path, str]:
     """Compile every ``csrc/*.cu``, each by its own ``nvcc`` process, all
     started together, and link them into one library. Returns the
@@ -166,7 +172,7 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, str]:
     registers, shared memory and spills of each kernel). An up-to-date
     library is reused unless ``ptxas_verbose`` asks for the compiler's
     report."""
-    so = BUILD_DIR / f"libvetk_{_digest()}.so"
+    so = library_path()
     if so.exists() and not ptxas_verbose:
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -33,6 +33,7 @@ import math
 import torch
 
 from .. import kernels
+from ..utils.flops import record as flop_record
 
 __all__ = ["attention", "attention_ref", "flash_attention", "site_attention",
            "window_attention", "window_attention_plain"]
@@ -187,9 +188,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel reads q, k and v in place through TMA, which needs 16-byte
     aligned bases and strides of multiples of 8 elements (the views of a
     split qkv projection have them); an operand without them is first
-    copied once to a contiguous tensor."""
+    copied once to a contiguous tensor. Records 4 B H Lq Lk Dh FLOPs, the
+    JAX package's count."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    B, H, Lq, Dh = q.shape
+    flop_record(4.0 * B * H * Lq * k.shape[2] * Dh)
     if q.device.type == "cuda":
         return _flash_cuda(q, k, v, scale)
     if q.device.type == "cpu":
@@ -290,9 +294,12 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over many short windows with a per-head bias shared by all
     of them: the CUDA kernel for a CUDA tensor (strided views with a dense
     head dim are read in place), the plain version for a CPU tensor.
-    ``scale`` defaults to ``Dh ** -0.5``."""
+    ``scale`` defaults to ``Dh ** -0.5``. Records 4 nW H N^2 Dh FLOPs, the
+    JAX package's count."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    nW, H, N, Dh = q.shape
+    flop_record(4.0 * nW * H * N * N * Dh)
     if q.device.type == "cuda":
         return _window_cuda(q, k, v, bias, scale)
     if q.device.type == "cpu":

@@ -39,6 +39,10 @@ in fp32 (the counterpart of ``_fused_bissm_ref``). Its shapes: u_pre, gate
 ``(B, L, D)``; cw ``(D, 1, K)``; cb, bdt, dtbf, dtbb, Df, Db ``(D,)``; wx
 ``(dt_rank + 2N, D)``; wdt ``(D, dt_rank)`` (PyTorch's Conv1d/Linear
 layouts); Af, Ab ``(D, N)`` negative.
+
+Each wrapper whose JAX counterpart records its analytic FLOPs records the
+same count (``scan_flops`` of its streams, ``fused_flops``) for
+``utils.flops.accounting``, on either device.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils.flops import record as flop_record
 from .conv import depthwise_conv1d
 
 __all__ = ["selective_scan_plain", "selective_scan_ref",
@@ -55,8 +60,8 @@ __all__ = ["selective_scan_plain", "selective_scan_ref",
            "chunked_selective_scan", "selective_scan_bidir",
            "selective_scan_bidir_plain", "selective_scan_bidir_shared",
            "selective_scan_bidir_shared_plain",
-           "scan_flops", "fused_bidir_ssm", "fused_bidir_ssm_plain",
-           "fused_bidir_ssm_kernel"]
+           "scan_flops", "fused_flops", "fused_bidir_ssm",
+           "fused_bidir_ssm_plain", "fused_bidir_ssm_kernel"]
 
 _MAX_N = 16                     # the kernels keep N states in registers
 
@@ -65,6 +70,16 @@ def scan_flops(B: int, L: int, D: int, N: int, streams: int = 1) -> float:
     """Operations of ``streams`` selective scans, the JAX package's count
     (ops/scan.py:41-45): ~9 a (b, l, d, n) step plus the D skip."""
     return streams * (9.0 * B * L * D * N + 2.0 * B * L * D)
+
+
+def fused_flops(B: int, L: int, D: int, N: int, K: int, dt_rank: int) -> float:
+    """The JAX package's count of one ``fused_bidir_ssm`` (ops/scan.py:
+    1029-1033): both scans, the depthwise conv, x_proj, dt_proj and the
+    SiLU / gate epilogue."""
+    R = dt_rank + 2 * N
+    return (scan_flops(B, L, D, N, streams=2) + 2.0 * B * L * D * K
+            + 2.0 * B * L * D * R + 2.0 * B * L * dt_rank * D
+            + 8.0 * B * L * D)
 
 
 def selective_scan_plain(x, dt, A, Bmat, C, D, h0=None,
@@ -261,6 +276,7 @@ def selective_scan_pallas_short(x, dt, A, Bmat, C, D, h0=None,
     Returns ``(y, h_last)``, h_last None for the stateless form. Launches
     the CUDA kernel for a CUDA tensor; the sequential plain version for a
     CPU tensor."""
+    flop_record(scan_flops(*x.shape, A.shape[1]))
     if x.device.type == "cuda":
         return _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state)
     if x.device.type == "cpu":
@@ -301,6 +317,7 @@ def selective_scan_pallas(x, dt, A, Bmat, C, D, h0=None):
     """Long-sequence scan (TPU kernel ``_scan_kernel``). Returns ``(y,
     h_last)``. Launches the CUDA kernel (chunked, three phases) for a CUDA
     tensor; ``selective_scan_assoc`` for a CPU tensor."""
+    flop_record(scan_flops(*x.shape, A.shape[1]))
     if x.device.type == "cuda":
         return _scan_long_cuda(x, dt, A, Bmat, C, D, h0)
     if x.device.type == "cpu":
@@ -483,6 +500,7 @@ def selective_scan_bidir(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
     Returns ``(y_forward, y_backward)`` in natural order. Launches the CUDA
     kernel for a CUDA tensor; two sequential scans for a CPU tensor."""
     args = (xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db)
+    flop_record(scan_flops(*xf.shape, Af.shape[1], streams=2))
     if xf.device.type == "cuda":
         return _scan_bidir_cuda(*args)
     if xf.device.type == "cpu":
@@ -542,6 +560,7 @@ def selective_scan_bidir_shared(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db,
         return yf + yb
     if impl != "bmajor":
         raise ValueError(f"unknown impl {impl!r}")
+    flop_record(scan_flops(*u.shape, Af.shape[1], streams=2))
     args = (u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)
     if u.device.type == "cuda":
         return _scan_bidir_shared_cuda(*args)
@@ -708,7 +727,9 @@ def _fused_bidir_ssm_cuda(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
 def fused_bidir_ssm_kernel(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
                            Af, Ab, Df, Db, dt_rank: int) -> torch.Tensor:
     """Wrapper of the CUDA kernel: launches it for a CUDA tensor, takes the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor. Records ``fused_flops``."""
+    flop_record(fused_flops(*u_pre.shape, Af.shape[1], cw.shape[-1],
+                            dt_rank))
     args = (u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb, Af, Ab, Df, Db,
             dt_rank)
     if u_pre.device.type == "cuda":

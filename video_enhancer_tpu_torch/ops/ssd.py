@@ -25,8 +25,9 @@ import functools
 import torch
 
 from .. import kernels
+from ..utils.flops import record as flop_record
 
-__all__ = ["ssd_chunk_size", "ssd_shared", "ssd_shared_plain",
+__all__ = ["ssd_chunk_size", "ssd_flops", "ssd_shared", "ssd_shared_plain",
            "ssd_shared_kernel"]
 
 _HALF = (torch.bfloat16, torch.float16)
@@ -38,6 +39,18 @@ def ssd_chunk_size(L: int, target: int = 128) -> int:
     while c * 2 <= min(L, target):
         c *= 2
     return c
+
+
+def ssd_flops(b: int, L: int, H: int, P: int, N: int, chunk: int) -> float:
+    """The JAX package's count of one ``ssd_shared`` on its kernel path
+    (ops/ssd.py:466-474), in chunks of ``Q = min(chunk, ssd_chunk_size(L,
+    chunk))``: per (batch, chunk) CB (2 Q^2 N, shared by the heads) and per
+    head the intra-chunk product (2 Q^2 P), the cumulative decays (2 Q^2)
+    and the inter-chunk state product and update (4 Q N P)."""
+    Q = min(chunk, ssd_chunk_size(L, chunk))
+    K = -(-L // Q)
+    return b * K * (2.0 * Q * Q * N + H * (2.0 * Q * Q * (P + 1)
+                                           + 4.0 * Q * N * P))
 
 
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -232,7 +245,11 @@ def ssd_shared_kernel(x, dt, A, Bm, Cm, chunk: int = 256,
                       reverse: bool = False) -> torch.Tensor:
     """Wrapper of the CUDA kernel: launches it for a CUDA tensor, takes the
     plain version for a CPU tensor (``chunk`` only affects the latter; the
-    kernel's own chunk length gives the same result up to rounding)."""
+    kernel's own chunk length gives the same result up to rounding).
+    Records the JAX package's analytic FLOPs of its kernel path
+    (``ssd_flops``, ops/ssd.py:466-474 there)."""
+    b, L, H, P = x.shape
+    flop_record(ssd_flops(b, L, H, P, Bm.shape[-1], chunk))
     if x.device.type == "cuda":
         return _ssd_shared_cuda(x, dt, A, Bm, Cm, reverse)
     if x.device.type == "cpu":

@@ -48,7 +48,8 @@ from .vsr_handler import VSRHandler
 from .weights import read_npz, try_load_params
 
 __all__ = ["MODELS", "WEIGHTS_DIR", "bundled_weights", "load_params",
-           "probe_available", "build_handler", "clear_cache", "read_npz"]
+           "available_models", "probe_available", "build_handler",
+           "clear_cache", "read_npz"]
 
 WEIGHTS_DIR = (Path(__file__).resolve().parents[2] / "video_enhancer_tpu"
                / "weights")
@@ -132,6 +133,13 @@ def load_params(name: str, entry: ModelEntry | None = None) -> dict:
         if loaded is not None:
             return loaded
     return params
+
+
+def available_models(policy: Policy | None = None) -> list[str]:
+    """The models the policy enables, in its order (served by the port or
+    not), as the JAX registry's ``available_models``."""
+    policy = policy or default_policy()
+    return policy.enabled_models()
 
 
 def probe_available(policy: Policy | None = None, *,
