@@ -209,15 +209,44 @@ Phases, each printing its own elapsed seconds; any failure exits non-zero:
    ``$VETPU_POLICY`` disables vsrm routes phase 11's sharp clip (vsrm
    under the committed policy) elsewhere on the card. The processes of
    (a), (b), (c) and (e) start together and run beside the work in this
-   process; (d) runs after they have ended.
+   process; (d) runs after they have ended;
+21. training on the card, in fp32 with TF32 off (JAX trains in fp32), the
+   optimizer at ``make_optimizer()``'s defaults: (a) vsrm x4 at full width
+   (dim 64, 6 blocks) warm-started from its bundled weights, on a seeded
+   batch at the train CLI's defaults (``make_pairs``: batch 4, clip 4, HR
+   crop 128); step 1 through the kernels against step 1 through the plain
+   forms (the loss within 1e-5 relative, each gradient leaf within 1e-4 of
+   its max abs, each updated parameter within 2 x lr; every leaf behind
+   the SSD and the fused SSM with a nonzero gradient), then 8 steps on the
+   fixed batch under deterministic algorithms: exactly 12 SSD and 6 fused
+   SSM launches a step (all in the forward: the backward recomputes the
+   plain versions), the loss falling; ms a step (median of steps 3-8),
+   peak memory, one step traced by op (forward, backward, optimizer; the
+   plain SSD's and fused SSM's share of the backward); (b) one step each
+   of fast_mamba_vsr x4 (8 fused SSM launches), ditvr (8 flash, 512 tokens
+   a clip at scale 1) and rvrt x4 (4 window) at their served widths and
+   bundled weights, checked as (a)'s step 1 (and no leaf with a gradient
+   on one path only); (c) the eight autograd Functions (rows 1-6, 8, 10,
+   11) at phase 3's and phases 9-10's shapes: each Function's outputs (the
+   kernel) within phase 3's fp32 ``TOL`` of the plain version's, and for a
+   seeded upstream gradient every input's gradient through the Function
+   equal to the plain version's (``VJP_TOL``), one launch and none in the
+   backward; rows 7 and 9 raise under grad; (d) (a)'s state saved
+   after step 4 and resumed equals the 8 straight steps bit for bit (or,
+   for an op with no deterministic form, named, within 1e-6), and its
+   ``export_params`` npz, loaded into a fresh ``vsrm.init``, applies bit
+   for bit as the trained state; (e) ``run_dryrun`` on a one-rank NCCL
+   mesh, printing JAX's ``dryrun ok`` lines.
 
 In phases 5-7, 11, 13 and 14 the route runs the temporal stage wherever its
 plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
 window 0 are then held within 1 LSB of the stage run on window 0's rounded
 output (the stage is causal), and the stats must say it ran with no error.
 
-The line before the card's name and power limit holds the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``. The script
+Phase 21's launches a step, by model, are on a line of their own before
+the kernels' record. The line before the card's name and power limit
+holds the kernels' JSON record; the last line is ``{"ok": true,
+"device": {...}}``. The script
 needs a card: without one it exits non-zero and prints no result. It
 imports nothing of JAX or of the JAX package.
 """
@@ -292,7 +321,8 @@ from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
 from video_enhancer_tpu_torch.parallel.inference import (
     make_exact_sharded_ditvr, make_exact_sharded_fmv,
     make_exact_sharded_seedvr2, make_exact_sharded_vsrm, make_sharded_clip_fn)
-from video_enhancer_tpu_torch.parallel.mesh import make_mesh
+from video_enhancer_tpu_torch.parallel.dryrun import run_dryrun
+from video_enhancer_tpu_torch.parallel.mesh import local_mesh, make_mesh
 from video_enhancer_tpu_torch.parallel.model_parallel import \
     make_sharded_ditvr
 from video_enhancer_tpu_torch.parallel.spatial import \
@@ -313,10 +343,20 @@ from video_enhancer_tpu_torch.runtime.rife_handler import RIFEHandler
 from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
                                                          cast_params,
                                                          window_quality)
-from video_enhancer_tpu_torch.runtime.weights import flatten_params
+from video_enhancer_tpu_torch.runtime.weights import (flatten_params,
+                                                     load_into,
+                                                     params_from_jax,
+                                                     read_npz)
 from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
 from video_enhancer_tpu_torch.serving.http import serve
 from video_enhancer_tpu_torch.train import evalsuite, lpips
+from video_enhancer_tpu_torch.train.checkpoint import (export_params,
+                                                       restore_checkpoint,
+                                                       save_checkpoint)
+from video_enhancer_tpu_torch.train.data import make_pairs
+from video_enhancer_tpu_torch.train.losses import vsr_loss
+from video_enhancer_tpu_torch.train.step import (make_optimizer,
+                                                 make_train_step, tree_leaves)
 from video_enhancer_tpu_torch.utils.flops import accounting
 from video_enhancer_tpu_torch.utils.timing import device_time_per_call
 from video_enhancer_tpu_torch.validate import TINY_CLIP, tiny_models
@@ -2865,7 +2905,10 @@ class _EvalHooks:
         self._saved = []
 
     def _capture(self, key, fn):
-        def run(*args):
+        def run(*args, **kw):
+            # the wrappers pass their static arguments (dt_rank, scale) by
+            # keyword, in the entry's order
+            args += tuple(kw.values())
             self.calls.setdefault((self.model, key), (fn, args))
             return fn(*args)
         return run
@@ -3647,11 +3690,404 @@ def scaffolding(kind: str, device_line: str) -> list:
     return rows
 
 
+# Phase 21: training on the card. fp32 with TF32 off throughout, as JAX
+# trains; make_optimizer's defaults (lr 2e-4).
+TRAIN_STEPS = 8
+TRAIN_LR = 2e-4
+# step 1 through the kernels against the plain forms: the loss (relative),
+# each gradient leaf (of its own max abs), each updated parameter (absolute:
+# Adam's first step moves a weight by about lr x sign(g), and a gradient
+# near zero may flip sign on rounding alone)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PARAM_TOL = 2 * TRAIN_LR
+# the eight autograd Functions: their gradients (the plain backward's, on
+# the kernel's residuals) against the plain version's own, max abs of the
+# max abs
+VJP_TOL = 1e-6
+# one step of each model: (apply's keywords, the train pair's scale and HR
+# crop, the launches of a step, the subtree behind the kernels).
+# ditvr restores at scale 1; its crop gives 2 x 16 x 16 = 512 tokens a clip,
+# past the 256 from which JAX takes flash
+TRAIN_MODELS = {
+    "vsrm": (dict(scale=4, heads=4), 4, 128,
+             dict(ssd_shared=12, fused_bidir_ssm=6),
+             ("blocks", ("spatial_ssm", "temporal_ssm"))),
+    "fast_mamba_vsr": (dict(scale=4), 4, 128, dict(fused_bidir_ssm=8),
+                       ("layers", ("bimamba",))),
+    "ditvr": (dict(heads=3), 1, 64, dict(flash_attention=8),
+              ("blocks", ("qkv",))),
+    "rvrt": (dict(scale=4), 4, 128, dict(window_attention=4),
+             ("blocks", ("qkv", "bias_table"))),
+}
+TRAIN_APPLY = {"vsrm": vsrm.apply, "fast_mamba_vsr": fast_mamba_vsr.apply,
+               "ditvr": ditvr.apply, "rvrt": rvrt.apply}
+
+
+def _train_batch(scale: int, crop: int) -> dict:
+    """The train CLI's defaults (video_enhancer_tpu/train/cli.py:173-175:
+    batch 4, clip 4) from the port's demo frames, seeded."""
+    frames = make_demo_frames(16, (240, 320), seed=SEED)
+    return make_pairs(frames, batch=4, clip_len=4, crop=crop, scale=scale,
+                      seed=SEED, compound_p=0.25, wide_p=0.2, chain_p=0)
+
+
+def _loss_and_grads(apply_fn, params, batch) -> tuple:
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        loss = vsr_loss(apply_fn(params, batch["lr"]), batch["hr"])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), grads
+
+
+def _behind_kernels(params, where) -> list[str]:
+    """Dotted keys of the leaves behind the kernels: ``where`` is (the list
+    of blocks, the names in each)."""
+    blocks, names = where
+    return [f"{blocks}.{i}.{name}.{k}" for i, blk in
+            enumerate(params[blocks]) for name in names
+            for k in flatten_params(blk[name])]
+
+
+def _step1_kernels_vs_plain(name: str, steps: dict, state, batch) -> dict:
+    """Step 1 through the kernels (counted) against step 1 through the plain
+    forms on the same card: the loss, every gradient leaf, every updated
+    parameter; no leaf behind a kernel with a zero or missing gradient."""
+    kw, _, _, want, where = TRAIN_MODELS[name]
+    apply = TRAIN_APPLY[name]
+    (loss_k, g_k), counts, _ = _counted(
+        lambda: _loss_and_grads(lambda p, x: apply(p, x, kernels=True, **kw),
+                                state.params, batch))
+    loss_p, g_p = _loss_and_grads(
+        lambda p, x: apply(p, x, kernels=False, **kw), state.params, batch)
+    check(counts == _only(**want), f"{name}: a forward and backward through "
+          f"the kernels launched {_nonzero(counts)}, expected {want} (the "
+          f"backward none)")
+    keys = list(flatten_params(state.params))
+    lost = [k for k, a, b in zip(keys, g_k, g_p) if (a is None) != (b is None)]
+    check(not lost, f"{name}: leaves with a gradient on one path only "
+          f"(kernels vs plain forms): {lost[:4]}")
+    none = [k for k, g in zip(keys, g_k) if g is None]
+    zero = [k for k, g in zip(keys, g_k)
+            if g is not None and not bool(g.abs().max() > 0)]
+    behind = set(_behind_kernels(state.params, where))
+    check(not (behind & set(none + zero)), f"{name}: leaves behind a kernel "
+          f"with no gradient {sorted(behind & set(none))[:4]} or a zero one "
+          f"{sorted(behind & set(zero))[:4]}")
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_err = max((a - b).abs().max().item()
+                   / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(g_k, g_p) if a is not None)
+    s_k, _ = steps[True](state, batch)
+    s_p, _ = steps[False](state, batch)
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(tree_leaves(s_k.params), tree_leaves(s_p.params)))
+    print(f"{name} step 1, kernels vs plain forms (fp32): loss "
+          f"{loss_k.item():.7f} vs {loss_p.item():.7f} (rel {rel_loss:.2e}, "
+          f"tol {TRAIN_LOSS_RTOL}); gradients max|d| / max|plain| "
+          f"{grad_err:.2e} (tol {TRAIN_GRAD_TOL}) over {len(keys)} leaves, "
+          f"{len(behind)} behind the kernels, all nonzero ({len(zero)} zero "
+          f"and {len(none)} missing elsewhere); updated parameters max|d| "
+          f"{param_err:.2e} (tol {TRAIN_PARAM_TOL}); launches "
+          f"{_nonzero(counts)}")
+    check(rel_loss <= TRAIN_LOSS_RTOL, f"{name}: step-1 loss {rel_loss}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"{name}: step-1 gradients {grad_err}")
+    check(param_err <= TRAIN_PARAM_TOL, f"{name}: step-1 params {param_err}")
+    return _nonzero(counts)
+
+
+def _train_steps(name: str, device_line: str):
+    """init_state on the bundled weights and the kernels' and the plain
+    forms' train steps on a one-rank mesh."""
+    kw, scale, crop, _, _ = TRAIN_MODELS[name]
+    apply = TRAIN_APPLY[name]
+    mesh = local_mesh("cuda")
+    opt = make_optimizer()
+    steps, shard = {}, None
+    for k in (True, False):
+        init_state, steps[k], shard = make_train_step(
+            functools.partial(lambda p, x, k: apply(p, x, kernels=k, **kw),
+                              k=k), opt, mesh)
+    # its own parameters, read outside inference mode (the handlers' cached
+    # ones cannot be saved for backward)
+    check(bundled_weights(name) is not None, f"{name}: no bundled weights")
+    state = init_state(load_params(name))
+    return steps, state, shard(_train_batch(scale, crop)), init_state
+
+
+def _step_profile(step, state, batch) -> dict:
+    """One step traced by op: the device time of its kernels, and of those
+    that start within the device span of each range (``train_step:forward``,
+    ``:optimizer``, and each kernel row's plain backward, ``vjp:<plain>``;
+    the backward is the rest), beside the spans' own length; the ops that
+    take most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    names = ("train_step:", "vjp:")
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in dev if e.name.startswith(names)]
+    kern = [e for e in dev if not e.name.startswith(names)]
+    busy = sum(k.time_range.elapsed_us() for k in kern) / 1e3
+    ranges = {}
+    for sp in spans:
+        r = ranges.setdefault(sp.name, [0.0, 0.0])
+        r[0] += sum(k.time_range.elapsed_us() for k in kern
+                    if sp.time_range.start <= k.time_range.start
+                    < sp.time_range.end) / 1e3
+        r[1] += sp.time_range.elapsed_us() / 1e3
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    top = [(a.key[:60], round(a.self_device_time_total / 1e3, 3))
+           for a in ops if a.self_device_time_total > 0
+           and not a.key.startswith(names)][:8]
+    return {"busy_ms": busy, "ranges": ranges, "top": top}
+
+
+def _train_vsrm(device_line: str, tmp: Path) -> dict:
+    """(a) and (d): vsrm x4 at full width, 8 steps on a fixed batch, the
+    state saved after step 4 and resumed; the export loaded back."""
+    name = "vsrm"
+    steps, state0, batch, init_state = _train_steps(name, device_line)
+    _, _, _, want, _ = TRAIN_MODELS[name]
+    launches = _step1_kernels_vs_plain(name, steps, state0, batch)
+
+    # 8 straight steps, the state saved after the fourth, under
+    # deterministic algorithms (an op with none is named by its warning)
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, losses, ms = state0, [], []
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(TRAIN_STEPS):
+                kernels.reset_launch_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = steps[True](state, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+                losses.append(m["loss"].item())
+                got = _nonzero(dict(kernels.launch_counts))
+                check(got == want, f"step {i + 1} launched {got}")
+                if i == TRAIN_STEPS // 2 - 1:
+                    check(save_checkpoint(tmp / "ckpt", state) == i + 1,
+                          "save_checkpoint's step")
+            peak = torch.cuda.max_memory_allocated() - base
+            fresh = init_state(load_params(name))
+            resumed = restore_checkpoint(tmp / "ckpt", fresh)
+            check(resumed is not None and int(resumed.step) == 4,
+                  "restore_checkpoint: no state at step 4")
+            for _ in range(TRAIN_STEPS // 2):
+                resumed, _ = steps[True](resumed, batch)
+        nondet = sorted({str(w.message).split(" does not have")[0]
+                         for w in caught if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(losses[-1] < losses[0], f"vsrm: the loss did not fall: {losses}")
+    pairs = [(a, b) for t in ("params", "opt_state") for a, b in zip(
+        tree_leaves(getattr(state, t)), tree_leaves(getattr(resumed, t)))]
+    resume_err = max((a.float() - b.float()).abs().max().item()
+                     for a, b in pairs)
+    exact = all(torch.equal(a, b) for a, b in pairs) and \
+        int(state.step) == int(resumed.step) == TRAIN_STEPS
+    print(f"vsrm x4 train step (dim 64, 6 blocks; batch 4 x 4 frames, LR "
+          f"32x32 -> HR 128x128; fp32, deterministic algorithms): losses "
+          f"{[round(x, 6) for x in losses]}; ms a step "
+          f"{statistics.median(ms[2:]):.2f} "
+          f"(median of steps 3-8; all {[round(x, 2) for x in ms]}); peak "
+          f"memory of the steps {peak / 1e9:.3f} GB above "
+          f"{base / 1e9:.3f} GB held ({device_line})")
+    print(f"vsrm resume after step 4: "
+          f"{'bit for bit' if exact else 'not exact'}"
+          f" (max|d| {resume_err:.3e}); ops without a deterministic form: "
+          f"{nondet or 'none'}")
+    check(exact or (nondet and resume_err <= 1e-6),
+          f"resumed run differs from the straight one by {resume_err}")
+
+    prof = _step_profile(steps[True], state, batch)
+    r = prof["ranges"]
+    fwd, opt = (r.get(f"train_step:{k}", [0.0, 0.0])
+                for k in ("forward", "optimizer"))
+    bwd = prof["busy_ms"] - fwd[0] - opt[0]
+    ssd_b = r.get("vjp:ssd_shared_plain", [0.0, 0.0])
+    fused_b = r.get("vjp:fused_bidir_ssm_plain", [0.0, 0.0])
+    print(f"vsrm step traced (device ms of kernels / of the range's span): "
+          f"{prof['busy_ms']:.2f} busy = forward {fwd[0]:.2f} / "
+          f"{fwd[1]:.2f} + backward {bwd:.2f} + optimizer {opt[0]:.2f} / "
+          f"{opt[1]:.2f}; in the backward the plain SSD {ssd_b[0]:.2f} / "
+          f"{ssd_b[1]:.2f} ({ssd_b[0] / max(bwd, 1e-9):.3f} of the "
+          f"backward's kernel time) and the plain fused SSM {fused_b[0]:.2f} "
+          f"/ {fused_b[1]:.2f} ({fused_b[0] / max(bwd, 1e-9):.3f}); top ops "
+          f"by device ms {prof['top']}")
+
+    # (d) the export, loaded into a fresh template, applies bit for bit
+    path = export_params(tmp / "vsrm_trained.npz", state)
+    flat = read_npz(path)
+    loaded, matched, skipped = load_into(
+        vsrm.init(torch.Generator().manual_seed(1)), params_from_jax(flat))
+    check(len(matched) == len(flat) and not skipped,
+          f"export: {len(matched)} of {len(flat)} keys taken, {skipped[:4]}")
+    loaded = cast_params(loaded, torch.float32, "cuda")
+    with torch.no_grad():
+        y_e = vsrm.apply(loaded, batch["lr"], scale=4)
+        y_s = vsrm.apply(state.params, batch["lr"], scale=4)
+    check(torch.equal(y_e, y_s), "the exported parameters apply differently")
+    print(f"export: {len(flat)} keys, every one taken by a fresh vsrm.init; "
+          f"apply on them equals apply on the trained state bit for bit")
+    return {"launches a step": launches, "steps": TRAIN_STEPS,
+            "ms": statistics.median(ms[2:]), "peak_gb": peak / 1e9,
+            "bwd_share": {"ssd": ssd_b[0] / max(bwd, 1e-9),
+                          "fused": fused_b[0] / max(bwd, 1e-9)}}
+
+
+def _vjp_cases() -> list:
+    """(name, counts key, the Function's call, the plain version, inputs):
+    phase 3's shapes for rows 1-5, phases 9-10's for rows 6, 8, 10, 11."""
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s = SCAN_SHAPES["selective_scan_bidir"]
+    bidir = _scan_inputs(f32, gen, **s)
+    s8 = SCAN_SHAPES["selective_scan_short_nostate"]
+    s10 = SHARED_SHAPES[0]
+    x10, dtf, Af, Bm, Cm, Df = _scan_inputs(f32, gen, s10["B"], s10["L"],
+                                            s10["D"], s10["N"])
+    _, dtb, Ab, _, _, Db = _scan_inputs(f32, gen, s10["B"], s10["L"],
+                                        s10["D"], s10["N"])
+    *fused, rank = _bissm_inputs(f32, gen)
+    return [
+        ("ssd_shared", "ssd_shared", ssd_shared_kernel, ssd_shared_plain,
+         _ssd_inputs(f32, gen)),
+        ("ssd_shared reverse", "ssd_shared",
+         functools.partial(ssd_shared_kernel, reverse=True),
+         functools.partial(ssd_shared_plain, reverse=True),
+         _ssd_inputs(f32, gen)),
+        ("fused_bidir_ssm", "fused_bidir_ssm",
+         functools.partial(fused_bidir_ssm_kernel, dt_rank=rank),
+         functools.partial(fused_bidir_ssm_plain, dt_rank=rank), fused),
+        ("flash_attention", "flash_attention", flash_attention, attention_ref,
+         _flash_inputs(f32, gen, FLASH_SHAPE["B"], FLASH_SHAPE["H"],
+                       FLASH_SHAPE["L"], FLASH_SHAPE["L"], FLASH_SHAPE["Dh"])),
+        ("window_attention", "window_attention", window_attention,
+         window_attention_plain, _window_inputs(f32, gen, **WINDOW_SHAPE)),
+        ("selective_scan_bidir", "selective_scan_bidir", selective_scan_bidir,
+         selective_scan_bidir_plain, bidir + bidir),
+        ("selective_scan_short_nostate", "selective_scan_short_nostate",
+         lambda *a: selective_scan_pallas_short(*a, need_state=False)[0],
+         lambda *a: selective_scan_plain(*a)[0],
+         _scan_inputs(f32, gen, **s8)),
+        ("selective_scan_bidir_shared", "selective_scan_bidir_shared",
+         functools.partial(selective_scan_bidir_shared, impl="bmajor"),
+         selective_scan_bidir_shared_plain,
+         (x10, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)),
+        ("dwconv_silu", "dwconv_silu", depthwise_conv1d_silu,
+         depthwise_conv1d_silu_plain, _dwconv_inputs(f32, gen, 5)),
+    ]
+
+
+def _grads_of(fn, inputs, gys):
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, xs, gys)
+
+
+def vjp_checks() -> dict:
+    """(c) For one seeded upstream gradient, each Function's gradients (the
+    kernel forward) against the plain version's, every input; rows 7 and 9
+    raise under grad."""
+    out = {}
+    for name, key, fn, plain, inputs in _vjp_cases():
+        with torch.no_grad():
+            shapes = fn(*inputs)
+        shapes = shapes if isinstance(shapes, tuple) else (shapes,)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        gys = [torch.randn(o.shape, generator=gen, device="cuda")
+               for o in shapes]
+        kernels.reset_launch_counts()
+        outs, g_k = _grads_of(fn, inputs, gys)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        check(all(o.grad_fn is not None for o in outs),
+              f"{name}: the kernel's output has no grad_fn")
+        check(counts == _only(**{key: 1}), f"{name}: launches {counts}")
+        outs_p, g_p = _grads_of(plain, inputs, gys)
+        fwd = max(rel_err(a, b)[1] for a, b in zip(outs, outs_p))
+        tol = TOL[(key, "float32")]
+        err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(g_k, g_p))
+        check(all(a.dtype == t.dtype and a.shape == t.shape
+                  for a, t in zip(g_k, inputs)),
+              f"{name}: a gradient not in its input's dtype and shape")
+        print(f"vjp {name}: the Function's forward (the kernel) vs the plain "
+              f"version max|d| / max|plain| {fwd:.2e} (tol {tol}); "
+              f"{len(inputs)} gradients {err:.2e} (tol {VJP_TOL}); 1 launch, "
+              f"none in the backward")
+        check(fwd <= tol, f"{name}: the Function's forward differs by {fwd}")
+        check(err <= VJP_TOL, f"{name}: gradients differ by {err}")
+        out[name] = err
+        del outs, g_k, outs_p, g_p
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    s7 = SCAN_SHAPES["selective_scan_short"]
+    args = [t.detach().requires_grad_() for t in _scan_inputs(
+        torch.float32, gen, 64, s7["L"], s7["D"], s7["N"])]
+    h0 = torch.zeros((64, s7["D"], s7["N"]), device="cuda")
+    for row, call in ((7, lambda: selective_scan_pallas_short(*args, h0=h0)),
+                      (9, lambda: selective_scan_pallas(*args))):
+        try:
+            call()
+        except RuntimeError as e:
+            check(f"row {row}" in str(e), f"row {row}: {e}")
+        else:
+            raise Failure(f"row {row} did not raise under grad")
+    print("vjp rows 7 and 9: raise under grad (no VJP in the JAX package)")
+    return out
+
+
+@phase("21 training on the card")
+def training(device_line: str) -> dict:
+    """(a) vsrm x4 trained 8 steps, step 1 against the plain forms; (b) one
+    step each of fast_mamba_vsr, ditvr and rvrt against the plain forms;
+    (c) the eight autograd Functions' gradients; (d) checkpoint, resume and
+    export; (e) the dry run on a one-rank NCCL mesh."""
+    out = {}
+    with full_fp32(), tempfile.TemporaryDirectory() as d:
+        out["vsrm"] = _train_vsrm(device_line, Path(d))
+        for name in ("fast_mamba_vsr", "ditvr", "rvrt"):
+            steps, state, batch, _ = _train_steps(name, device_line)
+            t0 = time.perf_counter()
+            out[name] = _step1_kernels_vs_plain(name, steps, state, batch)
+            print(f"{name}: step 1 checked in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            del steps, state, batch
+            torch.cuda.empty_cache()
+        out["vjp"] = vjp_checks()
+        torch.cuda.empty_cache()
+        mesh = make_mesh()
+        try:
+            run_dryrun(mesh)
+        finally:
+            mesh.destroy()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
               file=sys.stderr)
         return 1
+    # cuBLAS reads its workspace size once, at its first call, so this is
+    # set before any work on the card; torch's deterministic mode (phase
+    # 21) wants it fixed. 32 MiB, torch's own default on sm_90, so that
+    # phases 1-20 see the same workspace as without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t0 = time.perf_counter()
     env = environment()
     rec = kernels_vs_plain(build())
@@ -3674,6 +4110,7 @@ def main() -> int:
     eval_rows = measured_quality(f"{env['kind']}, {env['smi']}")
     restorers = sharded_restorers(f"{env['kind']}, {env['smi']}")
     scaffold_rows = scaffolding(env["kind"], f"{env['kind']}, {env['smi']}")
+    trained = training(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -3700,6 +4137,9 @@ def main() -> int:
                   restorers["3b"]["counts"]["flash_attention"]}
     # phase 20's kernel calls at the shapes new to it, on their own line
     print("phase 20 kernels: " + json.dumps(scaffold_rows))
+    # phase 21's launches a train step, by model, on their own line
+    print("phase 21 launches: " + json.dumps(
+        {name: trained[name] for name in TRAIN_MODELS}))
     print(json.dumps({"kernels": kernel_record(rec, counts) + eval_rows}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1503,3 +1503,163 @@ def test_gfpgan_on_the_card_matches_cpu(cuda):
         got = gfpgan_official_apply(cast_params(params, torch.float32, cuda),
                                     x.to(cuda), num_style_feat=64)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+# --- training: the wrappers under autograd ----------------------------------
+
+def _grad_inputs(name, cuda, dtype):
+    """(counts key, the wrapper's call, the plain version, inputs) at small
+    shapes: views of wider projections, as the layers hand them over."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    def scan(B=300, L=7, D=64, N=4):
+        proj = rnd(B, L, 4 + 2 * N).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(B, L, D) - 2.0).to(dtype)
+        return [rnd(B, L, D).to(dtype), dt, -torch.exp(rnd(D, N, scale=0.3)),
+                proj[..., 4:4 + N], proj[..., 4 + N:], rnd(D)]
+
+    if name == "ssd_shared":
+        xbc = rnd(2, 300, 2 * 64 + 32).to(dtype)
+        return (name, ssd_shared_kernel, ssd_shared_plain,
+                [xbc[..., :128].reshape(2, 300, 2, 64),
+                 0.001 + 0.099 * torch.rand((2, 300, 2), generator=g,
+                                            device=cuda),
+                 -(0.5 + torch.rand((2,), generator=g, device=cuda)),
+                 xbc[..., 128:144], xbc[..., 144:]])
+    if name == "fused_bidir_ssm":
+        D, N, K, r = 128, 4, 5, 4
+        u, gate = rnd(300, 7, 2 * D).to(dtype).chunk(2, dim=-1)
+        w = [rnd(D, 1, K, scale=0.3), rnd(D, scale=0.1),
+             rnd(r + 2 * N, D, scale=0.2), rnd(D, r, scale=0.2),
+             rnd(D, scale=0.1), rnd(D, scale=0.1) - 2, rnd(D, scale=0.1) - 2,
+             -torch.exp(rnd(D, N, scale=0.3)), -torch.exp(rnd(D, N, scale=0.3)),
+             rnd(D), rnd(D)]
+        return (name, lambda *a: fused_bidir_ssm_kernel(*a, r),
+                lambda *a: fused_bidir_ssm_plain(*a, r), [u, gate, *w])
+    if name == "flash_attention":
+        q, k, v = (t.reshape(2, 300, 3, 64).transpose(1, 2) for t in
+                   rnd(2, 300, 3 * 3 * 64).to(dtype).chunk(3, dim=-1))
+        return name, flash_attention, attention_ref, [q, k, v]
+    if name == "window_attention":
+        q, k, v = (t.reshape(37, 128, 4, 16).transpose(1, 2) for t in
+                   rnd(37, 128, 3 * 4 * 16).to(dtype).chunk(3, dim=-1))
+        return (name, window_attention, window_attention_plain,
+                [q, k, v, rnd(4, 128, 128)])
+    if name == "selective_scan_bidir":
+        s = scan()
+        return name, selective_scan_bidir, selective_scan_bidir_plain, s + s
+    if name == "selective_scan_short_nostate":
+        return (name,
+                lambda *a: selective_scan_pallas_short(*a,
+                                                       need_state=False)[0],
+                lambda *a: selective_scan_plain(*a)[0], scan(N=16))
+    if name == "selective_scan_bidir_shared":
+        u, dtf, Af, Bm, Cm, Df = scan()
+        _, dtb, Ab, _, _, Db = scan()
+        return (name, lambda *a: selective_scan_bidir_shared(*a,
+                                                             impl="bmajor"),
+                selective_scan_bidir_shared_plain,
+                [u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db])
+    wide = rnd(2, 300, 290).to(dtype)
+    return ("dwconv_silu", depthwise_conv1d_silu, depthwise_conv1d_silu_plain,
+            [wide[..., 128:288], rnd(160, 1, 5, scale=0.4).to(dtype),
+             rnd(160, scale=0.1)])
+
+
+GRAD_CASES = ["ssd_shared", "fused_bidir_ssm", "flash_attention",
+              "window_attention", "selective_scan_bidir",
+              "selective_scan_short_nostate", "selective_scan_bidir_shared",
+              "dwconv_silu"]
+
+
+def _grads(fn, inputs, gys):
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, xs, gys)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_kernel_wrappers_are_differentiable_on_the_card(cuda, name, dtype):
+    """With inputs that require grad, each wrapper launches its kernel once,
+    returns outputs with a ``grad_fn``, launches nothing in the backward,
+    and its gradients (each in its input's dtype and shape) equal the
+    plain version's; under ``inference_mode`` it launches once and builds
+    no graph."""
+    key, fn, plain, inputs = _grad_inputs(name, cuda, dtype)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        ys = fn(*inputs)
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        assert kernels.launch_counts[key] == 1
+        assert all(y.grad_fn is None for y in ys)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gys = [torch.randn(y.shape, generator=g, device=cuda).to(y.dtype)
+           for y in ys]
+    kernels.reset_launch_counts()
+    outs, got = _grads(fn, inputs, gys)
+    assert all(o.grad_fn is not None for o in outs)
+    assert sum(kernels.launch_counts.values()) == kernels.launch_counts[
+        key] == 1
+    _, want = _grads(plain, inputs, gys)
+    for a, b, t in zip(got, want, inputs):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert _rel(a, b) <= 1e-6
+
+
+def test_rows_without_a_vjp_raise_under_grad(cuda):
+    """Rows 7 (the short scan with a state) and 9 (the long scan) have no
+    VJP in the JAX package: under grad they raise, not return an output
+    without a gradient; under no_grad they launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, Bm, Cm = (torch.rand((64, 16, 32), generator=g, device=cuda)
+                     for _ in range(4))
+    A = -torch.rand((32, 4), generator=g, device=cuda) - 0.5
+    D = torch.rand((32,), generator=g, device=cuda).requires_grad_()
+    h0 = torch.zeros((64, 32, 4), device=cuda)
+    for row, call in ((7, lambda: selective_scan_pallas_short(
+            x, dt, A, Bm[..., :4], Cm[..., :4], D, h0=h0)),
+                      (9, lambda: selective_scan_pallas(
+                          x, dt, A, Bm[..., :4], Cm[..., :4], D))):
+        with pytest.raises(RuntimeError, match=f"row {row}"):
+            call()
+        with torch.no_grad():
+            y, h = call()
+        assert y.shape == x.shape and h.shape == h0.shape
+
+
+def test_vsrm_train_step_on_the_card_matches_plain(cuda):
+    """A tiny vsrm's train step through the kernels (fp32, TF32 off) against
+    the same step through the plain forms: loss, parameters, and 2 SSD + 1
+    fused SSM launches a block, none in the backward."""
+    from video_enhancer_tpu_torch.models import vsrm
+    from video_enhancer_tpu_torch.parallel.mesh import local_mesh
+    from video_enhancer_tpu_torch.train.step import (make_optimizer,
+                                                     make_train_step,
+                                                     tree_leaves)
+
+    gen = torch.Generator().manual_seed(0)
+    params = vsrm.init(gen, dim=16, num_blocks=2, scale=2)
+    for k in ("head", "offset"):
+        params[k]["w"] = torch.randn(params[k]["w"].shape, generator=gen) * .05
+    batch = {"lr": torch.rand((2, 3, 16, 16, 3), generator=gen),
+             "hr": torch.rand((2, 3, 32, 32, 3), generator=gen)}
+    states = {}
+    for k in (True, False):
+        init_state, step, shard = make_train_step(
+            lambda p, x, k=k: vsrm.apply(p, x, scale=2, kernels=k),
+            make_optimizer(), local_mesh(cuda))
+        kernels.reset_launch_counts()
+        states[k] = step(init_state(params), shard(batch))
+        if k:
+            assert kernels.launch_counts["ssd_shared"] == 4
+            assert kernels.launch_counts["fused_bidir_ssm"] == 2
+    (sk, mk), (sp, mp) = states[True], states[False]
+    assert abs(mk["loss"].item() - mp["loss"].item()) <= 1e-5 * mp[
+        "loss"].item()
+    for a, b in zip(tree_leaves(sk.params), tree_leaves(sp.params)):
+        assert (a - b).abs().max().item() <= 2 * 2e-4

@@ -1,7 +1,8 @@
 """The port, chip_smoke.py and scripts/torch_ab_harness.py import nothing of
-JAX, OpenCV, PyYAML, psutil or the JAX package: the card's machine has no
-JAX, OpenCV or PyYAML, and may lack psutil. OpenCV is imported only where a
-file is not raw AVI (io/video.py); nothing on an ``.avi`` needs it.
+JAX, OpenCV, PyYAML, psutil, optax, orbax or the JAX package: the card's
+machine has no JAX, OpenCV, PyYAML, optax or orbax, and may lack psutil.
+OpenCV is imported only where a file is not raw AVI (io/video.py); nothing
+on an ``.avi`` needs it.
 Checked in fresh interpreters: one imports every module of the port,
 chip_smoke.py and the A/B script; one, where those packages cannot be
 imported at all, drives the auto route on frames in memory, its temporal
@@ -22,7 +23,9 @@ video_enhancer_tpu_torch.train.evalsuite``, its data made with the port's
 host ops and JPEG round trip) and the coordinator's workflow on an
 ``.avi``; one, likewise, starts the one-port app with its self-test up to
 serving (``/ui``, ``/health``), probes it with ``validate --mode ci`` and
-runs ``warm_start``, all on the CPU."""
+runs ``warm_start``, all on the CPU; one, likewise (optax and orbax
+unimportable too), trains a tiny vsrm two steps, saves, restores and
+exports it, and runs the dry run at one rank."""
 
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import cv2
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-BAD = ("jax", "jaxlib", "cv2", "yaml", "psutil", "video_enhancer_tpu")
+BAD = ("jax", "jaxlib", "cv2", "yaml", "psutil", "optax", "orbax",
+       "video_enhancer_tpu")
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -326,6 +330,46 @@ print(json.dumps(res))
 """ % (BAD,)
 
 
+TRAIN = r"""
+import contextlib, io, json, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+import numpy as np
+import torch
+from video_enhancer_tpu_torch.models import vsrm
+from video_enhancer_tpu_torch.parallel import dryrun
+from video_enhancer_tpu_torch.parallel.mesh import local_mesh
+from video_enhancer_tpu_torch.runtime.weights import try_load_params
+from video_enhancer_tpu_torch.train import checkpoint, step
+work = sys.argv[2]
+params = vsrm.init(torch.Generator().manual_seed(0), dim=16, num_blocks=1,
+                   scale=2)
+init_state, train_step, shard_batch = step.make_train_step(
+    lambda p, x: vsrm.apply(p, x, scale=2), step.make_optimizer(),
+    local_mesh("cpu"))
+g = np.random.default_rng(0)
+batch = shard_batch({"lr": g.random((1, 2, 8, 8, 3), np.float32),
+                     "hr": g.random((1, 2, 16, 16, 3), np.float32)})
+state = init_state(params)
+for _ in range(2):
+    state, m = train_step(state, batch)
+checkpoint.save_checkpoint(work + "/ck", state)
+back = checkpoint.restore_checkpoint(work + "/ck", init_state(params))
+path = checkpoint.export_params(work + "/vsrm.npz", back)
+loaded = try_load_params(path, vsrm.init(torch.Generator().manual_seed(1),
+                                         dim=16, num_blocks=1, scale=2))
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = dryrun.main(["--ranks", "1", "--device", "cpu"])
+print(json.dumps({
+    "step": int(back.step), "loss": bool(torch.isfinite(m["loss"])),
+    "export": torch.equal(loaded["head"]["w"], state.params["head"]["w"]),
+    "dryrun": [rc, sum(l.startswith("dryrun ok") for l in
+                       out.getvalue().splitlines())]}))
+""" % (BAD,)
+
+
 def _run(code: str, *args) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT),
                           *map(str, args)],
@@ -363,7 +407,8 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "warm_start", "validate", "config.yaml_subset",
                  "config.production", "serving.ui", "utils.flops",
                  "utils.timing", "utils.debug", "utils.recovery",
-                 "utils.protection"):
+                 "utils.protection", "ops.vjp", "train.losses",
+                 "train.step", "train.checkpoint", "parallel.dryrun"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -477,3 +522,13 @@ def test_app_validate_and_warm_start_run_without_jax_cv2_yaml_or_psutil(
         "validate": [0, "pass", "missing", ["/api/v1/strategies", "/health",
                                             "/metrics", "/performance/stats"]],
         "warm_start": [0, "warm start: 2/2 models ready"]}
+
+
+def test_training_runs_without_jax_cv2_yaml_psutil_or_optax(tmp_path):
+    """Two train steps of a tiny vsrm, a checkpoint round trip, the npz
+    export read back by the port's loader, and the dry run at one gloo
+    rank, on the CPU, with those packages (and optax and orbax, which the
+    JAX package's training uses) absent."""
+    res = _run(TRAIN, tmp_path)
+    assert res == {"step": 2, "loss": True, "export": True,
+                   "dryrun": [0, 9]}

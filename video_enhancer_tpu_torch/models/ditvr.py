@@ -222,4 +222,4 @@ def apply(params: dict, clip: torch.Tensor,
     tok = nn.layer_norm_apply(params["head_norm"], tok)
     res = nn.dense_apply(params["head"], tok)
     out = x + _unpatchify(res, grid, patch, c)
-    return torch.clamp(out[:, :t, :h, :w, :], 0.0, 1.0)
+    return nn.clip(out[:, :t, :h, :w, :], 0.0, 1.0)

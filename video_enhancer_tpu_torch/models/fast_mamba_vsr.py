@@ -162,7 +162,7 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4,
     base = resize(x, (x.shape[2] * scale, x.shape[3] * scale), antialias=False)
     out = base + res
     out = out + 0.1 * _temporal_conv(params["temporal"], out, time_axis)
-    return torch.clamp(out, 0.0, 1.0)
+    return nn.clip(out, 0.0, 1.0)
 
 
 def _temporal_conv(p, out, time_axis):

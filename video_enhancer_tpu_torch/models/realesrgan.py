@@ -74,4 +74,4 @@ def apply(params: dict, frames: torch.Tensor, scale: int = 4) -> torch.Tensor:
     h = F.leaky_relu(nn.conv2d_apply(params["up"], h), 0.2)
     res = nn.conv2d_apply(params["head"], h)
     base = resize(frames, out_hw, antialias=False)
-    return torch.clamp(base + res, 0.0, 1.0)
+    return nn.clip(base + res, 0.0, 1.0)

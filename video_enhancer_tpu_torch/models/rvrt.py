@@ -144,4 +144,4 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4, heads: int = 4,
     res = pixel_shuffle(nn.conv3d_apply(params["head"], feats), scale)
     res = res[:, :t, :h * scale, :w * scale, :]
     base = resize(clip, (h * scale, w * scale), antialias=False)
-    return torch.clamp(base + res, 0.0, 1.0)
+    return nn.clip(base + res, 0.0, 1.0)

@@ -41,7 +41,7 @@ def apply(params: dict, x: torch.Tensor, scale: int = 2,
     res = pixel_shuffle(nn.conv2d_apply(params["head"], h), scale * s2d)
     base = resize(x, (x.shape[-3] * scale, x.shape[-2] * scale),
                   antialias=False)
-    return torch.clamp(base + res, 0.0, 1.0)
+    return nn.clip(base + res, 0.0, 1.0)
 
 
 def bicubic_upscale(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

@@ -115,4 +115,4 @@ def apply(params: dict, clip: torch.Tensor, scale: int = 4, heads: int = 4,
     feats = F.silu(nn.conv3d_apply(params["recon"], feats))
     res = pixel_shuffle(nn.conv3d_apply(params["head"], feats), scale)
     base = resize(x, (x.shape[2] * scale, x.shape[3] * scale), antialias=False)
-    return torch.clamp(base + res, 0.0, 1.0)
+    return nn.clip(base + res, 0.0, 1.0)

@@ -19,7 +19,25 @@ __all__ = ["dense_init", "dense_apply", "conv2d_init", "conv2d_apply",
            "conv_transpose2d_apply",
            "conv3d_init", "conv3d_apply", "layer_norm_init",
            "layer_norm_apply", "group_norm_init", "group_norm_apply",
-           "mlp_init", "mlp_apply", "sinusoidal_embedding"]
+           "mlp_init", "mlp_apply", "sinusoidal_embedding", "clip"]
+
+
+def clip(x: torch.Tensor, lo: float | None = None,
+         hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip``. Where autograd records it, its gradient too where
+    ``x`` equals a bound: half the gradient passes there (``lax.max`` /
+    ``lax.min``'s rule at a tie; ``torch.clamp`` passes all of it). Else it
+    is one ``torch.clamp``, the same values in one pass, so that serving
+    pays nothing for the tie rule."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                        device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype,
+                                        device=x.device))
+    return x
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -135,7 +153,7 @@ def group_norm_apply(p: dict, x: torch.Tensor, groups: int,
             xf.sum(dim=(1, 3), keepdim=True),
             (xf * xf).sum(dim=(1, 3), keepdim=True)]))
         mu = s / cnt
-        var = torch.clamp(ss / cnt - mu * mu, min=0.0)
+        var = clip(ss / cnt - mu * mu, lo=0.0)
     y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 

@@ -34,6 +34,7 @@ import torch
 
 from .. import kernels
 from ..utils.flops import record as flop_record
+from .vjp import kernel_vjp
 
 __all__ = ["attention", "attention_ref", "flash_attention", "site_attention",
            "window_attention", "window_attention_plain"]
@@ -189,16 +190,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned bases and strides of multiples of 8 elements (the views of a
     split qkv projection have them); an operand without them is first
     copied once to a contiguous tensor. Records 4 B H Lq Lk Dh FLOPs, the
-    JAX package's count."""
+    JAX package's count. Differentiable in q, k and v through
+    ``attention_ref`` (JAX's ``_flash_diffable``, ops/attention.py:165-182).
+    """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     B, H, Lq, Dh = q.shape
     flop_record(4.0 * B * H * Lq * k.shape[2] * Dh)
-    if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, scale)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, scale=scale)
-    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return kernel_vjp("flash_attention", _flash_cuda, attention_ref, q, k, v,
+                      scale=scale)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -295,16 +295,15 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of them: the CUDA kernel for a CUDA tensor (strided views with a dense
     head dim are read in place), the plain version for a CPU tensor.
     ``scale`` defaults to ``Dh ** -0.5``. Records 4 nW H N^2 Dh FLOPs, the
-    JAX package's count."""
+    JAX package's count. Differentiable in q, k, v and the bias (rvrt's
+    relative-position table is learned) through the plain version (JAX's
+    ``window_attention_diffable``, ops/attention.py:282-303)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     nW, H, N, Dh = q.shape
     flop_record(4.0 * nW * H * N * N * Dh)
-    if q.device.type == "cuda":
-        return _window_cuda(q, k, v, bias, scale)
-    if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias, scale=scale)
-    raise ValueError(f"window_attention: no kernel for device {q.device}")
+    return kernel_vjp("window_attention", _window_cuda,
+                      window_attention_plain, q, k, v, bias, scale=scale)
 
 
 def site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .vjp import kernel_vjp
 
 __all__ = ["conv2d", "conv3d", "conv_transpose2d", "conv_transpose3d",
            "depthwise_conv1d",
@@ -299,9 +300,8 @@ def depthwise_conv1d_silu(x: torch.Tensor, w: torch.Tensor,
     ``_dwconv_silu_kernel``): x ``(B, L, C)`` with any row stride (a column
     slice of a wider projection is read in place), w ``(C, 1, K)``, b
     ``(C,)``; y in x's dtype. Launches the CUDA kernel for a CUDA tensor
-    (K <= 8); the plain version for a CPU tensor."""
-    if x.device.type == "cuda":
-        return _dwconv_silu_cuda(x, w, b)
-    if x.device.type == "cpu":
-        return depthwise_conv1d_silu_plain(x, w, b)
-    raise ValueError(f"depthwise_conv1d_silu: no kernel for {x.device}")
+    (K <= 8); the plain version for a CPU tensor. Differentiable in x, w
+    and b through the plain version (JAX's ``_dwconv_silu_diffable``,
+    ops/conv.py:252-268)."""
+    return kernel_vjp("depthwise_conv1d_silu", _dwconv_silu_cuda,
+                      depthwise_conv1d_silu_plain, x, w, b)

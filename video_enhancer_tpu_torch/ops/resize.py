@@ -78,9 +78,12 @@ def _on_device(build, *key, device: torch.device,
                bf16: bool) -> torch.Tensor:
     """``build(*key)`` as an fp32 tensor on ``device`` (its values rounded to
     bf16 when ``bf16``), made once: a host-to-device copy a call cost ~0.1
-    ms each (24 a RIFE pair at 720x1280, 2.8 ms of its 8.4 device ms)."""
-    m = torch.from_numpy(build(*key)).to(device)
-    return m.bfloat16().float() if bf16 else m
+    ms each (24 a RIFE pair at 720x1280, 2.8 ms of its 8.4 device ms).
+    Made outside inference mode, so that a train step can save the matrix
+    that a served call cached for its backward."""
+    with torch.inference_mode(False):
+        m = torch.from_numpy(build(*key)).to(device)
+        return m.bfloat16().float() if bf16 else m
 
 
 def _separable(img: torch.Tensor, build, hkey: tuple,

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from .. import kernels
 from ..utils.flops import record as flop_record
 from .conv import depthwise_conv1d
+from .vjp import kernel_vjp, wants_grad
 
 __all__ = ["selective_scan_plain", "selective_scan_ref",
            "selective_scan_assoc", "selective_scan_pallas_short",
@@ -275,14 +276,42 @@ def selective_scan_pallas_short(x, dt, A, Bmat, C, D, h0=None,
     with ``h0=None`` and ``need_state=False``, ``_scan_short_kernel_nostate``).
     Returns ``(y, h_last)``, h_last None for the stateless form. Launches
     the CUDA kernel for a CUDA tensor; the sequential plain version for a
-    CPU tensor."""
+    CPU tensor. The stateless form is differentiable (its backward
+    recomputes the sequential scan: JAX's ``_short_nostate_diffable``,
+    ops/scan.py:278-298); the form with state has no VJP in the JAX package
+    and raises under grad on a CUDA tensor."""
     flop_record(scan_flops(*x.shape, A.shape[1]))
+    if h0 is None and not need_state:
+        return kernel_vjp("selective_scan_pallas_short",
+                          _scan_short_nostate_cuda, _scan_nostate_plain, x,
+                          dt, A, Bmat, C, D), None
     if x.device.type == "cuda":
+        _no_vjp(7, "selective_scan_pallas_short with a state",
+                "_selective_scan_pallas_short_impl", x, dt, A, Bmat, C, D, h0)
         return _scan_short_cuda(x, dt, A, Bmat, C, D, h0, need_state)
     if x.device.type == "cpu":
-        y, h = selective_scan_plain(x, dt, A, Bmat, C, D, h0)
-        return y, (h if h0 is not None or need_state else None)
+        return selective_scan_plain(x, dt, A, Bmat, C, D, h0)
     raise ValueError(f"selective_scan_pallas_short: no kernel for {x.device}")
+
+
+def _scan_nostate_plain(x, dt, A, Bmat, C, D):
+    return selective_scan_plain(x, dt, A, Bmat, C, D)[0]
+
+
+def _scan_short_nostate_cuda(x, dt, A, Bmat, C, D):
+    return _scan_short_cuda(x, dt, A, Bmat, C, D, None, False)[0]
+
+
+def _no_vjp(row: int, what: str, jax_name: str, *args) -> None:
+    """Rows 7 and 9 have no VJP in the JAX package (JAX cannot
+    differentiate through them either): under grad mode with an input that
+    requires grad, a launch would return an output with no gradient, so
+    they raise instead."""
+    if wants_grad(*args):
+        raise RuntimeError(
+            f"{what} (TPU kernel row {row}, {jax_name}) has no VJP in the JAX "
+            f"package and no backward here: call it under torch.no_grad() or "
+            f"torch.inference_mode(), or differentiate the plain scan")
 
 
 def _scan_long_cuda(x, dt, A, Bmat, C, D, h0):
@@ -316,9 +345,12 @@ def _scan_long_cuda(x, dt, A, Bmat, C, D, h0):
 def selective_scan_pallas(x, dt, A, Bmat, C, D, h0=None):
     """Long-sequence scan (TPU kernel ``_scan_kernel``). Returns ``(y,
     h_last)``. Launches the CUDA kernel (chunked, three phases) for a CUDA
-    tensor; ``selective_scan_assoc`` for a CPU tensor."""
+    tensor; ``selective_scan_assoc`` for a CPU tensor. No VJP (as in the JAX
+    package): raises under grad on a CUDA tensor."""
     flop_record(scan_flops(*x.shape, A.shape[1]))
     if x.device.type == "cuda":
+        _no_vjp(9, "selective_scan_pallas", "_selective_scan_pallas_impl",
+                x, dt, A, Bmat, C, D, h0)
         return _scan_long_cuda(x, dt, A, Bmat, C, D, h0)
     if x.device.type == "cpu":
         return selective_scan_assoc(x, dt, A, Bmat, C, D, h0)
@@ -498,14 +530,13 @@ def selective_scan_bidir(xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db):
     axis (TPU kernel ``_scan_bidir_kernel``): the forward stream walks l =
     0..L-1, the backward one l = L-1..0, both in one kernel with no flips.
     Returns ``(y_forward, y_backward)`` in natural order. Launches the CUDA
-    kernel for a CUDA tensor; two sequential scans for a CPU tensor."""
-    args = (xf, dtf, Af, Bf, Cf, Df, xb, dtb, Ab, Bb, Cb, Db)
+    kernel for a CUDA tensor; two sequential scans for a CPU tensor.
+    Differentiable through those two scans (JAX's ``_bidir_diffable``,
+    ops/scan.py:479-504)."""
     flop_record(scan_flops(*xf.shape, Af.shape[1], streams=2))
-    if xf.device.type == "cuda":
-        return _scan_bidir_cuda(*args)
-    if xf.device.type == "cpu":
-        return selective_scan_bidir_plain(*args)
-    raise ValueError(f"selective_scan_bidir: no kernel for {xf.device}")
+    return kernel_vjp("selective_scan_bidir", _scan_bidir_cuda,
+                      selective_scan_bidir_plain, xf, dtf, Af, Bf, Cf, Df,
+                      xb, dtb, Ab, Bb, Cb, Db)
 
 
 def selective_scan_bidir_shared_plain(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db):
@@ -553,7 +584,8 @@ def selective_scan_bidir_shared(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db,
     this switch for A/B runs: for a CUDA tensor one kernel
     (csrc/selective_scan.cu) reads u, B and C once, holds the forward
     output in fp32 and casts the sum once; for a CPU tensor
-    ``selective_scan_bidir_shared_plain``."""
+    ``selective_scan_bidir_shared_plain``, which is also the backward of
+    either device (JAX's ``_bidir_shared_diffable``, ops/scan.py:764-787)."""
     if impl == "bidir":
         yf, yb = selective_scan_bidir(u, dtf, Af, Bm, Cm, Df,
                                       u, dtb, Ab, Bm, Cm, Db)
@@ -561,12 +593,9 @@ def selective_scan_bidir_shared(u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db,
     if impl != "bmajor":
         raise ValueError(f"unknown impl {impl!r}")
     flop_record(scan_flops(*u.shape, Af.shape[1], streams=2))
-    args = (u, dtf, dtb, Af, Ab, Bm, Cm, Df, Db)
-    if u.device.type == "cuda":
-        return _scan_bidir_shared_cuda(*args)
-    if u.device.type == "cpu":
-        return selective_scan_bidir_shared_plain(*args)
-    raise ValueError(f"selective_scan_bidir_shared: no kernel for {u.device}")
+    return kernel_vjp("selective_scan_bidir_shared", _scan_bidir_shared_cuda,
+                      selective_scan_bidir_shared_plain, u, dtf, dtb, Af, Ab,
+                      Bm, Cm, Df, Db)
 
 
 def fused_bidir_ssm_plain(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
@@ -727,16 +756,14 @@ def _fused_bidir_ssm_cuda(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
 def fused_bidir_ssm_kernel(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb,
                            Af, Ab, Df, Db, dt_rank: int) -> torch.Tensor:
     """Wrapper of the CUDA kernel: launches it for a CUDA tensor, takes the
-    plain version for a CPU tensor. Records ``fused_flops``."""
+    plain version for a CPU tensor. Records ``fused_flops``.
+    Differentiable in all 13 tensors through ``fused_bidir_ssm_plain``
+    (JAX's ``_fused_bissm_diffable``, ops/scan.py:998-1017)."""
     flop_record(fused_flops(*u_pre.shape, Af.shape[1], cw.shape[-1],
                             dt_rank))
-    args = (u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb, Af, Ab, Df, Db,
-            dt_rank)
-    if u_pre.device.type == "cuda":
-        return _fused_bidir_ssm_cuda(*args)
-    if u_pre.device.type == "cpu":
-        return fused_bidir_ssm_plain(*args)
-    raise ValueError(f"fused_bidir_ssm: no kernel for device {u_pre.device}")
+    return kernel_vjp("fused_bidir_ssm", _fused_bidir_ssm_cuda,
+                      fused_bidir_ssm_plain, u_pre, gate, cw, cb, wx, wdt,
+                      bdt, dtbf, dtbb, Af, Ab, Df, Db, dt_rank=dt_rank)
 
 
 def fused_bidir_ssm(u_pre, gate, cw, cb, wx, wdt, bdt, dtbf, dtbb, Af, Ab,

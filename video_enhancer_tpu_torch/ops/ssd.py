@@ -26,6 +26,7 @@ import torch
 
 from .. import kernels
 from ..utils.flops import record as flop_record
+from .vjp import kernel_vjp
 
 __all__ = ["ssd_chunk_size", "ssd_flops", "ssd_shared", "ssd_shared_plain",
            "ssd_shared_kernel"]
@@ -247,15 +248,15 @@ def ssd_shared_kernel(x, dt, A, Bm, Cm, chunk: int = 256,
     plain version for a CPU tensor (``chunk`` only affects the latter; the
     kernel's own chunk length gives the same result up to rounding).
     Records the JAX package's analytic FLOPs of its kernel path
-    (``ssd_flops``, ops/ssd.py:466-474 there)."""
+    (``ssd_flops``, ops/ssd.py:466-474 there). Differentiable: under grad
+    mode the backward recomputes through ``ssd_shared_plain``
+    (ops/vjp.py; JAX's ``_ssd_shared_diffable``, ops/ssd.py:418-442)."""
     b, L, H, P = x.shape
     flop_record(ssd_flops(b, L, H, P, Bm.shape[-1], chunk))
-    if x.device.type == "cuda":
-        return _ssd_shared_cuda(x, dt, A, Bm, Cm, reverse)
-    if x.device.type == "cpu":
-        return ssd_shared_plain(x, dt, A, Bm, Cm, chunk=chunk,
-                                reverse=reverse)
-    raise ValueError(f"ssd_shared: no kernel for device {x.device}")
+    return kernel_vjp("ssd_shared",
+                      lambda *a, chunk, reverse: _ssd_shared_cuda(*a, reverse),
+                      ssd_shared_plain, x, dt, A, Bm, Cm, chunk=chunk,
+                      reverse=reverse)
 
 
 def ssd_shared(x, dt, A, Bm, Cm, chunk: int = 256, reverse: bool = False,

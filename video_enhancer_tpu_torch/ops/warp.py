@@ -80,15 +80,30 @@ def _shift(a: torch.Tensor, s: int, dim: int) -> torch.Tensor:
 
 
 def flow_warp_local(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """img ``(..., H, W, C)``; flow ``(..., H, W, 2)`` as (dy, dx)."""
+    """img ``(..., H, W, C)``; flow ``(..., H, W, 2)`` as (dy, dx). Where
+    autograd records it, the tent weights ``max(0, 1 - |d - s|)`` take the
+    JAX package's gradients at an integer flow (vsrm's offsets at init are
+    exactly 0): ``|u|``'s is +1 at u = 0 (``lax.abs``), and
+    ``torch.maximum`` passes half at the tie with 0 (``lax.max``);
+    ``torch.abs`` and ``clamp`` would give 0 and 1. Else the tents are
+    ``clamp(1 - |d - s|, min=0)``, the same values in fewer ops."""
     ff = flow.to(img.dtype)
     dy, dx = ff[..., 0:1], ff[..., 1:2]
     h_ax, w_ax = img.ndim - 3, img.ndim - 2
     out = torch.zeros_like(img)
+    if torch.is_grad_enabled() and (img.requires_grad or flow.requires_grad):
+        zero = torch.zeros((), dtype=img.dtype, device=img.device)
+
+        def tent(u):
+            return torch.maximum(zero, 1.0 - torch.where(u >= 0, u, -u))
+    else:
+        def tent(u):
+            return torch.clamp(1.0 - torch.abs(u), min=0.0)
+
     for sy in (-1, 0, 1):
-        wy = torch.clamp(1.0 - torch.abs(dy - sy), min=0.0)
+        wy = tent(dy - sy)
         row = _shift(img, sy, h_ax)
         for sx in (-1, 0, 1):
-            wx = torch.clamp(1.0 - torch.abs(dx - sx), min=0.0)
+            wx = tent(dx - sx)
             out = out + wy * wx * _shift(row, sx, w_ax)
     return out

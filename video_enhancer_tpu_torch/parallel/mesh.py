@@ -38,7 +38,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["AXES", "Axis", "TimeAxis", "Mesh", "make_mesh", "mesh_on_group",
-           "factor_devices", "halo_exchange"]
+           "local_mesh", "factor_devices", "halo_exchange"]
 
 AXES = ("data", "time", "space")
 
@@ -63,9 +63,12 @@ class Axis:
         """Every rank's ``t`` in axis order: stacked along a new leading
         axis, or with ``tiled`` concatenated along ``dim`` (as
         ``jax.lax.all_gather``)."""
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
+        if self.size == 1:
+            parts = [t]
+        else:
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
@@ -183,6 +186,14 @@ def mesh_on_group(data: int = 1, time: int = 1, space: int = 1,
                     group = g
         axes[name] = Axis(dims[a], int(coords[a]), group, dev)
     return Mesh(axes, rank, dev)
+
+
+def local_mesh(device: str | torch.device | None = None) -> Mesh:
+    """A one-rank mesh with no process group: every axis of size 1 on
+    ``device`` (the card unless ``"cpu"``), each collective the identity.
+    What ``make_mesh()`` gives at one rank, without starting a group."""
+    dev = resolve_device(device)
+    return Mesh({name: Axis(1, 0, None, dev) for name in AXES}, 0, dev)
 
 
 def make_mesh(data: int = 1, time: int = 1, space: int = 1, rank: int = 0,

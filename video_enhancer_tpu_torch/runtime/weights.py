@@ -12,7 +12,10 @@ everything else keeps its initialisation. ``try_load_params`` is one link
 of the JAX package's weight-resolution chain (:108-132): a ``.npz`` or a
 PyTorch ``.pt``/``.pth`` state dict (``convert_torch_state_dict``, :87-105),
 or a directory holding one, loaded into a template, or None when the file
-is missing, unreadable or matches no key.
+is missing, unreadable or matches no key. ``save_params`` writes the port's
+parameters back as such a flat ``.npz``, in the JAX package's keys and
+layouts (``to_jax_layout`` inverts ``convert_array`` rule by rule), so that
+both packages' ``try_load_params`` load what the port exports.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ import torch
 
 log = logging.getLogger(__name__)
 
-__all__ = ["convert_array", "params_from_jax", "flatten_params",
-           "load_into", "read_npz", "convert_torch_state_dict",
-           "try_load_params"]
+__all__ = ["convert_array", "to_jax_layout", "params_from_jax",
+           "flatten_params", "load_into", "read_npz", "save_params",
+           "convert_torch_state_dict", "try_load_params"]
 
 
 def convert_array(key: str, arr: np.ndarray) -> torch.Tensor:
@@ -43,6 +46,25 @@ def convert_array(key: str, arr: np.ndarray) -> torch.Tensor:
     if leaf == "w" and t.ndim == 2:           # (in, out) -> Linear (out, in)
         return t.t().contiguous()
     return t
+
+
+def to_jax_layout(key: str, t: torch.Tensor) -> np.ndarray:
+    """One port-layout tensor -> the JAX package's layout, by its key and
+    rank: the inverse of ``convert_array``. Floating tensors come back as
+    fp32."""
+    leaf = key.rpartition(".")[2]
+    t = t.detach().cpu()
+    if t.is_floating_point():
+        t = t.float()
+    if leaf == "conv_w" and t.ndim == 3:      # Conv1d (C, 1, K) -> (K, 1, C)
+        t = t.permute(2, 1, 0)
+    elif leaf == "w" and t.ndim == 5:         # Conv3d -> (kt,kh,kw,Cin,Cout)
+        t = t.permute(2, 3, 4, 1, 0)
+    elif leaf == "w" and t.ndim == 4:         # Conv2d -> (kh,kw,Cin,Cout)
+        t = t.permute(2, 3, 1, 0)
+    elif leaf == "w" and t.ndim == 2:         # Linear (out, in) -> (in, out)
+        t = t.t()
+    return np.ascontiguousarray(t.numpy())
 
 
 def _nest(flat: dict) -> dict:
@@ -124,6 +146,18 @@ def read_npz(path: str | Path) -> dict[str, np.ndarray]:
         p = npzs[0]
     with np.load(p, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+def save_params(path: str | Path, params) -> str:
+    """Write ``params`` as a flat ``.npz`` in the JAX package's keys and
+    layouts (its ``save_params``, video_enhancer_tpu/runtime/weights.py
+    :66-70): the parent directory is made, numpy adds ``.npz`` to a path
+    without it. Returns the path as given."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: to_jax_layout(k, v)
+                      for k, v in flatten_params(params).items()})
+    return str(path)
 
 
 def convert_torch_state_dict(state_dict) -> dict[str, np.ndarray]:
