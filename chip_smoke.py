@@ -243,8 +243,22 @@ plan holds ``temporal_consistency`` (all but 11 here): the streamed frames of
 window 0 are then held within 1 LSB of the stage run on window 0's rounded
 output (the stage is causal), and the stats must say it ran with no error.
 
-Phase 21's launches a step, by model, are on a line of their own before
-the kernels' record. The line before the card's name and power limit
+22. the train CLI on the card (fp32, TF32 off): (a) ``train.cli.main``
+   trains vsrm x4 at its bundled widths from ``--init-npz`` the bundled
+   ``vsrm_4x.npz``, ``--through-calibration vsrm``, on the default mixed
+   bank and mixture (so the WebP chain family runs), batch 4 x 4 frames at
+   crop 128: 8 steps with ``--ckpt-dir``, then 4 more resumed from it with
+   ``--export``; exactly 12 SSD and 6 fused SSM launches a step; the
+   export, loaded through ``try_load_params``, equals the final
+   checkpoint's parameters and enhances one window to finite frames; it
+   prints the seconds a step, the data thread's seconds a batch and the
+   device's milliseconds a step (CUDA events around each step); (b)
+   ``faces.main``, ``face_detector.main`` and ``lpips.main`` a few steps
+   each on the card, exporting into a temporary directory, with their
+   held-out figures.
+
+Phase 21's and phase 22's launches a step are on lines of their own
+before the kernels' record. The line before the card's name and power limit
 holds the kernels' JSON record; the last line is ``{"ok": true,
 "device": {...}}``. The script
 needs a card: without one it exits non-zero and prints no result. It
@@ -344,12 +358,16 @@ from video_enhancer_tpu_torch.runtime.vsr_handler import (VSRHandler,
                                                          cast_params,
                                                          window_quality)
 from video_enhancer_tpu_torch.runtime.weights import (flatten_params,
+                                                     try_load_params,
                                                      load_into,
                                                      params_from_jax,
                                                      read_npz)
 from video_enhancer_tpu_torch.serving.app import ApiServer, create_app
 from video_enhancer_tpu_torch.serving.http import serve
-from video_enhancer_tpu_torch.train import evalsuite, lpips
+from video_enhancer_tpu_torch.train import cli as train_cli
+from video_enhancer_tpu_torch.train import evalsuite, face_detector, faces
+from video_enhancer_tpu_torch.train import lpips
+from video_enhancer_tpu_torch.train import step as train_step_mod
 from video_enhancer_tpu_torch.train.checkpoint import (export_params,
                                                        restore_checkpoint,
                                                        save_checkpoint)
@@ -4078,6 +4096,133 @@ def training(device_line: str) -> dict:
     return out
 
 
+CLI_STEPS, CLI_MORE = 8, 4
+CLI_WANT = {"ssd_shared": 12, "fused_bidir_ssm": 6}
+
+
+def _quiet(fn, argv: list[str]) -> tuple[int, list[str]]:
+    """``fn(argv)``'s exit code and the lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _cli_run(argv: list[str], per_step: list, device_ms: list) -> list[str]:
+    """``train.cli.main(argv)`` with each step's launches and device time
+    recorded; returns its output lines."""
+    make = train_step_mod.make_train_step
+
+    def counted(*a, **kw):
+        init_state, step, shard = make(*a, **kw)
+
+        def run(state, batch):
+            kernels.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(state, batch)
+            ev[1].record()
+            per_step.append(_nonzero(dict(kernels.launch_counts)))
+            device_ms.append(ev)
+            return out
+        return init_state, run, shard
+
+    train_step_mod.make_train_step = counted
+    try:
+        rc, lines = _quiet(train_cli.main, argv)
+    finally:
+        train_step_mod.make_train_step = make
+    print("\n".join("  " + line for line in lines))
+    check(rc == 0, f"train CLI {argv[:2]} exited {rc}")
+    return lines
+
+
+@phase("22 train CLI")
+def train_cli_path(device_line: str) -> dict:
+    """Phase 22 (a): vsrm x4 through the train CLI, resumed and exported;
+    (b) the three small trainers' mains."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        init = (Path(__file__).resolve().parent / "video_enhancer_tpu"
+                / "weights" / "vsrm_4x.npz")
+        argv = ["--model", "vsrm", "--scale", "4", "--init-npz", str(init),
+                "--through-calibration", "vsrm", "--batch", "4",
+                "--clip-len", "4", "--crop", "128", "--log-every", "4",
+                "--ckpt-dir", f"{d}/ck"]
+        per_step, events = [], []
+        first = _cli_run(argv + ["--steps", str(CLI_STEPS)], per_step,
+                         events)
+        check(any(line.startswith("warm-started") for line in first),
+              "the CLI did not warm-start from vsrm_4x.npz")
+        more = _cli_run(argv + ["--steps", str(CLI_STEPS + CLI_MORE),
+                                "--export", f"{d}/vsrm.npz"], per_step,
+                        events)
+        check(f"resumed from step {CLI_STEPS}" in more,
+              "the second run did not resume from the checkpoint")
+        check(len(per_step) == CLI_STEPS + CLI_MORE,
+              f"{len(per_step)} steps ran")
+        check(all(c == CLI_WANT for c in per_step),
+              f"launches a step {per_step} != {CLI_WANT}")
+        torch.cuda.synchronize()
+        dev_ms = [a.elapsed_time(b) for a, b in events]
+        timings = [json.loads(line)["timing"] for line in first + more
+                   if line.startswith('{"timing"')]
+        losses = [json.loads(line)["loss"] for line in first + more
+                  if line.startswith('{"step"')]
+        check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+
+        # the export through the port's weight loading, one window
+        params = try_load_params(f"{d}/vsrm.npz", vsrm.init(
+            torch.Generator().manual_seed(1), dim=64, num_blocks=6, scale=4))
+        check(params is not None, "the export did not load")
+        saved = torch.load(Path(d) / "ck" / str(CLI_STEPS + CLI_MORE)
+                           / "state.pt", map_location="cpu",
+                           weights_only=True)["params"]
+        flat_e, flat_s = flatten_params(params), flatten_params(saved)
+        check(flat_e.keys() == flat_s.keys() and all(
+            torch.equal(flat_e[k].cpu(), flat_s[k].cpu()) for k in flat_e),
+            "the export differs from the final checkpoint")
+        clip = torch.from_numpy(np.stack(synthetic_clip(8, 64, 96))[None]
+                                ).cuda().float() / 255.0
+        with torch.inference_mode():
+            y = vsrm.apply(cast_params(params, torch.float32, "cuda"), clip,
+                           scale=4)
+        check(tuple(y.shape) == (1, 8, 256, 384, 3)
+              and bool(torch.isfinite(y).all()), "the export's window")
+        a_secs = time.perf_counter() - t0
+        data_s = [t["data_sec_per_batch"] for t in timings]
+        step_s = [t["sec_per_step"] for t in timings]
+        print(f"train CLI vsrm x4 ({device_line}): {len(per_step)} steps, "
+              f"{per_step[0]} launches a step; s/step {step_s}; data "
+              f"thread s/batch {data_s}; wait s/step "
+              f"{[t['wait_sec_per_step'] for t in timings]}; device ms/step "
+              f"median {statistics.median(dev_ms[2:]):.1f} "
+              f"({', '.join(f'{v:.1f}' for v in dev_ms)}); losses {losses}; "
+              f"(a) {a_secs:.1f} s")
+
+        # (b) the three small trainers on the card
+        t1 = time.perf_counter()
+        held = {}
+        for name, fn, argv_b in (
+                ("faces", faces.main, ["--steps", "4"]),
+                ("face_detector", face_detector.main,
+                 ["--steps", "4", "--eval-n", "16"]),
+                ("lpips", lpips.main, ["--steps", "4"])):
+            rc, lines = _quiet(fn, argv_b + ["--export", f"{d}/{name}.npz"])
+            check(rc == 0 and (Path(d) / f"{name}.npz").stat().st_size > 0,
+                  f"{name}.main")
+            held[name] = [line for line in lines if "held-out" in line]
+            check(len(held[name]) == 1, f"{name}: {lines}")
+            print(f"{name} ({device_line}): {held[name][0]}")
+        print(f"phase 22: (a) {a_secs:.1f} s, (b) "
+              f"{time.perf_counter() - t1:.1f} s")
+    return {"vsrm": per_step[0], "device_ms": dev_ms, "timing": timings,
+            "held": held}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs the card",
@@ -4111,6 +4256,7 @@ def main() -> int:
     restorers = sharded_restorers(f"{env['kind']}, {env['smi']}")
     scaffold_rows = scaffolding(env["kind"], f"{env['kind']}, {env['smi']}")
     trained = training(f"{env['kind']}, {env['smi']}")
+    cli_run = train_cli_path(f"{env['kind']}, {env['smi']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -4140,6 +4286,8 @@ def main() -> int:
     # phase 21's launches a train step, by model, on their own line
     print("phase 21 launches: " + json.dumps(
         {name: trained[name] for name in TRAIN_MODELS}))
+    # phase 22's launches a train CLI step (vsrm x4), on their own line
+    print("phase 22 launches: " + json.dumps({"vsrm": cli_run["vsrm"]}))
     print(json.dumps({"kernels": kernel_record(rec, counts) + eval_rows}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

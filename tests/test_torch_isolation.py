@@ -25,7 +25,9 @@ host ops and JPEG round trip) and the coordinator's workflow on an
 serving (``/ui``, ``/health``), probes it with ``validate --mode ci`` and
 runs ``warm_start``, all on the CPU; one, likewise (optax and orbax
 unimportable too), trains a tiny vsrm two steps, saves, restores and
-exports it, and runs the dry run at one rank."""
+exports it, and runs the dry run at one rank; one, likewise (PIL too),
+runs the train CLI on its mixed bank, the face, detector and LPIPS
+trainers' mains, the held-out face scenes and the WebP round trip."""
 
 from __future__ import annotations
 
@@ -370,6 +372,42 @@ print(json.dumps({
 """ % (BAD,)
 
 
+TRAIN_CLI = r"""
+import contextlib, io, json, os, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r + ("PIL",):
+    sys.modules[name] = None
+import numpy as np
+from video_enhancer_tpu_torch.io.webp import webp_roundtrip
+from video_enhancer_tpu_torch.train import cli, face_detector, faces, lpips
+weights = os.path.join(sys.argv[1], "video_enhancer_tpu", "weights")
+before = {f: os.path.getmtime(os.path.join(weights, f))
+          for f in os.listdir(weights)}
+os.chdir(sys.argv[2])
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = [cli.main(["--model", "cnn_upscaler", "--dim", "8", "--steps", "2",
+                    "--batch", "2", "--clip-len", "2", "--crop", "32",
+                    "--log-every", "1", "--export", "w.npz", "--device",
+                    "cpu"]),
+          faces.main(["--steps", "1", "--device", "cpu"]),
+          face_detector.main(["--steps", "1", "--device", "cpu",
+                              "--eval-n", "2"]),
+          lpips.main(["--steps", "1", "--device", "cpu"])]
+imgs, boxes = face_detector.make_alt_face_scenes(2, seed=1)
+logs = [json.loads(l) for l in out.getvalue().splitlines()
+        if l.startswith('{"step"')]
+print(json.dumps({
+    "rc": rc, "steps": [l["step"] for l in logs],
+    "files": sorted(f for f in os.listdir(".") if f.endswith(".npz")),
+    "webp": list(webp_roundtrip(np.zeros((16, 16, 3), np.uint8),
+                                50).shape),
+    "alt": [list(imgs.shape), len(boxes)],
+    "bundled_untouched": before == {f: os.path.getmtime(
+        os.path.join(weights, f)) for f in os.listdir(weights)}}))
+""" % (BAD,)
+
+
 def _run(code: str, *args) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT),
                           *map(str, args)],
@@ -408,7 +446,9 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "config.production", "serving.ui", "utils.flops",
                  "utils.timing", "utils.debug", "utils.recovery",
                  "utils.protection", "ops.vjp", "train.losses",
-                 "train.step", "train.checkpoint", "parallel.dryrun"):
+                 "train.step", "train.checkpoint", "parallel.dryrun",
+                 "train.cli", "train.faces", "train.face_detector",
+                 "io.webp"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -532,3 +572,17 @@ def test_training_runs_without_jax_cv2_yaml_psutil_or_optax(tmp_path):
     res = _run(TRAIN, tmp_path)
     assert res == {"step": 2, "loss": True, "export": True,
                    "dryrun": [0, 9]}
+
+
+def test_train_cli_and_trainers_run_without_jax_cv2_pil_yaml_or_optax(
+        tmp_path):
+    """The train CLI on the mixed bank (make_train_frames, the WebP chain
+    family), the three small trainers' mains (their exports in the working
+    directory, none under video_enhancer_tpu/weights/), the held-out face
+    scenes and the WebP round trip, with those packages unimportable."""
+    res = _run(TRAIN_CLI, tmp_path)
+    assert res == {"rc": [0, 0, 0, 0], "steps": [1, 2],
+                   "files": ["face_detector.npz", "face_restorer.npz",
+                             "lpips_proxy.npz", "w.npz"],
+                   "webp": [16, 16, 3], "alt": [[2, 128, 128, 3], 2],
+                   "bundled_untouched": True}

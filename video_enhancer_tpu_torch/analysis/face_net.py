@@ -35,6 +35,7 @@ __all__ = ["init", "apply", "decode", "net_input", "detect", "INPUT_SIZE",
 
 INPUT_SIZE = 128
 STRIDE = 8  # space-to-depth 2, then two stride-2 convs
+GRID = INPUT_SIZE // STRIDE
 
 
 def init(gen: torch.Generator, dim: int = 32) -> dict:

@@ -33,11 +33,7 @@ through a ``file://`` store): gloo on the CPU, NCCL on the card.
 from __future__ import annotations
 
 import argparse
-import os
-import subprocess
 import sys
-import tempfile
-from pathlib import Path
 
 import torch
 
@@ -48,7 +44,8 @@ from ..nn.ssm import bissm_apply, bissm_apply_sharded, bissm_init
 from ..train.step import make_optimizer, make_train_step, tree_leaves
 from .inference import (make_exact_sharded_ditvr, make_exact_sharded_fmv,
                         make_exact_sharded_seedvr2, make_exact_sharded_vsrm)
-from .mesh import AXES, Mesh, factor_devices, make_mesh, mesh_on_group
+from .mesh import (AXES, Mesh, factor_devices, launch_ranks, make_mesh,
+                   mesh_on_group)
 from .model_parallel import make_fsdp_shardings, make_sharded_ditvr
 
 __all__ = ["run_dryrun"]
@@ -216,33 +213,10 @@ def main(argv=None) -> int:
         args.rank = args.rank or 0
         _rank_main(args)
         return 0
-    with tempfile.TemporaryDirectory(prefix="dryrun-") as d:
-        env = dict(os.environ)
-        env.setdefault("OMP_NUM_THREADS",
-                       str(max(1, (os.cpu_count() or 1) // args.ranks)))
-        cmd = [sys.executable, "-m", __spec__.name, "--ranks", str(args.ranks), "--init-file", f"{d}/store"]
-        if args.device:
-            cmd += ["--device", args.device]
-        procs = [subprocess.Popen(cmd + ["--rank", str(r)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True,
-                                  cwd=Path(__file__).resolve().parents[2],
-                                  env=env) for r in range(args.ranks)]
-        logs = []
-        try:
-            for proc in procs:
-                logs.append(proc.communicate(timeout=TIMEOUT_S)[0])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-    # rank 0's lines; the log of the first other rank that failed
-    print(logs[0], end="")
-    failed = [r for r, proc in enumerate(procs) if proc.returncode]
-    if failed and failed[0]:
-        print(logs[failed[0]], end="", file=sys.stderr)
-    return 1 if failed else 0
+    argv = ["--ranks", str(args.ranks)]
+    if args.device:
+        argv += ["--device", args.device]
+    return launch_ranks(__spec__.name, argv, args.ranks, TIMEOUT_S)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,9 @@ devices; they have no counterpart: here each rank cuts its own shard
 from __future__ import annotations
 
 import datetime
+import os
+import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -38,6 +41,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["AXES", "Axis", "TimeAxis", "Mesh", "make_mesh", "mesh_on_group",
+           "launch_ranks",
            "local_mesh", "factor_devices", "halo_exchange"]
 
 AXES = ("data", "time", "space")
@@ -266,3 +270,37 @@ def halo_exchange(x: torch.Tensor, halo: int, axis, dim: int,
     else:
         from_right = blocks[idx + 1, 0]
     return torch.cat([from_left, x, from_right], dim=dim)
+
+
+def launch_ranks(module: str, argv: list[str], n: int,
+                 timeout_s: float) -> int:
+    """Run ``python -m module *argv --init-file F --rank r`` for each of
+    ``n`` ranks as child processes meeting through the ``file://`` store F
+    (each joins with ``make_mesh(..., rank=r, init_file=F)``), print rank
+    0's output (and the first other failed rank's to stderr); 1 if any
+    rank failed."""
+    with tempfile.TemporaryDirectory(prefix="ranks-") as d:
+        env = dict(os.environ)
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1)
+                                                  // n)))
+        cmd = [sys.executable, "-m", module, *argv, "--init-file",
+               f"{d}/store"]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  cwd=Path(__file__).resolve().parents[2],
+                                  env=env) for r in range(n)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=timeout_s)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(logs[0], end="")
+    failed = [r for r, proc in enumerate(procs) if proc.returncode]
+    if failed and failed[0]:
+        print(logs[failed[0]], end="", file=sys.stderr)
+    return 1 if failed else 0

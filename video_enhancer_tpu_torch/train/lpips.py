@@ -5,26 +5,38 @@ A small conv feature net, trained in the JAX package with a margin
 ranking loss on synthetic distortion ladders; the port loads its bundled
 weights (``weights/lpips_proxy.npz``, read-only) into ``feat_init``'s
 template and evaluates the distance in torch on the caller's device.
-``distort`` and the ladders use ``ops/cvhost.py`` in place of OpenCV. The
-trainer (``train``, ``main``) is not ported.
+``distort`` and the ladders use ``ops/cvhost.py`` in place of OpenCV.
+``train`` retrains it with optax's Adam on the temperature-scaled ranking
+loss, and
+
+    python -m video_enhancer_tpu_torch.train.lpips --steps 400 \
+        [--export lpips_proxy.npz] [--device cpu]
+
+prints the held-out severity Spearman and exports ``{"layers": ...}``;
+the export defaults to ``lpips_proxy.npz`` in the current directory, and
+the bundled weights under ``video_enhancer_tpu/weights/`` are never
+written.
 """
 
 from __future__ import annotations
 
+import argparse
 import pathlib
 
 import numpy as np
 import torch
 
 from .. import nn
-from ..device import resolve_device
+from ..device import full_fp32, platform_device, resolve_device
 from ..ops import cvhost
 from ..runtime.vsr_handler import cast_params
 from ..runtime.weights import try_load_params
+from .step import make_adam_step
 
 __all__ = ["feat_init", "feat_apply", "lpips_distance", "load_proxy",
            "DISTORTIONS", "distort", "make_rank_batch", "spearman",
-           "severity_ladder_corr", "PROXY_NPZ"]
+           "severity_ladder_corr", "rank_loss", "train", "main",
+           "PROXY_NPZ"]
 
 PROXY_NPZ = (pathlib.Path(__file__).resolve().parents[2]
              / "video_enhancer_tpu" / "weights" / "lpips_proxy.npz")
@@ -177,3 +189,64 @@ def severity_ladder_corr(params: list, frames: np.ndarray, crop: int = 96,
         quality = -10.0 * np.log10(mse + 1e-12)  # PSNR
         corrs.append(spearman(d, -quality))
     return float(np.mean(corrs))
+
+
+def rank_loss(p, ref, mild, worse):
+    """The temperature-scaled ranking loss: the milder distortion must
+    score closer (raw distances are O(1e-3), hence the scale)."""
+    d_mild = lpips_distance(p, ref, mild)
+    d_worse = lpips_distance(p, ref, worse)
+    return torch.mean(torch.nn.functional.softplus(80.0 * (d_mild - d_worse)
+                                                   + 1.0))
+
+
+def train(steps: int = 400, batch: int = 16, crop: int = 96,
+          lr: float = 1e-3, seed: int = 0, device=None, params=None,
+          log_every: int = 50):
+    """``(layers, frames)``: the proxy after ``steps`` Adam steps on the
+    demo frames' ranking batches (random from ``seed`` unless ``params``
+    is given), on ``device``."""
+    from ..io.demo import make_demo_frames
+
+    dev = resolve_device(device)
+    frames = make_demo_frames(32, (192, 192))
+    if params is None:
+        params = feat_init(torch.Generator().manual_seed(seed))
+    params = [{k: v.detach().to(dev, torch.float32) for k, v in layer.items()}
+              for layer in params]
+    init, step = make_adam_step(rank_loss, lr)
+    opt_state = init(params)
+    with full_fp32():
+        for i in range(steps):
+            batch_np = make_rank_batch(frames, batch, crop, seed=i)
+            params, opt_state, loss = step(
+                params, opt_state,
+                *(torch.from_numpy(a).to(dev) for a in batch_np))
+            if (i + 1) % log_every == 0:
+                print(f"step {i + 1}: rank loss {float(loss):.4f}",
+                      flush=True)
+    return params, frames
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Train the LPIPS proxy.")
+    p.add_argument("--steps", type=int, default=400)
+    p.add_argument("--export", default="lpips_proxy.npz")
+    p.add_argument("--platform", default=None)
+    p.add_argument("--device", default=None)
+    args = p.parse_args(argv)
+    from ..runtime.weights import save_params
+
+    device = resolve_device(args.device or (
+        platform_device(args.platform) if args.platform else None))
+    params, frames = train(steps=args.steps, device=device)
+    with full_fp32():
+        corr = severity_ladder_corr(params, frames)
+    print(f"held-out severity Spearman: {corr:.3f}")
+    save_params(args.export, {"layers": params})
+    print(f"exported to {args.export}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -42,7 +42,7 @@ from torch.profiler import record_function
 from .losses import vsr_loss
 
 __all__ = ["TrainState", "AdamW", "make_optimizer", "make_train_step",
-           "tree_leaves", "tree_unflatten"]
+           "make_adam_step", "tree_leaves", "tree_unflatten"]
 
 
 @dataclasses.dataclass
@@ -86,10 +86,14 @@ B1, B2, EPS, MAX_NORM = 0.9, 0.999, 1e-8, 1.0
 
 class AdamW:
     """optax's ``chain(clip_by_global_norm(MAX_NORM), adamw(lr, B1, B2, EPS,
-    eps_root=0, weight_decay))`` on lists of leaves (module docstring)."""
+    eps_root=0, weight_decay))`` on lists of leaves (module docstring).
+    ``max_norm=None`` drops the clip: with ``weight_decay=0`` that is
+    ``optax.adam(lr)``, the small trainers' optimizer."""
 
-    def __init__(self, lr: float = 2e-4, weight_decay: float = 1e-4):
+    def __init__(self, lr: float = 2e-4, weight_decay: float = 1e-4,
+                 max_norm: float | None = MAX_NORM):
         self.lr, self.weight_decay = lr, weight_decay
+        self.max_norm = max_norm
 
     def init(self, leaves: list) -> dict:
         """``count`` (0-d int32), ``mu`` and ``nu`` (zeros like each leaf)."""
@@ -106,10 +110,12 @@ class AdamW:
         """The new leaves and optimizer state after one step on ``grads``,
         in multi-tensor ops (a handful of launches for any number of
         leaves)."""
-        g_norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        clip = torch.where(g_norm < MAX_NORM, 1.0, MAX_NORM / g_norm)
-        grads = torch._foreach_mul(grads, clip)
+        if self.max_norm is not None:
+            g_norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            clip = torch.where(g_norm < self.max_norm, 1.0,
+                               self.max_norm / g_norm)
+            grads = torch._foreach_mul(grads, clip)
         count = state["count"] + 1
         bc1 = 1 - torch.pow(B1, count.float())
         bc2 = 1 - torch.pow(B2, count.float())
@@ -200,3 +206,28 @@ def make_train_step(apply_fn: Callable, optimizer: AdamW, mesh,
         return out
 
     return init_state, train_step, shard_batch
+
+
+def make_adam_step(loss_fn: Callable, lr: float):
+    """``(init, step)`` of a small trainer on one device:
+    ``step(params, opt_state, *batch) -> (params, opt_state, loss)``, the
+    gradients of ``loss_fn(params, *batch)`` applied with optax's
+    ``adam(lr)`` (``AdamW`` without clip or decay); ``init(params)`` makes
+    the optimizer state."""
+    opt = AdamW(lr=lr, weight_decay=0.0, max_norm=None)
+
+    def init(params):
+        return opt.init(tree_leaves(params))
+
+    def step(params, opt_state, *batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        with torch.enable_grad():
+            loss = loss_fn(tree, *batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        new, opt_state = opt.update(grads, opt_state, leaves)
+        return tree_unflatten(params, new), opt_state, loss.detach()
+
+    return init, step
