@@ -257,6 +257,26 @@ output (the stage is causal), and the stats must say it ran with no error.
    each on the card, exporting into a temporary directory, with their
    held-out figures.
 
+23. vsrm's attentive mixer and the last library layers: (a) with
+   ``$VETPU_PREFERRED_BACKBONE=mambairv2`` ``build_handler("vsrm")`` serves
+   the attentive vsrm x4 (seeded init at full width: no weights of it are
+   bundled) on a seeded 10-frame 180x320 clip, 3 windows: exactly 6 flash
+   and 6 fused SSM launches a window and no SSD, frames/s; the flash
+   kernel at the served q, k, v of a window's first block (7, 2, 57,600,
+   64) against the plain form run in blocks of 2,048 queries (the whole
+   call's fp32 logits would take 186 GB), with its time beside the plain
+   blocks', SDPA's and its bound and exps' floor; the model with a seeded
+   head and offset on a 64x96 window, kernels against the plain forms
+   (window bounds); the variable cleared, the registry serves the default
+   vsrm again (12 SSD + 6 fused SSM a window); (b) ``bimamba2`` at dim 64
+   over 7 rasters of 180x320 (2 heads of 64, N 32): 2 SSD launches a call,
+   against its plain form; the SSD kernel at that shape, both directions,
+   against its plain version with its plan, time and bound; (c)
+   ``FramePipeline`` over phase (a)'s clip as ``.avi`` yielding float32
+   windows on the card, equal to the frames / 255; the deblur nets and
+   resize's lanczos (x4 up) and area (x4 down) on the card against the CPU
+   in fp32 (TF32 off), with their times.
+
 Phase 21's and phase 22's launches a step are on lines of their own
 before the kernels' record. The line before the card's name and power limit
 holds the kernels' JSON record; the last line is ``{"ok": true,
@@ -300,8 +320,8 @@ from video_enhancer_tpu_torch.device import full_fp32
 from video_enhancer_tpu_torch.io.video import (read_video, sample_indices,
                                                write_video)
 from video_enhancer_tpu_torch.io.demo import make_demo_frames
-from video_enhancer_tpu_torch.io.pipeline import iter_windows
-from video_enhancer_tpu_torch.models import (ditvr, fast_mamba_vsr,
+from video_enhancer_tpu_torch.io.pipeline import FramePipeline, iter_windows
+from video_enhancer_tpu_torch.models import (deblur, ditvr, fast_mamba_vsr,
                                              official_arch, rvrt, seedvr2,
                                              vsrm)
 from video_enhancer_tpu_torch.models.official_gfpgan import (
@@ -310,7 +330,8 @@ from video_enhancer_tpu_torch.nn import ssm
 from video_enhancer_tpu_torch.ops import attention as attn_mod
 from video_enhancer_tpu_torch.ops import scan as scan_mod
 from video_enhancer_tpu_torch.ops import ssd as ssd_mod
-from video_enhancer_tpu_torch.nn.ssm import (bimamba_apply, bimamba_init,
+from video_enhancer_tpu_torch.nn.ssm import (bimamba2_apply, bimamba2_init,
+                                             bimamba_apply, bimamba_init,
                                              bissm_apply, ssm_apply)
 from video_enhancer_tpu_torch.ops.attention import (attention_ref,
                                                     flash_attention,
@@ -327,7 +348,7 @@ from video_enhancer_tpu_torch.ops.scan import (
     selective_scan_bidir_shared, selective_scan_bidir_shared_plain,
     selective_scan_pallas, selective_scan_pallas_short, selective_scan_plain)
 from video_enhancer_tpu_torch.ops.optflow import estimate_flow_farneback
-from video_enhancer_tpu_torch.ops.resize import resize
+from video_enhancer_tpu_torch.ops.resize import resize, resize_video
 from video_enhancer_tpu_torch.ops.ssd import (_ssd_plan, ssd_shared_kernel,
                                               ssd_shared_plain)
 from video_enhancer_tpu_torch.runtime.calibration import (calibrate_restore,
@@ -441,6 +462,17 @@ SHARED_SHAPES = [dict(B=180 * 320, L=7, D=128, N=4, dt_rank=4),
 # of in_proj's 290-wide output (z 128 | x, B, C 160 | dt 2), K = 5; and K = 4
 DWCONV_SHAPE = dict(B=7, L=180 * 320, C=160, ld=290, off=128)
 DWCONV_KS = (5, 4)
+
+# phase 23: vsrm's attentive mixer at 180x320, window 7 (dim 64 -> inner
+# 128 in 2 heads of 64 over each frame's 57,600 tokens), held against the
+# plain form in blocks of queries; bimamba2 at dim 64 over 7 frames'
+# rasters (inner 128 in 2 heads of 64, N 32: the SSD's CUDA-core route)
+FLASH_ATTENTIVE_SHAPE = dict(B=7, H=2, L=180 * 320, Dh=64)
+ATTENTIVE_QUERY_BLOCK = 2048
+ATTENTIVE_FRAMES = 10            # 3 windows of 7 every 3
+SSD_MAMBA2_SHAPE = dict(b=7, L=180 * 320, H=2, P=64, N=32)
+# the card against the CPU in fp32 (TF32 off): the deblur nets, resize
+DEVICE_FP32_MAX_ABS = 1e-5
 
 # tolerances: max |kernel - plain| / max |plain|
 TOL = {("ssd_shared", "float32"): 1e-4, ("ssd_shared", "bfloat16"): 2e-2,
@@ -2729,6 +2761,11 @@ def kernel_record(rec: dict, counts: dict) -> list[dict]:
             "video_enhancer_tpu/ops/ssd.py:325"),
         "flash_attention:3b": ("video_enhancer_tpu_torch/csrc/flash_attn.cu",
                                "video_enhancer_tpu/ops/attention.py:118"),
+        "flash_attention:attentive": (
+            "video_enhancer_tpu_torch/csrc/flash_attn.cu",
+            "video_enhancer_tpu/ops/attention.py:118"),
+        "ssd_shared:mamba2": ("video_enhancer_tpu_torch/csrc/ssd_shared.cu",
+                              "video_enhancer_tpu/ops/ssd.py:325"),
     }
     out = []
     for name, (source, replaces) in meta.items():
@@ -4222,6 +4259,327 @@ def train_cli_path(device_line: str) -> dict:
     return {"vsrm": per_step[0], "device_ms": dev_ms, "timing": timings,
             "held": held}
 
+def _attentive(handler) -> bool:
+    return all("qkv" in blk["spatial_ssm"] for blk in handler.params["blocks"])
+
+
+def _served_qkv(handler, clip: torch.Tensor) -> tuple:
+    """q, k, v of the first flash launch of one served window of
+    ``clip``: the views the mixer hands the kernel (strided column slices
+    of its qkv projection), kept alive."""
+    seen = []
+    real = attn_mod.flash_attention
+
+    def spy(q, k, v, scale=None):
+        if not seen:
+            seen.append((q, k, v))
+        return real(q, k, v, scale=scale)
+
+    attn_mod.flash_attention = spy
+    try:
+        handler.process_clip(clip)
+    finally:
+        attn_mod.flash_attention = real
+    check(len(seen) == 1, "the served window launched no flash kernel")
+    return seen[0]
+
+
+def _plain_by_query_block(q, k, v):
+    """attention_ref over blocks of ``ATTENTIVE_QUERY_BLOCK`` queries, one
+    (b, h) at a time: yields (b, h, first query, output)."""
+    for b in range(q.shape[0]):
+        for h in range(q.shape[1]):
+            kk, vv = k[b:b + 1, h:h + 1], v[b:b + 1, h:h + 1]
+            for s0 in range(0, q.shape[2], ATTENTIVE_QUERY_BLOCK):
+                qq = q[b:b + 1, h:h + 1, s0:s0 + ATTENTIVE_QUERY_BLOCK]
+                yield b, h, s0, attention_ref(qq, kk, vv)
+
+
+def _held_by_query_block(got, q, k, v) -> dict:
+    """The kernel's output ``got`` against the plain form in blocks of
+    queries: the largest error and its share of max|plain| (``rel``), the
+    same share for the uniform answer mean(v) over the keys, which a kernel
+    that lost the logits' weighting would give (``uniform_rel``), and the
+    logits' spread across keys (their std, averaged over the first block's
+    queries)."""
+    err = ref_max = uniform = 0.0
+    mean_v = v.float().mean(dim=2, keepdim=True)
+    for b, h, s0, ref in _plain_by_query_block(q, k, v):
+        ref = ref.float()
+        blk = got[b:b + 1, h:h + 1, s0:s0 + ref.shape[2]].float()
+        err = max(err, (blk - ref).abs().max().item())
+        uniform = max(uniform,
+                      (mean_v[b:b + 1, h:h + 1] - ref).abs().max().item())
+        ref_max = max(ref_max, ref.abs().max().item())
+    q0 = q[0, 0, :ATTENTIVE_QUERY_BLOCK].float()
+    logits = q0 @ k[0, 0].float().T * q.shape[-1] ** -0.5
+    ref_max = max(ref_max, 1e-30)
+    return dict(err=err, rel=err / ref_max, uniform_rel=uniform / ref_max,
+                logit_std=logits.std(dim=-1).mean().item())
+
+
+def _randn_strided(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """Seeded unit normals of ``t``'s shape, dtype and strides."""
+    out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                              device=t.device)
+    return out.copy_(torch.randn(t.shape, generator=g, device=t.device))
+
+
+def _flash_attentive(q, k, v, device_line: str) -> dict:
+    """Row 4 at the attentive mixer's served q, k, v against the plain
+    form in blocks of queries, and again at that shape and those strides on
+    seeded unit-normal q, k, v, whose logits spread far enough that the
+    uniform answer fails the limit; its time beside the plain blocks',
+    SDPA's, the bound and the exps' floor."""
+    tol = TOL[("flash_attention", "bfloat16")]
+    got = flash_attention(q, k, v)
+    check(bool(torch.isfinite(got.float()).all()),
+          "flash_attention:attentive: non-finite")
+    served = _held_by_query_block(got, q, k, v)
+    del got
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    qu, ku, vu = (_randn_strided(t, g) for t in (q, k, v))
+    got = flash_attention(qu, ku, vu)
+    check(bool(torch.isfinite(got.float()).all()),
+          "flash_attention:attentive, unit normals: non-finite")
+    unit = _held_by_query_block(got, qu, ku, vu)
+    del got, qu, ku, vu
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    dev = device_ms(lambda: flash_attention(q, k, v), ("flash",), iters=3)
+    plain_ms = time_ms(lambda: [o for *_, o in _plain_by_query_block(
+        q, k, v)], warmup=0, iters=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(q, k, v))
+    B, H, L, Dh = q.shape
+    nbytes, flops = _flash_cost(q.dtype, B=B, H=H, Lq=L, Lk=L, Dh=Dh)
+    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    for name, held in (("served q, k, v", served),
+                       ("seeded unit normals", unit)):
+        print(f"flash_attention:attentive {tuple(q.shape)} bf16, strides "
+              f"{q.stride()}, {name} ({device_line}): max_abs_err "
+              f"{held['err']:.3e} rel {held['rel']:.3e} (tol {tol:g}; plain "
+              f"in blocks of {ATTENTIVE_QUERY_BLOCK} queries); logits' std "
+              f"across keys {held['logit_std']:.4f}; the uniform answer "
+              f"mean(v) would be off by rel {held['uniform_rel']:.3e}")
+    print(f"flash_attention:attentive {tuple(q.shape)} bf16 "
+          f"({device_line}): kernel {ms:.4f} ms (device {dev}), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.1f} ms; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({flops / 1e12:.3f} TFLOP), exps' floor "
+          f"{ex2_floor_ms(B * H * L * L):.4f} ms")
+    check(served["rel"] <= tol,
+          f"flash_attention:attentive: rel {served['rel']} > {tol}")
+    check(unit["rel"] <= tol, f"flash_attention:attentive, unit normals: "
+          f"rel {unit['rel']} > {tol}")
+    check(unit["uniform_rel"] > tol, "flash_attention:attentive: the unit "
+          f"normals' check would pass the uniform answer "
+          f"(rel {unit['uniform_rel']})")
+    return dict(max_abs_err=max(served["err"], unit["err"]), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                flops=flops, peak=H100_BF16_FLOPS)
+
+
+def _attentive_vsrm(device_line: str, rec: dict) -> int:
+    """Phase 23 (a); returns the flash launches of the served run."""
+    os.environ["VETPU_PREFERRED_BACKBONE"] = "mambairv2"
+    try:
+        handler = build_handler("vsrm")
+    finally:
+        os.environ.pop("VETPU_PREFERRED_BACKBONE")
+    check(handler.device.type == "cuda" and _attentive(handler),
+          "the variable did not select the attentive mixer")
+    blocks = len(handler.params["blocks"])
+    n, h, w = ATTENTIVE_FRAMES, 180, 320
+    frames = synthetic_clip(n, h, w)
+    stride = handler.chunk - handler.overlap
+    windows = sum(1 for _ in iter_windows(frames, handler.chunk, stride))
+    first = torch.from_numpy(np.stack(frames[:handler.chunk])).cuda()
+    first = first.float() / 255.0
+    handler.process_clip(first)                       # warm-up, not counted
+    out, counts, secs = _counted(
+        lambda: list(handler.enhance_frames(iter(frames))))
+    check(len(out) == n and all(f.shape == (4 * h, 4 * w, 3) for f in out),
+          "attentive vsrm: bad frames")
+    want = _only(flash_attention=blocks * windows,
+                 fused_bidir_ssm=blocks * windows)
+    print(f"attentive vsrm x4 {h}x{w} ({device_line}): {n} frames, "
+          f"{windows} windows in {secs:.3f} s, {n / secs:.2f} frames/s, "
+          f"{1000 * secs / windows:.1f} ms/window; launches "
+          f"{_nonzero(counts)}; expected {_nonzero(want)}")
+    check(counts == want, f"launch counts {counts} != {want}")
+    q, k, v = _served_qkv(handler, first)
+    s = FLASH_ATTENTIVE_SHAPE
+    check(tuple(q.shape) == (s["B"], s["H"], s["L"], s["Dh"])
+          and q.dtype == torch.bfloat16, f"served q {tuple(q.shape)}")
+    rec["flash_attention:attentive"] = _flash_attentive(q, k, v, device_line)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # the model with a seeded head and offset, kernels against plain forms
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    params = dict(handler.params)
+    for name in ("head", "offset"):
+        wt = handler.params[name]["w"]
+        params[name] = {
+            "w": (torch.randn(wt.shape, generator=g, device="cuda")
+                  * (0.1 / math.sqrt(wt[0].numel()))).to(wt.dtype),
+            "b": (torch.randn(wt.shape[:1], generator=g, device="cuda")
+                  * 0.01).to(wt.dtype)}
+    small = (torch.from_numpy(np.stack(synthetic_clip(7, 64, 96))).cuda()
+             .float()[None] / 255.0).to(handler.dtype)
+    y_k, c_k, _ = _counted(lambda: vsrm.apply(params, small, scale=4,
+                                               mixer="attentive"))
+    y_p = vsrm.apply(params, small, scale=4, mixer="attentive",
+                     kernels=False)
+    y_0 = vsrm.apply(handler.params, small, scale=4, mixer="attentive")
+    check(c_k == _only(flash_attention=blocks, fused_bidir_ssm=blocks),
+          f"64x96 window: launches {c_k}")
+    diff = (y_k.float() - y_p.float()).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    moved = (y_k.float() - y_0.float()).abs().max().item()
+    print(f"attentive vsrm 64x96, seeded head, kernels vs plain (bf16): "
+          f"max_abs {mx:.4e} (tol {WINDOW_MAX_ABS}), mean_abs {mean:.4e} "
+          f"(tol {WINDOW_MEAN_ABS}); the head moves the output by "
+          f"{moved:.3f}")
+    check(mx <= WINDOW_MAX_ABS and mean <= WINDOW_MEAN_ABS,
+          "the attentive window differs from the plain forms")
+    check(moved > 1e-2, "the seeded head does not reach the frame")
+
+    # the variable cleared: the default vsrm again
+    default = build_handler("vsrm")
+    _, c_d, _ = _counted(lambda: default.process_clip(first))
+    check(default is not handler and not _attentive(default)
+          and c_d == _only(ssd_shared=2 * blocks, fused_bidir_ssm=blocks),
+          f"the default vsrm after clearing the variable: {c_d}")
+    print(f"variable cleared: the default vsrm, launches {_nonzero(c_d)}")
+    return counts["flash_attention"]
+
+
+def _mamba2_layers(device_line: str, rec: dict) -> int:
+    """Phase 23 (b); returns the SSD launches of one ``bimamba2`` call."""
+    s = SSD_MAMBA2_SHAPE
+    dtype = torch.bfloat16
+    params = cast_params(bimamba2_init(torch.Generator().manual_seed(SEED),
+                                       64), dtype, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    x = torch.randn((s["b"], s["L"], 64), generator=g, device="cuda").to(
+        dtype)
+    y, counts, _ = _counted(lambda: bimamba2_apply(params, x))
+    y_p = bimamba2_apply(params, x, use_kernel=False)
+    err, rel = rel_err(y, y_p)
+    tol = TOL[("ssd_shared", "bfloat16")]
+    layer_ms = time_ms(lambda: bimamba2_apply(params, x))
+    print(f"bimamba2 dim 64 over {s['b']} rasters of {s['L']} "
+          f"({device_line}): launches {_nonzero(counts)}; vs plain "
+          f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}); "
+          f"{layer_ms:.3f} ms a call")
+    check(counts == _only(ssd_shared=2), f"bimamba2: launches {counts}")
+    check(bool(torch.isfinite(y.float()).all()) and rel <= tol,
+          f"bimamba2: rel {rel} > {tol}")
+    del y, y_p, x
+
+    Q = kernels.library().vetk_ssd_chunk()
+    args = _ssd_inputs(dtype, g, s)
+    plan = _ssd_plan(*args[0].shape, args[-1].shape[-1], dtype,
+                     kernels.sm_count(args[0].device))
+    nbytes, flops = _ssd_cost(dtype, Q, s)
+    bound = max(nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    for reverse in (False, True):
+        got = ssd_shared_kernel(*args, reverse=reverse)
+        ref = ssd_shared_plain(*args, reverse=reverse)
+        err, rel = rel_err(got, ref)
+        d = "reverse" if reverse else "forward"
+        ms = time_ms(lambda: ssd_shared_kernel(*args, reverse=reverse))
+        plain_ms = time_ms(lambda: ssd_shared_plain(*args, reverse=reverse),
+                           warmup=1, iters=3)
+        print(f"ssd_shared:mamba2 {s} {d} bf16: max_abs_err {err:.3e} rel "
+              f"{rel:.3e} (tol {tol:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} "
+              f"MB, {flops / 1e9:.2f} GFLOP); plan {plan['route']}, grid "
+              f"{plan['grid']}")
+        check(bool(torch.isfinite(got.float()).all()) and rel <= tol,
+              f"ssd_shared:mamba2 {d}: rel {rel} > {tol}")
+        if not reverse:
+            rec["ssd_shared:mamba2"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                flops=flops, peak=H100_BF16_FLOPS)
+        del got, ref
+    del args
+    torch.cuda.empty_cache()
+    return counts["ssd_shared"]
+
+
+def _last_on_card(device_line: str) -> None:
+    """Phase 23 (c): FramePipeline on the card; the deblur nets and the
+    lanczos and area resizes against the CPU."""
+    frames = synthetic_clip(ATTENTIVE_FRAMES, 180, 320)
+    with tempfile.TemporaryDirectory() as d:
+        path = write_video(f"{d}/clip.avi", np.stack(frames))
+        t0 = time.perf_counter()
+        items = list(FramePipeline(path, window=7, stride=3))
+        secs = time.perf_counter() - t0
+    check([(i["start"], i["valid"]) for i in items]
+          == [(0, 7), (3, 7), (6, 4)], "FramePipeline: windows")
+    for it in items:
+        f = it["frames"]
+        want = np.stack([frames[min(j, len(frames) - 1)] for j in range(
+            it["start"], it["start"] + 7)]).astype(np.float32) / 255.0
+        check(f.device.type == "cuda" and f.dtype == torch.float32
+              and torch.equal(f.cpu(), torch.from_numpy(want)),
+              "FramePipeline: a window differs from the frames / 255")
+    print(f"FramePipeline over a 10-frame 180x320 .avi: 3 windows on "
+          f"{items[0]['frames'].device} in {secs:.3f} s")
+    clip = torch.from_numpy(np.stack(frames[:7])).float() / 255.0
+    gen = torch.Generator().manual_seed(SEED)
+    with full_fp32():
+        for name in ("bsstnet", "vddiff"):
+            p = getattr(deblur, f"{name}_init")(gen)
+            p["c3"]["w"] = torch.randn(p["c3"]["w"].shape, generator=gen) * 0.01
+            fn = getattr(deblur, f"{name}_apply")
+            want = fn(p, clip)
+            pc, xc = cast_params(p, torch.float32, "cuda"), clip.cuda()
+            got = fn(pc, xc)
+            err = (got.cpu() - want).abs().max().item()
+            ms = time_ms(lambda: fn(pc, xc))
+            print(f"{name} on 7 frames of 180x320 fp32 ({device_line}): "
+                  f"{ms:.3f} ms; card vs CPU max_abs {err:.3e} (tol "
+                  f"{DEVICE_FP32_MAX_ABS:g}); the residual "
+                  f"{(want - clip).abs().max().item():.3f}")
+            check(err <= DEVICE_FP32_MAX_ABS, f"{name}: card vs CPU {err}")
+        up = resize_video(clip, (720, 1280), method="lanczos")
+        for method, x, hw in (("lanczos", clip, (720, 1280)),
+                              ("area", up, (180, 320))):
+            want = resize_video(x, hw, method=method)
+            xc = x.cuda()
+            got = resize_video(xc, hw, method=method)
+            err = (got.cpu() - want).abs().max().item()
+            ms = time_ms(lambda: resize_video(xc, hw, method=method))
+            ms16 = time_ms(lambda: resize_video(xc.bfloat16(), hw,
+                                                method=method))
+            print(f"resize {method} {tuple(x.shape[1:3])} -> {hw} on 7 "
+                  f"frames ({device_line}): fp32 {ms:.3f} ms, bf16 "
+                  f"{ms16:.3f} ms; card vs CPU (fp32) max_abs {err:.3e} "
+                  f"(tol {DEVICE_FP32_MAX_ABS:g})")
+            check(err <= DEVICE_FP32_MAX_ABS, f"resize {method}: {err}")
+
+
+@phase("23 attentive vsrm and the last library layers")
+def attentive_and_library(device_line: str) -> dict:
+    """(a) the attentive vsrm served, row 4 at its shape; (b) bimamba2 and
+    the SSD at its shape; (c) FramePipeline, deblur and resize."""
+    rec = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        flash = _attentive_vsrm(device_line, rec)
+        t1 = time.perf_counter()
+        ssd = _mamba2_layers(device_line, rec)
+        t2 = time.perf_counter()
+        _last_on_card(device_line)
+    print(f"phase 23: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s")
+    return {"rec": rec, "counts": {"flash_attention:attentive": flash,
+                                   "ssd_shared:mamba2": ssd}}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4257,6 +4615,8 @@ def main() -> int:
     scaffold_rows = scaffolding(env["kind"], f"{env['kind']}, {env['smi']}")
     trained = training(f"{env['kind']}, {env['smi']}")
     cli_run = train_cli_path(f"{env['kind']}, {env['smi']}")
+    last = attentive_and_library(f"{env['kind']}, {env['smi']}")
+    rec.update(last["rec"])
     print(f"total {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the run of the path that carries it
     counts = {"ssd_shared": path["counts"]["ssd_shared"],
@@ -4280,7 +4640,9 @@ def main() -> int:
               "ssd_shared:b 368640": fmv_ssd["wide_counts"]["ssd_shared"],
               # the 3b head width: phase 19 (d)
               "flash_attention:3b":
-                  restorers["3b"]["counts"]["flash_attention"]}
+                  restorers["3b"]["counts"]["flash_attention"],
+              # phase 23: the attentive vsrm's served run, one bimamba2 call
+              **last["counts"]}
     # phase 20's kernel calls at the shapes new to it, on their own line
     print("phase 20 kernels: " + json.dumps(scaffold_rows))
     # phase 21's launches a train step, by model, on their own line

@@ -1,7 +1,8 @@
 """The port's fallback hierarchies and ``ModelFallbackManager`` against the
 JAX package's, on the CPU: the tables, the order of attempts and their ok
-flags, the models it now serves (realesrgan, the ssd mixer), an unknown
-name, the build timeout and the host-memory floor."""
+flags, the models it now serves (realesrgan, the ssd mixer, vsrm's
+attentive mixer), an unknown name, the build timeout and the host-memory
+floor."""
 
 from __future__ import annotations
 
@@ -9,9 +10,11 @@ import dataclasses
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from video_enhancer_tpu.models import vsrm as jvsrm
 from video_enhancer_tpu.runtime import fallback as jfallback
 from video_enhancer_tpu.runtime import registry as jregistry
 from video_enhancer_tpu_torch.config import default_policy
@@ -134,9 +137,9 @@ def test_memory_floor_and_exhaustion(monkeypatch):
     assert [ok for _, _, ok in _attempts(tm)] == [False] * 4
 
 
-# A variant the JAX registry serves (registry.py:170-173, 196-201) and the
-# port does not have yet raises at build_handler, never serving the default
-# model in its place.
+# The variants the JAX registry serves (registry.py:170-173, 196-201) are
+# built by the port's registry as well. The refusal tests below keep their
+# names; they now check what is served.
 def _policy_with(name, **extra):
     policy = default_policy()
     entry = policy.models[name]
@@ -145,27 +148,40 @@ def _policy_with(name, **extra):
     return dataclasses.replace(policy, models=models)
 
 
+def _attentive(handler) -> bool:
+    return all("qkv" in blk["spatial_ssm"]
+               for blk in handler.params["blocks"])
+
+
 @pytest.mark.parametrize("value", ["attentive", "MambaIRv2"])
 def test_preferred_backbone_env_refuses_vsrm(monkeypatch, value):
-    """The variable picks vsrm's attentive mixer in the JAX registry; the
-    port raises, also with a default vsrm handler already in its cache
-    (the variable is not part of the cache's key)."""
+    """The variable picks vsrm's attentive mixer, as in the JAX registry,
+    also with a default vsrm handler already in the cache (the resolved
+    mixer is part of the cache's key); clearing it gives the default
+    handler back."""
     monkeypatch.delenv("VETPU_PREFERRED_BACKBONE", raising=False)
-    registry.build_handler("vsrm", device="cpu")
+    default = registry.build_handler("vsrm", device="cpu")
+    assert not _attentive(default)
     monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", value)
-    with pytest.raises(NotImplementedError,
-                       match=f"vsrm with backbone='{value.lower()}' is not "
-                             f"ported yet"):
-        registry.build_handler("vsrm", device="cpu")
+    handler = registry.build_handler("vsrm", device="cpu")
+    assert handler is not default and _attentive(handler)
+    assert handler.name == "vsrm" and handler.device.type == "cpu"
+    monkeypatch.delenv("VETPU_PREFERRED_BACKBONE")
+    assert registry.build_handler("vsrm", device="cpu") is default
 
 
 @pytest.mark.parametrize("backbone", ["mambairv2", "Attentive"])
 def test_policy_backbone_refuses_vsrm(monkeypatch, backbone):
-    """``extra.backbone`` on the policy's entry wins over the variable."""
+    """``extra.backbone`` on the policy's entry wins over the variable, both
+    ways."""
     monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", "eamamba")
-    with pytest.raises(NotImplementedError, match="backbone="):
-        registry.build_handler("vsrm", _policy_with("vsrm", backbone=backbone),
-                               device="cpu")
+    handler = registry.build_handler(
+        "vsrm", _policy_with("vsrm", backbone=backbone), device="cpu")
+    assert _attentive(handler)
+    monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", backbone)
+    handler = registry.build_handler(
+        "vsrm", _policy_with("vsrm", backbone="eamamba"), device="cpu")
+    assert not _attentive(handler)
 
 
 def test_temporal_mixer_ssd_refuses_fast_mamba_vsr():
@@ -185,14 +201,27 @@ def test_temporal_mixer_ssd_refuses_fast_mamba_vsr():
 
 
 def test_fallback_records_an_unported_variant_and_moves_on(monkeypatch):
-    """vsrm's build fails on the variable and rvrt, its next candidate,
-    serves; fast_mamba_vsr on the ssd mixer serves itself."""
+    """With the variable set, vsrm's hierarchy serves vsrm itself on the
+    attentive mixer at the first attempt, as the JAX manager does;
+    fast_mamba_vsr on the ssd mixer serves itself."""
     monkeypatch.setenv("VETPU_PREFERRED_BACKBONE", "attentive")
+    # JAX's init traced, zeros for its draws (an eager one takes ~12 s)
+    orig = jvsrm.init
+    monkeypatch.setattr(jvsrm, "init", lambda key, **kw: (
+        jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                               jax.eval_shape(lambda k: orig(k, **kw)[0],
+                                              key)), {}))
+    jregistry.clear_cache()
+    try:
+        jm = jfallback.ModelFallbackManager()
+        jhandler, _ = jm.load_model_with_fallbacks("vsrm")
+        assert "qkv" in jhandler.params["blocks"][0]["spatial_ssm"]
+    finally:
+        jregistry.clear_cache()
     tm = tfallback.ModelFallbackManager(device="cpu")
     handler, name = tm.load_model_with_fallbacks("vsrm")
-    assert name == "rvrt" and handler.name == "rvrt"
-    assert _attempts(tm) == [("vsrm", "vsrm", False), ("vsrm", "rvrt", True)]
-    assert "not ported yet" in tm.get_history()[0]["error"]
+    assert name == "vsrm" and handler.name == "vsrm" and _attentive(handler)
+    assert _attempts(tm) == _attempts(jm) == [("vsrm", "vsrm", True)]
     tm = tfallback.ModelFallbackManager(
         _policy_with("fast_mamba_vsr", temporal_mixer="ssd"), device="cpu")
     handler, name = tm.load_model_with_fallbacks("fast_mamba_vsr")

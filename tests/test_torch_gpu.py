@@ -10,7 +10,8 @@ flow and ``temporal_smooth`` on the card against the CPU; the SSD at
 fast_mamba_vsr_ssd's shapes (past 65,535 sequences); realesrgan's window in
 bf16 against fp32; a RIFE midframe on the card against the CPU; the face
 path's cv2 counterparts, detector chain, face stage and GFPGANv1Clean on
-the card against the CPU.
+the card against the CPU; vsrm's attentive mixer through the flash kernel
+and ``bimamba2`` through the SSD kernel, against their plain forms.
 
 They carry the ``gpu`` marker and skip without a card. This file imports no
 JAX, so on the card's machine (which has none) it runs with
@@ -1663,3 +1664,42 @@ def test_vsrm_train_step_on_the_card_matches_plain(cuda):
         "loss"].item()
     for a, b in zip(tree_leaves(sk.params), tree_leaves(sp.params)):
         assert (a - b).abs().max().item() <= 2 * 2e-4
+
+
+def test_attentive_vsrm_routes_through_flash(cuda):
+    """vsrm on its attentive mixer at 16x16 frames (256 tokens, 2 heads of
+    64) launches the flash kernel once a block and agrees with its plain
+    forms; at 12x12 (144 tokens) it takes the plain attention."""
+    from video_enhancer_tpu_torch.models import vsrm
+
+    gen = torch.Generator().manual_seed(0)
+    p = vsrm.init(gen, dim=64, num_blocks=2, scale=4, mixer="attentive")
+    for k in ("head", "offset"):
+        p[k]["w"] = torch.randn(p[k]["w"].shape, generator=gen) * 0.01
+    p16 = _to(p, cuda, torch.bfloat16)
+    for hw, launches in ((16, 2), (12, 0)):
+        clip = torch.rand((1, 3, hw, hw, 3), device=cuda).bfloat16()
+        kernels.reset_launch_counts()
+        y = vsrm.apply(p16, clip, scale=4, mixer="attentive")
+        assert kernels.launch_counts["flash_attention"] == launches
+        assert kernels.launch_counts["ssd_shared"] == 0
+        y_p = vsrm.apply(p16, clip, scale=4, mixer="attentive",
+                         kernels=False)
+        torch.cuda.synchronize()
+        assert (y.float() - y_p.float()).abs().max().item() <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bimamba2_routes_through_the_ssd_kernel(cuda, dtype):
+    """Both directions of ``bimamba2`` (N 32: the SSD's CUDA-core route)
+    launch the kernel when asked (bf16 by default, fp32 with
+    ``use_kernel=True``) and agree with the plain form."""
+    from video_enhancer_tpu_torch.nn.ssm import bimamba2_apply, bimamba2_init
+
+    p = _to(bimamba2_init(torch.Generator().manual_seed(1), 32), cuda, dtype)
+    x = torch.randn((2, 300, 32), device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    y = bimamba2_apply(p, x, chunk=64, use_kernel=True)
+    assert kernels.launch_counts["ssd_shared"] == 2
+    y_p = bimamba2_apply(p, x, chunk=64, use_kernel=False)
+    assert _rel(y, y_p) <= TOL[dtype]

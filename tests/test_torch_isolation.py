@@ -27,7 +27,10 @@ runs ``warm_start``, all on the CPU; one, likewise (optax and orbax
 unimportable too), trains a tiny vsrm two steps, saves, restores and
 exports it, and runs the dry run at one rank; one, likewise (PIL too),
 runs the train CLI on its mixed bank, the face, detector and LPIPS
-trainers' mains, the held-out face scenes and the WebP round trip."""
+trainers' mains, the held-out face scenes and the WebP round trip; one,
+likewise, serves vsrm on its attentive mixer, runs the Mamba-2 layers and
+the deblur nets, reads an ``.avi`` through ``FramePipeline`` and logs
+through the structured logging."""
 
 from __future__ import annotations
 
@@ -408,6 +411,51 @@ print(json.dumps({
 """ % (BAD,)
 
 
+LAST = r"""
+import io, json, logging, os, sys
+sys.path.insert(0, sys.argv[1])
+for name in %r:
+    sys.modules[name] = None
+import numpy as np, torch
+torch.set_num_threads(1)     # the bf16 window on the CPU, beside other workers
+os.environ["VETPU_PREFERRED_BACKBONE"] = "mambairv2"
+from video_enhancer_tpu_torch.io.pipeline import FramePipeline
+from video_enhancer_tpu_torch.io.video import write_video
+from video_enhancer_tpu_torch.models import deblur
+from video_enhancer_tpu_torch.nn.ssm import bimamba2_apply, bimamba2_init
+from video_enhancer_tpu_torch.runtime.registry import build_handler
+from video_enhancer_tpu_torch.utils.logging_config import (
+    PerformanceLogger, RequestContext, setup_logging)
+res = {}
+h = build_handler("vsrm", device="cpu")
+frames = list(np.random.default_rng(0).integers(0, 256, (7, 16, 16, 3),
+                                                dtype=np.uint8))
+res["vsrm"] = ["qkv" in h.params["blocks"][0]["spatial_ssm"],
+               len(list(h.enhance_frames(iter(frames))))]
+g = torch.Generator().manual_seed(0)
+x = torch.rand((1, 40, 16), generator=g)
+res["bimamba2"] = list(bimamba2_apply(bimamba2_init(g, 16, head_dim=16),
+                                      x, chunk=16).shape)
+clip = torch.rand((1, 8, 8, 3), generator=g)
+res["deblur"] = [bool(torch.equal(getattr(deblur, n + "_apply")(
+    getattr(deblur, n + "_init")(g, dim=4), clip), clip))
+    for n in ("bsstnet", "vddiff")]
+path = os.path.join(sys.argv[2], "clip.avi")
+write_video(path, np.stack(frames[:5]))
+res["pipeline"] = [(i["start"], i["valid"], i["frames"].dtype == torch.float32)
+                   for i in FramePipeline(path, window=4, device="cpu")]
+buf = io.StringIO()
+setup_logging(log_dir=os.path.join(sys.argv[2], "logs"))
+logging.getLogger().handlers[-3].stream = buf
+PerformanceLogger().model_load("vsrm", 1.0)
+with RequestContext("r1"):
+    logging.getLogger().info("in a request")
+res["log"] = [json.loads(line).get("ctx")
+              for line in buf.getvalue().splitlines()[-2:]]
+print(json.dumps(res))
+""" % (BAD,)
+
+
 def _run(code: str, *args) -> dict:
     out = subprocess.run([sys.executable, "-c", code, str(ROOT),
                           *map(str, args)],
@@ -448,7 +496,8 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                  "utils.protection", "ops.vjp", "train.losses",
                  "train.step", "train.checkpoint", "parallel.dryrun",
                  "train.cli", "train.faces", "train.face_detector",
-                 "io.webp"):
+                 "io.webp", "models.deblur", "io.pipeline", "nn.ssm",
+                 "utils.logging_config"):
         assert f"video_enhancer_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == []
 
@@ -586,3 +635,16 @@ def test_train_cli_and_trainers_run_without_jax_cv2_pil_yaml_or_optax(
                              "lpips_proxy.npz", "w.npz"],
                    "webp": [16, 16, 3], "alt": [[2, 128, 128, 3], 2],
                    "bundled_untouched": True}
+
+
+def test_last_modules_run_without_jax_cv2_or_yaml(tmp_path):
+    """vsrm served on its attentive mixer (the variable), ``bimamba2``, the
+    deblur nets (untrained: identity), ``FramePipeline`` over an ``.avi``
+    and the structured logging with a request id, with those packages
+    unimportable."""
+    res = _run(LAST, tmp_path)
+    assert res == {"vsrm": [True, 7], "bimamba2": [1, 40, 16],
+                   "deblur": [True, True],
+                   "pipeline": [[0, 4, True], [4, 1, True]],
+                   "log": [{"model": "vsrm", "seconds": 1.0,
+                            "source": "init"}, {"request_id": "r1"}]}

@@ -232,7 +232,7 @@ def test_entry_points_need_a_device_they_can_have(monkeypatch, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("VETPU_PLATFORM", raising=False)
     # the root logger of this worker stays as it is
-    monkeypatch.setattr(logging_config, "setup_logging", lambda: None)
+    monkeypatch.setattr(logging_config, "setup_logging", lambda **kw: None)
     data = str(tmp_path / "data")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         twarm.main(["--models", "bicubic", "--size", "8"])

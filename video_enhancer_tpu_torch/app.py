@@ -30,7 +30,7 @@ def main(argv=None):
 
     from .utils.logging_config import setup_logging
 
-    setup_logging()
+    setup_logging(structured=False)
     log = logging.getLogger("app")
 
     from .serving.app import ApiServer, create_app

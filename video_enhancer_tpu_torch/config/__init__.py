@@ -32,7 +32,7 @@ from typing import Any, Mapping
 
 from .yaml_subset import YAMLSubsetError, load_file
 
-__all__ = ["LatencyClass", "DegradationThresholds", "LatencyBudget",
+__all__ = ["LatencyClass", "ModelKind", "DegradationThresholds", "LatencyBudget",
            "PipelineDefaults", "MeshConfig", "ModelEntry", "QualityGates",
            "Policy", "MODELS", "SERVED", "DEFAULT_POLICY_PATH",
            "YAMLSubsetError", "load_policy", "default_policy"]
@@ -49,6 +49,17 @@ class LatencyClass(str, enum.Enum):
     STRICT = "strict"
     STANDARD = "standard"
     FLEXIBLE = "flexible"
+
+
+class ModelKind(str, enum.Enum):
+    VSRM = "vsrm"
+    SEEDVR2 = "seedvr2"
+    DITVR = "ditvr"
+    FAST_MAMBA_VSR = "fast_mamba_vsr"
+    RVRT = "rvrt"
+    REALESRGAN = "realesrgan"
+    CNN_UPSCALER = "cnn_upscaler"
+    BICUBIC = "bicubic"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,7 +28,7 @@ from .. import nn
 from ..ops.attention import attention
 from ..ops.ring import sharded_attention
 
-__all__ = ["init", "apply", "SIZE_PRESETS", "DEG_TYPES"]
+__all__ = ["init", "apply", "default_config", "SIZE_PRESETS", "DEG_TYPES"]
 
 SIZE_PRESETS = {
     "small": {"dim": 384, "depth": 8, "heads": 6},
@@ -38,6 +38,10 @@ SIZE_PRESETS = {
 }
 
 DEG_TYPES = ("unknown", "noise", "blur", "compression")
+
+
+def default_config() -> dict:
+    return {**SIZE_PRESETS["small"], "patch": (2, 4, 4), "adapt_layers": 3}
 
 
 def _block_init(gen, dim, keep):

@@ -47,7 +47,12 @@ from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
 from ..parallel.temporal import halo_exchange_time
 
-__all__ = ["init", "apply"]
+__all__ = ["init", "apply", "default_config"]
+
+
+def default_config() -> dict:
+    return {"dim": 48, "num_layers": 8, "scale": 4, "state_dim": 8,
+            "expand": 2, "groups": 8}
 
 
 def _sepconv3d_init(gen, cin, cout):

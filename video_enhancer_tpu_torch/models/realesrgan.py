@@ -26,7 +26,11 @@ import torch.nn.functional as F
 from .. import nn
 from ..ops.resize import resize
 
-__all__ = ["init", "apply", "rdb_apply"]
+__all__ = ["init", "apply", "rdb_apply", "default_config"]
+
+
+def default_config() -> dict:
+    return {"features": 64, "num_blocks": 6, "growth": 32, "scale": 4}
 
 
 def _rdb_init(gen: torch.Generator, feat: int, growth: int) -> list:

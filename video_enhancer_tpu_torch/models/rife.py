@@ -31,7 +31,11 @@ from .. import nn
 from ..ops.resize import resize
 from ..ops.warp import flow_warp
 
-__all__ = ["init", "interpolate_pair", "apply"]
+__all__ = ["init", "interpolate_pair", "apply", "default_config"]
+
+
+def default_config() -> dict:
+    return {"dim": 32, "levels": 3}
 
 
 def _conv(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,12 @@ from ..ops.attention import window_attention, window_attention_plain
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
 
-__all__ = ["init", "apply", "WINDOW"]
+__all__ = ["init", "apply", "default_config", "WINDOW"]
+
+
+def default_config() -> dict:
+    return {"dim": 64, "depth": 4, "heads": 4, "window": (2, 8, 8),
+            "scale": 4}
 
 WINDOW = (2, 8, 8)
 

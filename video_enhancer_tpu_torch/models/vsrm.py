@@ -1,10 +1,16 @@
 """VSRM: Mamba-based video super-resolution (the x4 model of the main path).
 
-Counterpart of video_enhancer_tpu/models/vsrm.py with ``mixer="ssd"``: conv3d embed -> blocks of (bidirectional SSD over each
-frame's H*W raster, per-site temporal attention + bidirectional temporal
-SSM, MLP) -> flow-based alignment -> recon -> per-frame pixel shuffle, added
-to the bicubic upscale. The head and the offset conv start at zero, so an
-untrained model returns exact bicubic. Layout ``(B, T, H, W, C)``.
+Counterpart of video_enhancer_tpu/models/vsrm.py: conv3d embed -> blocks
+of (a spatial mixer over each frame, per-site temporal attention +
+bidirectional temporal SSM, MLP) -> flow-based alignment -> recon ->
+per-frame pixel shuffle, added to the bicubic upscale. The head and the
+offset conv start at zero, so an untrained model returns exact bicubic.
+Layout ``(B, T, H, W, C)``.
+
+The spatial mixer is ``mixer="ssd"`` (the default: a bidirectional SSD
+over each frame's H*W raster, ``bissd``) or ``"attentive"`` (the
+MambaIRv2-style conv + full-frame attention, ``attentive_ssm``, whose
+attention runs on the flash kernel on the card).
 
 With ``time_axis`` (parallel/mesh.py) the clip is this rank's T shard and
 the model runs exactly over the whole clip: the temporal attention's keys
@@ -19,21 +25,33 @@ import torch
 import torch.nn.functional as F
 
 from .. import nn
-from ..nn.ssm import (bissd_apply, bissd_init, bissm_apply,
-                      bissm_apply_sharded, bissm_init)
+from ..nn.ssm import (attentive_ssm_apply, attentive_ssm_init, bissd_apply,
+                      bissd_init, bissm_apply, bissm_apply_sharded,
+                      bissm_init)
 from ..ops.attention import site_attention
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.resize import resize
 from ..ops.warp import flow_warp_local
 
-__all__ = ["init", "apply"]
+__all__ = ["init", "apply", "default_config", "MIXERS"]
+
+MIXERS = ("ssd", "attentive")
 
 
-def _block_init(gen, dim, state_dim):
+def default_config() -> dict:
+    return {"dim": 64, "num_blocks": 6, "scale": 4, "state_dim": 16,
+            "heads": 4, "mixer": "ssd"}
+
+
+def _block_init(gen, dim, state_dim, mixer):
+    if mixer not in MIXERS:
+        raise ValueError(f"unknown mixer {mixer!r}; vsrm has {MIXERS}")
+    spatial = (attentive_ssm_init(gen, dim) if mixer == "attentive"
+               else bissd_init(gen, dim, state_dim=2 * state_dim,
+                               head_dim=64))
     return {
         "spatial_norm": nn.layer_norm_init(dim),
-        "spatial_ssm": bissd_init(gen, dim, state_dim=2 * state_dim,
-                                  head_dim=64),
+        "spatial_ssm": spatial,
         "temporal_norm": nn.layer_norm_init(dim),
         "qkv": nn.dense_init(gen, dim, 3 * dim, bias=False),
         "attn_out": nn.dense_init(gen, dim, dim),
@@ -44,11 +62,12 @@ def _block_init(gen, dim, state_dim):
 
 
 def init(gen: torch.Generator, dim: int = 64, num_blocks: int = 6,
-         scale: int = 4, state_dim: int = 8) -> dict:
+         scale: int = 4, state_dim: int = 8, mixer: str = "ssd") -> dict:
     """Random parameters (fp32, CPU) from ``gen``, in the port's layouts."""
     return {
         "embed": nn.conv3d_init(gen, 1, 3, 3, 3, dim),
-        "blocks": [_block_init(gen, dim, state_dim) for _ in range(num_blocks)],
+        "blocks": [_block_init(gen, dim, state_dim, mixer)
+                   for _ in range(num_blocks)],
         "offset": nn.conv3d_init(gen, 1, 3, 3, dim, 2, zero=True),
         "align_fuse": nn.conv3d_init(gen, 1, 1, 1, 2 * dim, dim),
         "recon": nn.conv3d_init(gen, 1, 3, 3, dim, dim),
@@ -57,9 +76,13 @@ def init(gen: torch.Generator, dim: int = 64, num_blocks: int = 6,
     }
 
 
-def _spatial_ssm(p, x, kernels):
+def _spatial_ssm(p, x, kernels, mixer):
     b, t, h, w, c = x.shape
-    y = bissd_apply(p, x.reshape(b * t, h * w, c), use_kernel=kernels)
+    if mixer == "attentive":
+        y = attentive_ssm_apply(p, x.reshape(b * t, h, w, c),
+                                use_kernel=None if kernels else False)
+    else:
+        y = bissd_apply(p, x.reshape(b * t, h * w, c), use_kernel=kernels)
     return y.reshape(b, t, h, w, c)
 
 
@@ -92,20 +115,26 @@ def _deformable_align(params, feats):
 
 
 def apply(params: dict, clip: torch.Tensor, scale: int = 4, heads: int = 4,
-          kernels: bool = True, time_axis=None) -> torch.Tensor:
+          kernels: bool = True, time_axis=None,
+          mixer: str = "ssd") -> torch.Tensor:
     """``(B, T, H, W, 3)`` in [0, 1] -> ``(B, T, scale*H, scale*W, 3)``.
 
     ``kernels=True`` runs the SSD kernel and the fused SSM kernel in every
     dtype (the JAX package takes its plain chunked SSD for fp32 input), or
-    with ``time_axis`` the scan kernels by ``selective_scan``'s rule; ``False``
-    runs the plain PyTorch versions, the reference the kernels are held
-    against. ``time_axis``: the clip is this rank's T shard (see the module
-    docstring)."""
+    with ``time_axis`` the scan kernels by ``selective_scan``'s rule, and
+    the attentive mixer's attention by ``attention``'s rule (the flash
+    kernel on the card at 256 tokens or more); ``False`` runs the plain
+    PyTorch versions, the reference the kernels are held against.
+    ``time_axis``: the clip is this rank's T shard (see the module
+    docstring). ``mixer``: the spatial mixer the parameters were made for
+    (``MIXERS``)."""
+    if mixer not in MIXERS:
+        raise ValueError(f"unknown mixer {mixer!r}; vsrm has {MIXERS}")
     x = clip
     feats = nn.conv3d_apply(params["embed"], x)
     for blk in params["blocks"]:
         h = nn.layer_norm_apply(blk["spatial_norm"], feats)
-        feats = feats + _spatial_ssm(blk["spatial_ssm"], h, kernels)
+        feats = feats + _spatial_ssm(blk["spatial_ssm"], h, kernels, mixer)
         h = nn.layer_norm_apply(blk["temporal_norm"], feats)
         feats = feats + _temporal_mix(blk, h, heads, kernels, time_axis)
         h = nn.layer_norm_apply(blk["mlp_norm"], feats)

@@ -3,10 +3,11 @@
 from .core import (clip, conv2d_apply, conv2d_init, conv3d_apply, conv3d_init,
                    conv_transpose2d_apply, dense_apply, dense_init,
                    group_norm_apply, group_norm_init, layer_norm_apply,
-                   layer_norm_init, mlp_apply, mlp_init, sinusoidal_embedding)
+                   layer_norm_init, mlp_apply, mlp_init, rms_norm_apply,
+                   rms_norm_init, sinusoidal_embedding)
 
 __all__ = ["clip", "conv2d_apply", "conv2d_init", "conv3d_apply", "conv3d_init",
            "conv_transpose2d_apply",
            "dense_apply", "dense_init", "group_norm_apply", "group_norm_init",
            "layer_norm_apply", "layer_norm_init", "mlp_apply", "mlp_init",
-           "sinusoidal_embedding"]
+           "rms_norm_apply", "rms_norm_init", "sinusoidal_embedding"]

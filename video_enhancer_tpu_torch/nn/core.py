@@ -18,7 +18,8 @@ from ..ops.conv import conv2d, conv3d, conv_transpose2d
 __all__ = ["dense_init", "dense_apply", "conv2d_init", "conv2d_apply",
            "conv_transpose2d_apply",
            "conv3d_init", "conv3d_apply", "layer_norm_init",
-           "layer_norm_apply", "group_norm_init", "group_norm_apply",
+           "layer_norm_apply", "rms_norm_init", "rms_norm_apply",
+           "group_norm_init", "group_norm_apply",
            "mlp_init", "mlp_apply", "sinusoidal_embedding", "clip"]
 
 
@@ -69,17 +70,18 @@ def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
-                zero: bool = False) -> dict:
-    bound = 1.0 / math.sqrt(kh * kw * cin)
-    shape = (cout, cin, kh, kw)
+                zero: bool = False, groups: int = 1) -> dict:
+    bound = 1.0 / math.sqrt(kh * kw * cin // groups)
+    shape = (cout, cin // groups, kh, kw)
     if zero:
         return {"w": torch.zeros(shape), "b": torch.zeros(cout)}
     return {"w": _uniform(gen, shape, bound), "b": _uniform(gen, (cout,), bound)}
 
 
 def conv2d_apply(p: dict, x: torch.Tensor, stride: int = 1,
-                 padding="SAME", round_once: bool = False) -> torch.Tensor:
-    """The conv in x's dtype. ``round_once``: the JAX package's rounding
+                 padding="SAME", round_once: bool = False,
+                 groups: int = 1) -> torch.Tensor:
+    """The conv in x's dtype, ``groups`` as Conv2d's. ``round_once``: the JAX package's rounding
     (ops/conv.py, ``preferred_element_type=float32``): the products summed
     in fp32, the bias added in fp32, one rounding to x's dtype, computed as
     an fp32 conv of the half-precision values (exact products; on the card
@@ -90,8 +92,8 @@ def conv2d_apply(p: dict, x: torch.Tensor, stride: int = 1,
     if round_once and x.dtype != torch.float32:
         return conv2d(x.float(), p["w"].to(x.dtype).float(),
                       None if b is None else b.float(), stride=stride,
-                      padding=padding).to(x.dtype)
-    return conv2d(x, p["w"], b, stride=stride, padding=padding)
+                      padding=padding, groups=groups).to(x.dtype)
+    return conv2d(x, p["w"], b, stride=stride, padding=padding, groups=groups)
 
 
 def conv_transpose2d_apply(p: dict, x: torch.Tensor, stride: int = 2,
@@ -127,6 +129,17 @@ def layer_norm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     y = F.layer_norm(x.float(), (x.shape[-1],), p["scale"].float(),
                      p["bias"].float(), eps)
     return y.to(x.dtype)
+
+
+def rms_norm_init(dim: int) -> dict:
+    return {"scale": torch.ones(dim)}
+
+
+def rms_norm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm computed in fp32, cast back (nn/core.py:114-121)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * p["scale"].float()).to(x.dtype)
 
 
 def group_norm_init(dim: int) -> dict:

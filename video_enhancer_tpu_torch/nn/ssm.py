@@ -1,16 +1,22 @@
-"""Selective-SSM layers: Mamba-1 (``ssm``, ``bimamba``), the shared-stream
-bidirectional Mamba-1 of the video models' temporal axis (``bissm``) and
-the bidirectional SSD of vsrm's spatial mixer (``bissd``).
+"""Selective-SSM layers: Mamba-1 (``ssm``, ``bimamba``), Mamba-2
+(``mamba2``, ``bimamba2``), the shared-stream bidirectional Mamba-1 of the
+video models' temporal axis (``bissm``), the bidirectional SSD of vsrm's
+spatial mixer (``bissd``) and vsrm's attentive spatial mixer
+(``attentive_ssm``).
 
 Counterparts of video_enhancer_tpu/nn/ssm.py ``ssm_init``/``ssm_apply``
 (:34-114), ``bimamba_init``/``bimamba_apply`` (:117-125, 560-581), their
 T-sharded forms ``bimamba_apply_sharded`` (:128-169) and
-``bissm_apply_sharded`` (:495-541), ``bissd_init``/``bissd_apply``
-(:257-352), its T-sharded form ``bissd_apply_sharded`` (:355-410) and
-``bissm_init``/``bissm_apply`` (:414-492). Sequence layout ``(batch, L,
-dim)``; parameters in PyTorch's layouts (depthwise ``conv_w (C, 1, K)``,
-dense ``w (out, in)``). The sharded forms take the local shard of a
-sequence split over a time axis (parallel/mesh.py ``TimeAxis``).
+``bissm_apply_sharded`` (:495-541), ``mamba2_init``/``mamba2_apply``
+(:172-254), ``bimamba2_init``/``bimamba2_apply`` (:544-557),
+``bissd_init``/``bissd_apply`` (:257-352), its T-sharded form
+``bissd_apply_sharded`` (:355-410), ``bissm_init``/``bissm_apply``
+(:414-492) and ``attentive_ssm_init``/``attentive_ssm_apply`` (:584-646).
+Sequence layout ``(batch, L, dim)`` (the attentive mixer takes frames
+``(B, H, W, C)``); parameters in PyTorch's layouts (depthwise ``conv_w (C,
+1, K)``, dense ``w (out, in)``, conv2d ``w (Cout, Cin / groups, kh, kw)``).
+The sharded forms take the local shard of a sequence split over a time
+axis (parallel/mesh.py ``TimeAxis``).
 """
 
 from __future__ import annotations
@@ -20,18 +26,22 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import attention
 from ..ops.conv import depthwise_conv1d, depthwise_conv1d_silu
 from ..ops.scan import (fused_bidir_ssm, selective_scan,
                         selective_scan_bidir, selective_scan_bidir_shared)
 from ..ops.ssd import ssd_shared
 from ..parallel.temporal import (halo_exchange_time, ssd_parallel_scan,
                                  temporal_parallel_scan)
-from .core import dense_apply, dense_init
+from .core import (conv2d_apply, conv2d_init, dense_apply, dense_init,
+                   layer_norm_apply, layer_norm_init, rms_norm_apply)
 
 __all__ = ["ssm_init", "ssm_apply", "bimamba_init", "bimamba_apply",
-           "bimamba_apply_sharded", "bissd_init", "bissd_apply",
+           "bimamba_apply_sharded", "mamba2_init", "mamba2_apply",
+           "bimamba2_init", "bimamba2_apply", "bissd_init", "bissd_apply",
            "bissd_apply_sharded",
-           "bissm_init", "bissm_apply", "bissm_apply_sharded"]
+           "bissm_init", "bissm_apply", "bissm_apply_sharded",
+           "attentive_ssm_init", "attentive_ssm_apply"]
 
 
 def _dt_bias(gen: torch.Generator, n: int) -> torch.Tensor:
@@ -168,6 +178,90 @@ def bimamba_apply_sharded(p: dict, x: torch.Tensor, axis,
         outs.append(dense_apply(p[name]["out_proj"],
                                 y * F.silu(trim(gate))))
     return dense_apply(p["fuse"], torch.cat(outs, dim=-1))
+
+
+def mamba2_init(gen: torch.Generator, dim: int, state_dim: int = 32,
+                expand: int = 2, head_dim: int = 64,
+                conv_kernel: int = 4) -> dict:
+    """Mamba-2: in_proj -> (gate z, values x, B and C shared by the heads,
+    dt a head); a causal depthwise conv over (x, B, C); SiLU; the SSD scan
+    with a scalar decay a head; D skip; gated RMS norm; out_proj. When
+    ``head_dim`` does not divide the inner width, one head takes all of it.
+    A = -exp(A_log) with exp(A_log) uniform on [1, 16]."""
+    inner = dim * expand
+    if inner % head_dim:
+        head_dim = inner
+    heads = inner // head_dim
+    conv_dim = inner + 2 * state_dim
+    return {
+        "in_proj": dense_init(gen, dim, 2 * inner + 2 * state_dim + heads,
+                              bias=False),
+        "conv_w": torch.randn((conv_dim, 1, conv_kernel), generator=gen)
+        / math.sqrt(conv_kernel),
+        "conv_b": torch.zeros(conv_dim),
+        "dt_bias": _dt_bias(gen, heads),
+        "A_log": torch.rand(heads, generator=gen) * math.log(16.0),
+        "D": torch.ones(inner),
+        "norm_scale": torch.ones(inner),
+        "out_proj": dense_init(gen, inner, dim, bias=False),
+    }
+
+
+def mamba2_apply(p: dict, x: torch.Tensor, reverse: bool = False,
+                 chunk: int = 256,
+                 use_kernel: bool | None = None) -> torch.Tensor:
+    """x ``(B, L, dim)`` -> ``(B, L, dim)``. ``reverse`` scans
+    anti-causally: the conv is anti-causal with its taps reversed (explicit
+    padding ``(0, k - 1)``) and the SSD runs with ``reverse=True``, which
+    the kernel takes without a flip. ``use_kernel`` is passed to
+    ``ssd_shared`` (None keeps its dtype rule: the kernel for bf16 / fp16).
+    The gated RMS norm runs in fp32 (eps 1e-6) and is cast back."""
+    heads = p["A_log"].shape[0]
+    inner = p["D"].shape[0]
+    state_dim = (p["conv_w"].shape[0] - inner) // 2
+    P = inner // heads
+
+    zxbcdt = dense_apply(p["in_proj"], x)
+    z = zxbcdt[..., :inner]
+    xbc = zxbcdt[..., inner:2 * inner + 2 * state_dim]
+    dt_raw = zxbcdt[..., -heads:]
+    k = p["conv_w"].shape[-1]
+    w = p["conv_w"].to(xbc.dtype)
+    if reverse:
+        xbc = depthwise_conv1d(xbc, torch.flip(w, dims=(-1,)), p["conv_b"],
+                               padding=((0, k - 1),))
+    else:
+        xbc = depthwise_conv1d(xbc, w, p["conv_b"], padding=((k - 1, 0),))
+    xbc = F.silu(xbc)
+    u = xbc[..., :inner]
+    Bm = xbc[..., inner:inner + state_dim]
+    Cm = xbc[..., inner + state_dim:]
+
+    b, L, _ = x.shape
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    y = ssd_shared(u.reshape(b, L, heads, P), dt, -torch.exp(p["A_log"]), Bm,
+                   Cm, chunk=chunk, reverse=reverse, use_kernel=use_kernel)
+    y = y.reshape(b, L, inner) + u * p["D"].to(u.dtype)
+    y = rms_norm_apply({"scale": p["norm_scale"]}, y * F.silu(z))
+    return dense_apply(p["out_proj"], y)
+
+
+def bimamba2_init(gen: torch.Generator, dim: int, **kw) -> dict:
+    """Bidirectional Mamba-2: a forward and a reversed ``mamba2``, their
+    outputs concatenated and fused by a dense layer."""
+    return {"fwd": mamba2_init(gen, dim, **kw),
+            "bwd": mamba2_init(gen, dim, **kw),
+            "fuse": dense_init(gen, 2 * dim, dim)}
+
+
+def bimamba2_apply(p: dict, x: torch.Tensor, chunk: int = 256,
+                   use_kernel: bool | None = None) -> torch.Tensor:
+    """x ``(B, L, dim)`` -> ``(B, L, dim)``: two SSD scans, forward and
+    reverse (two ``ssd_shared`` launches on the card)."""
+    yf = mamba2_apply(p["fwd"], x, chunk=chunk, use_kernel=use_kernel)
+    yb = mamba2_apply(p["bwd"], x, reverse=True, chunk=chunk,
+                      use_kernel=use_kernel)
+    return dense_apply(p["fuse"], torch.cat([yf, yb], dim=-1))
 
 
 def bissd_init(gen: torch.Generator, dim: int, state_dim: int = 32,
@@ -394,3 +488,58 @@ def bissm_apply_sharded(p: dict, x: torch.Tensor, axis,
     yb = temporal_parallel_scan(u, dt_b, -torch.exp(p["A_log_b"]), Bm, Cm,
                                 p["D_b"], axis, impl=impl, reverse=True)
     return dense_apply(p["out_proj"], (yf + yb) * F.silu(gate))
+
+
+def _attentive_heads(inner: int) -> int:
+    """Heads of 64 channels, at most 8, dividing ``inner``."""
+    heads = max(1, min(8, inner // 64))
+    while inner % heads:
+        heads -= 1
+    return heads
+
+
+def attentive_ssm_init(gen: torch.Generator, dim: int, expand: int = 2,
+                       conv_kernel: int = 3) -> dict:
+    """vsrm's MambaIRv2-style attentive spatial mixer: in_proj -> (x, z);
+    a depthwise 2-D conv of x; full self-attention over the frame's H*W
+    tokens with heads of 64 (``_attentive_heads``) and a residual LayerNorm;
+    SiLU of that times SiLU(z); out_proj."""
+    inner = dim * expand
+    return {
+        "in_proj": dense_init(gen, dim, 2 * inner, bias=False),
+        "conv": conv2d_init(gen, conv_kernel, conv_kernel, inner, inner,
+                            groups=inner),
+        "qkv": dense_init(gen, inner, 3 * inner, bias=False),
+        "attn_out": dense_init(gen, inner, inner),
+        "attn_norm": layer_norm_init(inner),
+        "out_proj": dense_init(gen, inner, dim, bias=False),
+    }
+
+
+def attentive_ssm_apply(p: dict, x: torch.Tensor,
+                        use_kernel: bool | None = None) -> torch.Tensor:
+    """Frames ``(B, H, W, C)`` -> ``(B, H, W, C)``. The attention goes
+    through ``ops.attention.attention``: the flash kernel (csrc/
+    flash_attn.cu) for a CUDA tensor with H*W >= 256 tokens, the plain
+    form otherwise, as the JAX package's dispatch; ``use_kernel=False``
+    always takes the plain form."""
+    b, h, w, _ = x.shape
+    xs, z = dense_apply(p["in_proj"], x).chunk(2, dim=-1)
+    inner = xs.shape[-1]
+    heads = _attentive_heads(inner)
+    dh = inner // heads
+    xs = conv2d_apply(p["conv"], xs, groups=inner)
+
+    seq = xs.reshape(b, h * w, inner)
+    q, k, v = dense_apply(p["qkv"], seq).chunk(3, dim=-1)
+
+    def to_heads(a):
+        return a.reshape(b, h * w, heads, dh).transpose(1, 2)
+
+    att = attention(to_heads(q), to_heads(k), to_heads(v),
+                    use_kernel=use_kernel)
+    att = att.transpose(1, 2).reshape(b, h * w, inner)
+    seq = seq + layer_norm_apply(p["attn_norm"],
+                                 dense_apply(p["attn_out"], att))
+    y = F.silu(seq.reshape(b, h, w, inner)) * F.silu(z)
+    return dense_apply(p["out_proj"], y)

@@ -19,9 +19,10 @@ Counterpart of video_enhancer_tpu/ops/attention.py:
   ``(H, N, N)`` shared by every window. ``window_attention_plain`` is its
   plain version, ``attention_ref(..., bias=bias[None])``, the form rvrt
   runs off the TPU (models/rvrt.py:135).
-- ``site_attention``: the broadcast form of the JAX package's
-  ``site_attention`` (it has no kernel): ``q (N, T, C)``, ``k/v (N, Tg,
-  C)`` -> ``(N, T, C)``, heads of ``C // heads`` channels.
+- ``site_attention_ref``: the broadcast form of the JAX package's
+  per-site attention (:306-324; it has no kernel): ``q (N, T, C)``, ``k/v
+  (N, Tg, C)`` -> ``(N, T, C)``, heads of ``C // heads`` channels.
+  ``site_attention`` is it, as in the JAX package (:327-340).
 
 Layout of the first three: ``q (B, H, Lq, Dh)``, ``k/v (B, H, Lk, Dh)``.
 """
@@ -37,7 +38,7 @@ from ..utils.flops import record as flop_record
 from .vjp import kernel_vjp
 
 __all__ = ["attention", "attention_ref", "flash_attention", "site_attention",
-           "window_attention", "window_attention_plain"]
+           "site_attention_ref", "window_attention", "window_attention_plain"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -308,6 +309,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
+    return site_attention_ref(q, k, v, heads)
+
+
+def site_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       heads: int) -> torch.Tensor:
     n, t, c = q.shape
     tg = k.shape[1]
     dh = c // heads

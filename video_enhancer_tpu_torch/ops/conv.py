@@ -37,7 +37,7 @@ from .. import kernels
 from .vjp import kernel_vjp
 
 __all__ = ["conv2d", "conv3d", "conv_transpose2d", "conv_transpose3d",
-           "depthwise_conv1d",
+           "depthwise_conv2d", "depthwise_conv1d",
            "depthwise_conv1d_silu", "depthwise_conv1d_silu_plain"]
 
 
@@ -51,20 +51,29 @@ def _triple(v) -> tuple[int, int, int]:
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-           stride: int = 1, padding="SAME") -> torch.Tensor:
-    """``x (B, H, W, Cin)``, ``w (Cout, Cin, kh, kw)`` -> ``(B, H', W',
-    Cout)``: SAME padding (at stride 2 and k 3 on an even side, (0, 1)), or
-    ``padding`` ``((lo, hi), (lo, hi))``, at any stride."""
+           stride: int = 1, padding="SAME", groups: int = 1) -> torch.Tensor:
+    """``x (B, H, W, Cin)``, ``w (Cout, Cin / groups, kh, kw)`` -> ``(B, H',
+    W', Cout)``: SAME padding (at stride 2 and k 3 on an even side, (0, 1)),
+    or ``padding`` ``((lo, hi), (lo, hi))``, at any stride."""
     if stride == 1 and padding == "SAME":
-        return conv3d(x[:, None], w[:, :, None], b)[:, 0]
+        return conv3d(x[:, None], w[:, :, None], b, groups=groups)[:, 0]
     if padding == "SAME":
         padding = [_same(k, n, stride) for k, n in zip(w.shape[2:],
                                                        x.shape[1:3])]
     (t, bo), (le, ri) = padding
     xi = F.pad(x.permute(0, 3, 1, 2), (le, ri, t, bo))
     out = F.conv2d(xi, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                   stride=stride)
+                   stride=stride, groups=groups)
     return out.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None, stride: int = 1,
+                     padding="SAME") -> torch.Tensor:
+    """One filter per channel: ``x (B, H, W, C)``, ``w (C, 1, kh, kw)``
+    (the JAX package's ``(kh, kw, 1, C)`` in Conv2d's layout,
+    ops/conv.py:116-124 there)."""
+    return conv2d(x, w, b, stride, padding, groups=x.shape[-1])
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,

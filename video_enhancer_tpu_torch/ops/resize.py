@@ -1,13 +1,18 @@
 """Separable resize as two matrix products, and the nearest gather.
 
-Counterpart of video_enhancer_tpu/ops/resize.py with ``method="cubic"`` (the
-VSR models' base), ``method="linear"`` (fast_mamba_vsr's multi-scale
-branch, RIFE's pyramid) and ``method="nearest"`` (RRDBNet's upsampling):
-the same explicit ``(out, in)`` interpolation matrices (Keys cubic, a =
--0.75, or the triangle; half-pixel centers, replicated borders, OpenCV's
-INTER_CUBIC and INTER_LINEAR), so the borders match the JAX package and not
-``F.interpolate``; nearest gathers source ``floor((i + 0.5) in / out)``,
-clipped (:129-136).
+Counterpart of video_enhancer_tpu/ops/resize.py: ``method="cubic"`` (the
+VSR models' base), ``"linear"`` (fast_mamba_vsr's multi-scale branch,
+RIFE's pyramid), ``"lanczos"`` (the windowed sinc of 4 taps a side),
+``"area"`` (the box over each output pixel's source span) and
+``"nearest"`` (RRDBNet's upsampling): the same explicit ``(out, in)``
+interpolation matrices (Keys cubic, a = -0.75, the triangle or Lanczos4;
+half-pixel centers, replicated borders), so the borders match the JAX
+package and not ``F.interpolate``; nearest gathers source ``floor((i +
+0.5) in / out)``, clipped (:129-136). As there, bf16 input meets
+bf16-rounded matrices with fp32 sums, other input is resized in fp32, and
+integer input is rounded and clipped to its range (:140-158).
+``resize_video`` is ``resize`` of a ``(T, H, W, C)`` or ``(B, T, H, W,
+C)`` clip.
 
 ``image_resize`` is ``jax.image.resize(..., "linear")``, which the JAX
 package's RIFE handler calls directly: its taps that fall outside the image
@@ -23,7 +28,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["interp_matrix", "resize", "image_resize", "resize_area"]
+__all__ = ["interp_matrix", "resize", "resize_video", "image_resize",
+           "resize_area"]
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -41,15 +47,40 @@ def _linear_kernel(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
+def _lanczos_kernel(x: np.ndarray, taps: int = 4) -> np.ndarray:
+    """The windowed sinc ``sinc(x) sinc(x / taps)`` on ``|x| < taps``."""
+    x = np.asarray(x, dtype=np.float64)
+    return np.where(np.abs(x) < taps, np.sinc(x) * np.sinc(x / taps), 0.0)
+
+
 # method -> (kernel, support)
-_KERNELS = {"cubic": (_cubic_kernel, 2), "linear": (_linear_kernel, 1)}
+_KERNELS = {"cubic": (_cubic_kernel, 2), "linear": (_linear_kernel, 1),
+            "lanczos": (_lanczos_kernel, 4)}
+
+
+def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Each output the mean of the source pixels its span covers, each
+    weighted by the length it covers."""
+    scale = in_size / out_size
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        lo, hi = i * scale, (i + 1) * scale
+        for j in range(int(np.floor(lo)), min(int(np.ceil(hi)), in_size)):
+            cover = min(hi, j + 1) - max(lo, j)
+            if cover > 0:
+                w[i, j] = cover
+    w /= w.sum(axis=1, keepdims=True)
+    return w.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=64)
 def interp_matrix(in_size: int, out_size: int, antialias: bool = True,
                   method: str = "cubic") -> np.ndarray:
-    """The ``(out_size, in_size)`` cubic or linear operator (float32). When
-    downscaling with ``antialias`` the support widens by the scale."""
+    """The ``(out_size, in_size)`` operator of ``method`` (cubic, linear,
+    lanczos or area; float32). When downscaling with ``antialias`` the
+    kernel's support widens by the scale (area ignores it)."""
+    if method == "area":
+        return _area_matrix(in_size, out_size)
     kernel, support = _KERNELS[method]
     scale = in_size / out_size
     widen = max(scale, 1.0) if antialias else 1.0
@@ -90,21 +121,25 @@ def _separable(img: torch.Tensor, build, hkey: tuple,
                wkey: tuple) -> torch.Tensor:
     """``wh (out, H) @ img @ ww^T`` with ``wh = build(*hkey)``, ``ww =
     build(*wkey)``; bf16 input meets bf16-rounded matrices, both products
-    accumulate in fp32, the output takes the input's dtype."""
+    accumulate in fp32, the output takes the input's dtype (integer input
+    rounded and clipped to its range)."""
     bf16 = img.dtype == torch.bfloat16
     wh = _on_device(build, *hkey, device=img.device, bf16=bf16)
     ww = _on_device(build, *wkey, device=img.device, bf16=bf16)
     x = torch.einsum("oh,...hwc->...owc", wh, img.float())
     x = torch.einsum("ow,...hwc->...hoc", ww, x)
+    if not (img.is_floating_point() or img.is_complex()):
+        info = torch.iinfo(img.dtype)
+        x = torch.clamp(torch.round(x), info.min, info.max)
     return x.to(img.dtype)
 
 
 def resize(img: torch.Tensor, out_hw: tuple[int, int],
            antialias: bool = True, method: str = "cubic") -> torch.Tensor:
-    """Resize ``(..., H, W, C)`` to ``out_hw`` (``method`` cubic, linear or
-    nearest); output dtype follows the input. As in the JAX package, bf16
-    input meets bf16-rounded matrices and both products accumulate in
-    fp32."""
+    """Resize ``(..., H, W, C)`` to ``out_hw`` (``method`` cubic, linear,
+    lanczos, area or nearest); output dtype follows the input. As in the
+    JAX package, bf16 input meets bf16-rounded matrices and both products
+    accumulate in fp32."""
     h_in, w_in = img.shape[-3], img.shape[-2]
     h_out, w_out = out_hw
     if (h_in, w_in) == (h_out, w_out):
@@ -115,6 +150,14 @@ def resize(img: torch.Tensor, out_hw: tuple[int, int],
         return img.index_select(-3, rows).index_select(-2, cols)
     return _separable(img, interp_matrix, (h_in, h_out, antialias, method),
                       (w_in, w_out, antialias, method))
+
+
+def resize_video(video: torch.Tensor, out_hw: tuple[int, int],
+                 method: str = "cubic", antialias: bool = True
+                 ) -> torch.Tensor:
+    """Resize a ``(T, H, W, C)`` or ``(B, T, H, W, C)`` clip (the JAX
+    package's ``resize_video``, ops/resize.py:161-168)."""
+    return resize(video, out_hw, antialias=antialias, method=method)
 
 
 @functools.lru_cache(maxsize=64)

@@ -12,10 +12,13 @@ of length Q, with g the running sum of dt*A (all exponents <= 0):
 the JAX package's ``_ssd_shared_jnp``). ``ssd_shared_kernel`` is the wrapper
 of the hand-written CUDA kernel (csrc/ssd_shared.cu): it launches the kernel
 for a CUDA tensor and takes the plain version only for a tensor on the CPU.
+``ssd`` is the same chunked form with B/C per head, and ``ssd_ref`` the
+sequential recurrence, the ground truth of both (the JAX package's ``ssd``
+and ``ssd_ref``, :40-158; no kernel exists for either there).
 
 Shapes: x ``(B, L, H, P)``; dt ``(B, L, H)``; A ``(H,)`` negative decay
-rates; Bm, Cm ``(B, L, N)``. Returns y ``(B, L, H, P)`` (the caller adds
-any D*x skip).
+rates; Bm, Cm ``(B, L, N)`` (``(B, L, H, N)`` for ``ssd`` and
+``ssd_ref``). Returns y ``(B, L, H, P)`` (the caller adds any D*x skip).
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from .. import kernels
 from ..utils.flops import record as flop_record
 from .vjp import kernel_vjp
 
-__all__ = ["ssd_chunk_size", "ssd_flops", "ssd_shared", "ssd_shared_plain",
-           "ssd_shared_kernel"]
+__all__ = ["ssd_chunk_size", "ssd_flops", "ssd_ref", "ssd", "ssd_shared",
+           "ssd_shared_plain", "ssd_shared_kernel"]
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -59,32 +62,59 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def ssd_ref(x, dt, A, Bm, Cm, h0=None):
+    """The sequential recurrence in fp32, B/C per head: ``h_t = exp(dt_t A)
+    h_{t-1} + dt_t B_t x_t^T``, ``y_t = C_t^T h_t`` with h ``(B, H, N, P)``
+    starting at ``h0`` (zeros by default). Returns (y in x's dtype,
+    h_last)."""
+    b, L, H, P = x.shape
+    Af = A.float()
+    h = (torch.zeros((b, H, Bm.shape[-1], P), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(L):
+        dtf = dt[:, t].float()                                 # (b,H)
+        drive = torch.einsum("bhn,bhp->bhnp", Bm[:, t].float(),
+                             dtf[..., None] * x[:, t].float())
+        h = torch.exp(dtf * Af)[..., None, None] * h + drive
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
 def _ssd_forward_plain(x, dt, A, Bm, Cm, chunk):
+    """The chunked form; B/C ``(b, L, N)`` shared by the heads or ``(b, L,
+    H, N)`` per head."""
     b, L, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, ssd_chunk_size(L, chunk))
     pad = (-L) % Q
     if pad:
         # dt = 0 -> decay 1, drive 0: pure passthrough steps.
-        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
-        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+        def pad_l(t):
+            return torch.nn.functional.pad(
+                t, (0, 0) * (t.ndim - 2) + (0, pad))
+        x, dt, Bm, Cm = pad_l(x), pad_l(dt), pad_l(Bm), pad_l(Cm)
     K = (L + pad) // Q
     cdt = x.dtype if x.dtype in _HALF else torch.float32
 
-    # Head-major chunks: (b, K, H, Q, ...); B/C stay (b, K, 1, Q, N).
-    xc = x.reshape(b, K, Q, H, P).transpose(2, 3).to(cdt)
-    dtc = dt.reshape(b, K, Q, H).transpose(2, 3).float()
-    Bc = Bm.reshape(b, K, 1, Q, N).to(cdt)
-    Cc = Cm.reshape(b, K, 1, Q, N).to(cdt)
+    # Head-major chunks: (b, K, H, Q, ...); shared B/C stay (b, K, 1, Q, N).
+    def hm(t):
+        return t.reshape(b, K, Q, *t.shape[2:]).transpose(2, 3)
+
+    xc = hm(x).to(cdt)
+    dtc = hm(dt).float()
+    if Bm.ndim == 4:
+        Bc, Cc = hm(Bm).to(cdt), hm(Cm).to(cdt)
+    else:
+        Bc = Bm.reshape(b, K, 1, Q, N).to(cdt)
+        Cc = Cm.reshape(b, K, 1, Q, N).to(cdt)
 
     g = torch.cumsum(dtc * A.float()[:, None], dim=3)        # (b,K,H,Q)
     G = g[..., -1]                                           # (b,K,H)
     xdt = (xc.float() * dtc[..., None]).to(cdt)              # (b,K,H,Q,P)
 
     # intra-chunk: ((C B^T) o decay o mask) @ (dt x)
-    CB = _mm32(Cc, Bc.transpose(-1, -2))                     # (b,K,1,Q,Q)
+    CB = _mm32(Cc, Bc.transpose(-1, -2))                     # (b,K,1|H,Q,Q)
     ldiff = g[..., :, None] - g[..., None, :]                # (b,K,H,Q,Q)
     mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
     W = (CB * torch.exp(ldiff.masked_fill(~mask, float("-inf")))).to(cdt)
@@ -107,6 +137,16 @@ def _ssd_forward_plain(x, dt, A, Bm, Cm, chunk):
     y = y + _mm32(Cg, S_prev.to(cdt))
     y = y.transpose(2, 3).reshape(b, K * Q, H, P)[:, :L]
     return y.to(x.dtype)
+
+
+def ssd(x, dt, A, Bm, Cm, chunk: int = 128) -> torch.Tensor:
+    """The chunked matmul form with B/C per head ``(b, L, H, N)``, in
+    chunks of ``min(chunk, ssd_chunk_size(L, chunk))`` with the tail padded
+    by dt = 0 steps: products in x's dtype when it is bf16 / fp16 (else
+    fp32) with fp32 sums, the decays in fp32. The carry across chunks runs
+    in order where the JAX package runs an associative scan (the same sums
+    up to rounding)."""
+    return _ssd_forward_plain(x, dt, A, Bm, Cm, chunk)
 
 
 def ssd_shared_plain(x, dt, A, Bm, Cm, chunk: int = 256,

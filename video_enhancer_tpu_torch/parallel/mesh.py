@@ -19,10 +19,13 @@ order). A ``Mesh`` passed where a time axis is expected acts as its time
 axis (its ``size``, ``index`` and collectives are the time axis's), so the
 exact time-sharded factories and the time-axis functions take either.
 
-JAX's ``clip_sharding``, ``frame_sharding`` and ``replicated`` are
-``NamedSharding``s, which tell XLA how to lay a global array over the
-devices; they have no counterpart: here each rank cuts its own shard
-(parallel/inference.py, parallel/spatial.py).
+JAX's ``clip_sharding``, ``frame_sharding`` and ``replicated`` (:40-52)
+are ``NamedSharding``s, which tell XLA how to lay a global array over the
+devices. Here each rank holds its own block, so their counterparts take
+the global tensor and return what this rank holds of it under that
+placement: a clip's B over data, T over time and H over space; a frame
+batch's B over data and time together (data major) and H over space; a
+replicated tensor whole.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["AXES", "Axis", "TimeAxis", "Mesh", "make_mesh", "mesh_on_group",
-           "launch_ranks",
-           "local_mesh", "factor_devices", "halo_exchange"]
+           "launch_ranks", "local_mesh", "factor_devices", "halo_exchange",
+           "clip_sharding", "frame_sharding", "replicated"]
 
 AXES = ("data", "time", "space")
 
@@ -245,6 +248,39 @@ def factor_devices(n: int) -> tuple[int, int, int]:
     if data * time * space != n:
         raise ValueError(f"n={n} must be a power of 2")
     return data, time, space
+
+
+def _block(t: torch.Tensor, dim: int, size: int, index: int
+           ) -> torch.Tensor:
+    """Block ``index`` of ``size`` equal blocks of ``t`` along ``dim``."""
+    if t.shape[dim] % size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
+                         f"into {size} blocks")
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n)
+
+
+def clip_sharding(mesh: Mesh, clip: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a ``(B, T, H, W, C)`` clip: B over data, T over
+    time, H over space (``P("data", "time", "space", None, None)``)."""
+    for dim, name in enumerate(AXES):
+        ax = mesh.axis(name)
+        clip = _block(clip, dim, ax.size, ax.index)
+    return clip
+
+
+def frame_sharding(mesh: Mesh, frames: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a ``(B, H, W, C)`` frame batch: B over data and
+    time together, data major, H over space (``P(("data", "time"),
+    "space", None, None)``)."""
+    d, t, s = (mesh.axis(name) for name in AXES)
+    frames = _block(frames, 0, d.size * t.size, d.index * t.size + t.index)
+    return _block(frames, 1, s.size, s.index)
+
+
+def replicated(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """What every rank holds of a replicated tensor: all of it (``P()``)."""
+    return t
 
 
 def halo_exchange(x: torch.Tensor, halo: int, axis, dim: int,

@@ -6,10 +6,10 @@ model an ordered list of candidates (``FALLBACK_HIERARCHIES``, a copy of
 the first candidate that builds within the timeout while the host keeps its
 free-memory floor (``psutil`` when installed; without it the check passes,
 as in the JAX package) and records every attempt in its history. The port
-builds every model the hierarchies name; a name it does not know, or a
-variant it does not serve yet (vsrm's attentive backbone), fails its build
-like any other failed build: the attempt is recorded and the next
-candidate tried. Handlers are built on ``device`` (the card unless
+builds every model the hierarchies name, in each variant the JAX registry
+selects (vsrm's attentive mixer among them); a name it does not know fails
+its build like any other failed build: the attempt is recorded and the
+next candidate tried. Handlers are built on ``device`` (the card unless
 ``"cpu"`` is asked for).
 """
 

@@ -11,14 +11,24 @@ realesrgan / realesrgan_fast (:284-341). Each handler reads its entry from
 the policy it is given (the default policy otherwise). The JAX cache is
 keyed by the model's name alone; this one is keyed by everything a build
 reads (the name, the device, the policy's entry, the mesh and, for
-realesrgan, ``$VETPU_REALESRGAN_CKPT``), so a handler built for one device
-or entry is never handed to a caller of another.
+realesrgan, ``$VETPU_REALESRGAN_CKPT``, for vsrm its resolved spatial
+mixer), so a handler built for one device, entry or variant is never
+handed to a caller of another.
 
 fast_mamba_vsr's ssd temporal mixer is chosen, as in the JAX registry, by
 the policy name ``fast_mamba_vsr_ssd`` or by ``extra.temporal_mixer: ssd``
 on the base entry; both load ``fast_mamba_vsr_ssd_<scale>x.npz`` (the
 variant on the base stem), and the calibrated strength follows the
 handler's name (1.0 for fast_mamba_vsr_ssd, 0.6 for fast_mamba_vsr).
+
+vsrm's spatial mixer is chosen by the JAX registry's rule (:187-207): the
+entry's ``extra.backbone``, else ``$VETPU_PREFERRED_BACKBONE``; "mambairv2"
+or "attentive" (in any case) selects the attentive mixer, which loads
+``vsrm_attentive_<scale>x.npz`` (none is bundled, so its seeded init is
+served, as in the JAX package). The resolved mixer is part of the cache's
+key, so setting or clearing the variable after a vsrm handler was cached
+builds the other one (the JAX cache, keyed by the name, would hand back
+the stale handler).
 
 ``$VETPU_REALESRGAN_CKPT`` (realesrgan only) names a released RRDBNet
 checkpoint (``RealESRGAN_x4plus.pth``), loaded into the official graph
@@ -77,15 +87,28 @@ def _fmv_mixer(name: str, entry: ModelEntry) -> str:
     return str(entry.extra.get("temporal_mixer", default))
 
 
+def _vsrm_mixer(entry: ModelEntry) -> str:
+    """vsrm's spatial mixer: ``extra.backbone``, else
+    ``$VETPU_PREFERRED_BACKBONE`` (default "eamamba"); "mambairv2" or
+    "attentive" means "attentive", anything else "ssd"."""
+    backbone = str(entry.extra.get("backbone")
+                   or os.environ.get("VETPU_PREFERRED_BACKBONE", "eamamba")
+                   ).lower()
+    return "attentive" if backbone in ("mambairv2", "attentive") else "ssd"
+
+
 def _stem(name: str, entry: ModelEntry) -> str:
     """The bundled checkpoint's stem: fast_mamba_vsr's on a mixer other
-    than "ssm" is the base name and the mixer's (the JAX registry's
-    ``f"{name}_{variant}"``), so both selections of the ssd mixer load
-    fast_mamba_vsr_ssd; every other model's is its name."""
+    than "ssm" and vsrm's on a mixer other than "ssd" are the base name and
+    the mixer's (the JAX registry's ``f"{name}_{variant}"``), so both
+    selections of the ssd mixer load fast_mamba_vsr_ssd and the attentive
+    vsrm loads vsrm_attentive; every other model's is its name."""
     if name in ("fast_mamba_vsr", "fast_mamba_vsr_ssd"):
         mixer = _fmv_mixer(name, entry)
         return ("fast_mamba_vsr" if mixer == "ssm"
                 else f"fast_mamba_vsr_{mixer}")
+    if name == "vsrm" and _vsrm_mixer(entry) != "ssd":
+        return f"vsrm_{_vsrm_mixer(entry)}"
     return name
 
 
@@ -98,7 +121,7 @@ def _init(name: str, entry: ModelEntry, gen: torch.Generator) -> dict:
     if name == "vsrm":
         return vsrm.init(gen, dim=int(x.get("dim", 64)),
                          num_blocks=int(x.get("num_blocks", 6)),
-                         scale=entry.scale)
+                         scale=entry.scale, mixer=_vsrm_mixer(entry))
     if name == "ditvr":
         return ditvr.init(gen, dim=int(x.get("dim", 384)),
                           depth=int(x.get("depth", 8)),
@@ -188,27 +211,21 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
     ``apply`` and gates sharp windows: ``quality_threshold``, 0.85 unless
     ``extra`` sets it), on the policy's mesh when one is up
     (``_serving_mesh``), cnn_upscaler in bf16, bicubic in fp32. A handler
-    is built once for each name, device, entry and mesh and then handed
-    out again (``clear_cache`` forgets them); a build that raises caches
-    nothing. The build runs outside the cache's lock, so a slow build does
-    not hold up others (two callers of one key may both build; the first
-    stored is kept). A variant the port does not serve yet (vsrm's
-    ``backbone`` or ``$VETPU_PREFERRED_BACKBONE``) raises
-    NotImplementedError."""
+    is built once for each name, device, entry, mesh and what it reads of
+    the environment (``$VETPU_REALESRGAN_CKPT`` for realesrgan, vsrm's
+    resolved mixer) and then handed out again (``clear_cache`` forgets
+    them); a build that raises caches nothing. The build runs outside the
+    cache's lock, so a slow build does not hold up others (two callers of
+    one key may both build; the first stored is kept)."""
     policy = policy or default_policy()
     entry = policy.models.get(name)
     if name not in MODELS or entry is None:
         raise KeyError(f"the port serves {sorted(MODELS)}, not {name!r}")
-    # before the cache: the environment is not part of its key
-    variant = _unported_variant(name, entry)
-    if variant is not None:
-        raise NotImplementedError(
-            f"{name} with {variant} is not ported yet; the port serves only "
-            f"its default variant")
     dev = resolve_device(device)
     mesh = (None if name in ("cnn_upscaler", "bicubic")
             else _serving_mesh(policy, dev))
-    key = (name, str(dev), repr(entry), mesh, _official_ckpt(name))
+    key = (name, str(dev), repr(entry), mesh, _official_ckpt(name),
+           _vsrm_mixer(entry) if name == "vsrm" else None)
     with _lock:
         handler = _cache.get(key)
     if handler is None:
@@ -216,20 +233,6 @@ def build_handler(name: str = "vsrm", policy: Policy | None = None,
         with _lock:
             handler = _cache.setdefault(key, handler)
     return handler
-
-
-def _unported_variant(name: str, entry: ModelEntry) -> str | None:
-    """The variant ``entry`` (or the environment) selects that the port does
-    not serve yet, by the JAX registry's rule (registry.py:196-201): vsrm's
-    ``extra.backbone``, else ``$VETPU_PREFERRED_BACKBONE``, of "mambairv2"
-    or "attentive". None when the default variant is asked for."""
-    if name == "vsrm":
-        backbone = str(entry.extra.get("backbone")
-                       or os.environ.get("VETPU_PREFERRED_BACKBONE", "eamamba")
-                       ).lower()
-        if backbone in ("mambairv2", "attentive"):
-            return f"backbone={backbone!r}"
-    return None
 
 
 def _per_frame(apply_fn):
@@ -284,9 +287,11 @@ def _build(name: str, entry: ModelEntry, device: torch.device, mesh):
             load_params(name, entry), scale=scale, **frames)
     params = load_params(name, entry)
     if name == "vsrm":
+        mixer = _vsrm_mixer(entry)
         return VSRHandler(
             name,
-            calibrate_vsr(name, lambda p, x: vsrm.apply(p, x, scale=scale)),
+            calibrate_vsr(name, lambda p, x: vsrm.apply(p, x, scale=scale,
+                                                        mixer=mixer)),
             params, scale=scale, **windows)
     if name == "rvrt":
         return VSRHandler(

@@ -1,4 +1,4 @@
-"""Serving layer of the port: the REST job server over stdlib HTTP
-(counterpart of video_enhancer_tpu/serving/; its UI is not ported yet)."""
+"""Serving layer of the port: the REST job server over stdlib HTTP and its
+UI page (counterpart of video_enhancer_tpu/serving/)."""
 
 from .http import Request, Response, Router  # noqa: F401

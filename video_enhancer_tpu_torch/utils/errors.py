@@ -1,6 +1,9 @@
-"""Error classification + structured handling: the part of
-video_enhancer_tpu/utils/errors.py that the server's router calls
-(``create_error_response`` and the types it needs; standard library only).
+"""Error classification + structured handling (standard library only).
+
+Counterpart of video_enhancer_tpu/utils/errors.py: the codes, the five
+exception classes with their codes, the classifier, the handler with its
+stats, ``handle_exceptions`` and ``create_error_response`` (which the
+server's router calls).
 
 Re-creates the reference error subsystem (reference utils/error_handler.py):
 ``ErrorCode`` families SYS/INPUT/MODEL/PROC/AGENT/API/VAL/SEC (:36-97), an
@@ -13,14 +16,18 @@ from __future__ import annotations
 
 import collections
 import enum
+import functools
 import logging
 import threading
 import traceback
+from typing import Any
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ErrorCode", "VideoEnhancerError", "ErrorHandler",
-           "get_error_handler", "create_error_response"]
+__all__ = ["ErrorCode", "VideoEnhancerError", "InputError", "ModelError",
+           "ProcessingError", "ResourceError", "SecurityError",
+           "ErrorHandler", "get_error_handler", "handle_exceptions",
+           "create_error_response"]
 
 
 class ErrorCode(str, enum.Enum):
@@ -103,6 +110,26 @@ class VideoEnhancerError(Exception):
         self.details = details or {}
 
 
+class InputError(VideoEnhancerError):
+    code = ErrorCode.INPUT_CORRUPT
+
+
+class ModelError(VideoEnhancerError):
+    code = ErrorCode.MODEL_FORWARD_FAILED
+
+
+class ProcessingError(VideoEnhancerError):
+    code = ErrorCode.PROC_FAILED
+
+
+class ResourceError(VideoEnhancerError):
+    code = ErrorCode.SYS_OUT_OF_MEMORY
+
+
+class SecurityError(VideoEnhancerError):
+    code = ErrorCode.SEC_THREAT_DETECTED
+
+
 def classify_exception(exc: BaseException) -> ErrorCode:
     """Map arbitrary exceptions to an ErrorCode (reference
     error_handler.py:180-280 classification)."""
@@ -174,6 +201,28 @@ def get_error_handler() -> ErrorHandler:
         if _handler is None:
             _handler = ErrorHandler()
         return _handler
+
+
+def handle_exceptions(context: str = "", default: Any = None,
+                      reraise: bool = False):
+    """Decorator: an exception of the wrapped call is recorded by the
+    shared handler (``context``, else the function's qualified name) and
+    ``default`` returned, or re-raised with ``reraise`` (reference
+    error_handler.py:385-423)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except Exception as e:
+                get_error_handler().handle_error(
+                    e, context or fn.__qualname__, reraise=reraise)
+                return default
+
+        return wrapped
+
+    return deco
 
 
 def create_error_response(exc: BaseException, context: str = "") -> tuple[dict, int]:
