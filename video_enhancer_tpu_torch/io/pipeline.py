@@ -6,7 +6,9 @@ windowing (:54-98): windows of ``window`` frames every ``stride`` frames;
 a tail that does not fill a window is padded by repeating its last frame
 and reports how many frames are real (``valid``). It takes any iterator of
 uint8 ``(H, W, 3)`` frames and stays on the host; the handlers move each
-window to the device. ``FramePipeline`` (:25-98) decodes a video file on a
+window to the device. The stacking of each window's frames is the span
+``pipeline:assemble`` (utils/perf.py); pulling frames from the source is
+not in it. ``FramePipeline`` (:25-98) decodes a video file on a
 producer thread into a queue of ``depth`` windows, each already float32 in
 [0, 1] on the device, so that decoding and the copy of the next window
 overlap the work on this one.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.perf import span
 from .video import VideoReader
 
 __all__ = ["Window", "iter_windows", "FramePipeline"]
@@ -45,13 +48,16 @@ def iter_windows(frames: Iterable[np.ndarray], window: int,
     for frame in frames:
         buf.append(frame)
         if len(buf) == window:
-            yield Window(np.stack(buf), start, window)
+            with span("pipeline:assemble"):
+                stacked = np.stack(buf)
+            yield Window(stacked, start, window)
             buf = buf[stride:] if window > stride else []
             start += stride
     if buf:
         valid = len(buf)
-        buf += [buf[-1]] * (window - valid)
-        yield Window(np.stack(buf), start, valid)
+        with span("pipeline:assemble"):
+            stacked = np.stack(buf + [buf[-1]] * (window - valid))
+        yield Window(stacked, start, valid)
 
 
 class FramePipeline:

@@ -13,8 +13,8 @@ backward re-runs ``plain`` on detached copies under autograd and returns
 the gradients of the inputs that need one, each in its input's dtype and
 shape, and None for every other argument. No backward is a kernel, as in
 JAX, and the backward records no FLOPs (utils/flops.py); it runs inside a
-profiler range ``vjp:<plain version's name>``, so that a trace gives the
-plain backward's device time by kernel row. With grad mode off
+profiler span ``vjp:<plain version's name>`` (utils/perf.py), so that a
+trace gives the plain backward's device time by kernel row. With grad mode off
 (``torch.inference_mode``, ``no_grad``) or no input requiring grad, the
 launch or the plain version is called directly: serving pays nothing.
 """
@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.flops import accounting
+from ..utils.perf import span
 
 __all__ = ["wants_grad", "kernel_vjp"]
 
@@ -48,8 +49,7 @@ class _KernelVJP(torch.autograd.Function):
         wrt = [i for i, t in enumerate(args) if t.requires_grad]
         result: list = [None] * len(args)
         if wrt:
-            with torch.profiler.record_function(
-                    f"vjp:{ctx.plain.__name__}"), torch.enable_grad(), \
+            with span(f"vjp:{ctx.plain.__name__}"), torch.enable_grad(), \
                     accounting():
                 out = ctx.plain(*args, **ctx.kw)
                 # an output none of the inputs reaches takes no gradient

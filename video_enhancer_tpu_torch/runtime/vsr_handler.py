@@ -22,7 +22,13 @@ Counterpart of video_enhancer_tpu/runtime/vsr_handler.py:35-247:
 - ``context`` holds per-video conditioning (ditvr's degradation scores and
   type) as tensors on the handler's device, passed to the model as keyword
   arguments on every forward, tiles and shards included;
-  ``update_context`` changes it between videos.
+  ``update_context`` changes it between videos;
+- each window runs in profiler spans (utils/perf.py ``span``, a no-op with
+  no profiler): ``vsr_handler:window`` from its receipt to its frames on
+  the host, and in it ``:upload`` (the copy in, the scaling), ``:gate``,
+  ``:tiles`` (each group's stack, the concatenation), ``:model`` (a model
+  call with its casts, sharded or not), ``:blend``, ``:round`` and
+  ``:download``; the frames are yielded outside every span.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from ..ops.blend import overlap_add_blend
 from ..ops.color import rgb_to_gray
 from ..ops.imgproc import laplacian
 from ..parallel.inference import make_mesh_sharded_clip_fn
-from ..utils.perf import get_tracker
+from ..utils.perf import get_tracker, span
 
 __all__ = ["VSRHandler", "cast_params", "window_quality"]
 
@@ -117,8 +123,9 @@ class VSRHandler:
 
     @torch.inference_mode()
     def _fwd(self, clips: torch.Tensor) -> torch.Tensor:
-        return self.apply_fn(self.params, clips.to(self.dtype),
-                             **self.context).float()
+        with span("vsr_handler:model"):
+            return self.apply_fn(self.params, clips.to(self.dtype),
+                                 **self.context).float()
 
     def process_clip(self, clip: torch.Tensor) -> torch.Tensor:
         """``(T, H, W, 3)`` float32 on the handler's device -> ``(T, sH, sW,
@@ -157,9 +164,21 @@ class VSRHandler:
             n_valid = len(batch)
             if len(tiles) > _TILE_GROUP:
                 batch = batch + [batch[-1]] * (_TILE_GROUP - n_valid)
-            outs.append(self._fwd(torch.stack(batch))[:n_valid])
-        stacked = torch.cat(outs, dim=0)              # (N, T, sts, sts, 3)
-        return overlap_add_blend(stacked, origins, (h * s, w * s), ov * s)
+            with span("vsr_handler:tiles"):
+                group = torch.stack(batch)
+            outs.append(self._fwd(group)[:n_valid])
+        with span("vsr_handler:tiles"):
+            stacked = torch.cat(outs, dim=0)          # (N, T, sts, sts, 3)
+        with span("vsr_handler:blend"):
+            return overlap_add_blend(stacked, origins, (h * s, w * s),
+                                     ov * s)
+
+    def _sharp(self, u8: torch.Tensor) -> bool:
+        """The quality gate passes the window through unchanged."""
+        if self.quality_threshold is None:
+            return False
+        with span("vsr_handler:gate"):
+            return window_quality(u8) > self.quality_threshold
 
     def enhance_frames(self, frames: Iterable[np.ndarray],
                        stats: dict | None = None) -> Iterator[np.ndarray]:
@@ -170,18 +189,27 @@ class VSRHandler:
         stride = self.chunk - self.overlap
         skipped = 0
         for win in iter_windows(frames, self.chunk, stride):
-            u8 = torch.from_numpy(win.frames).to(self.device)
-            if (self.quality_threshold is not None
-                    and window_quality(u8) > self.quality_threshold):
-                skipped += 1                      # already sharp: unchanged
-            else:
-                out = self.process_clip(u8.float() / 255.0)
-                u8 = torch.clamp(torch.round(out * 255.0), 0, 255).to(
-                    torch.uint8)
-            begin = self.overlap if win.start > 0 else 0
-            end = min(win.valid, self.chunk)
-            if begin < end:
-                yield from u8[begin:end].cpu().numpy()
+            with span("vsr_handler:window"):
+                with span("vsr_handler:upload"):
+                    u8 = torch.from_numpy(win.frames).to(self.device)
+                if self._sharp(u8):
+                    skipped += 1                  # already sharp: unchanged
+                else:
+                    # the scaling is the upload's too; a gate, where set,
+                    # reads the uint8 window before it
+                    with span("vsr_handler:upload"):
+                        clip = u8.float() / 255.0
+                    out = self.process_clip(clip)
+                    with span("vsr_handler:round"):
+                        u8 = torch.clamp(torch.round(out * 255.0), 0,
+                                         255).to(torch.uint8)
+                begin = self.overlap if win.start > 0 else 0
+                end = min(win.valid, self.chunk)
+                host = ()
+                if begin < end:
+                    with span("vsr_handler:download"):
+                        host = u8[begin:end].cpu().numpy()
+            yield from host
         if stats is not None:
             stats["windows_skipped"] = skipped
 

@@ -26,8 +26,8 @@ then mu = 0.1 g + 0.9 mu, nu = 0.001 g^2 + 0.999 nu, bias-corrected by
 weight decay times the parameter (every parameter: optax's ``mask=None``),
 times -lr, added to the parameter. No step syncs with the host: the loss
 comes back as a 0-d tensor on the device. Each part of a step runs in a
-profiler range (``train_step:forward``, ``:backward``, ``:all_reduce``,
-``:optimizer``) that a trace reads.
+profiler span (utils/perf.py ``span``: ``train_step:forward``,
+``:backward``, ``:all_reduce``, ``:optimizer``) that a trace reads.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ import inspect
 from typing import Any, Callable
 
 import torch
-from torch.profiler import record_function
 
+from ..utils.perf import span
 from .losses import vsr_loss
 
 __all__ = ["TrainState", "AdamW", "make_optimizer", "make_train_step",
@@ -167,23 +167,23 @@ def make_train_step(apply_fn: Callable, optimizer: AdamW, mesh,
     def train_step(state: TrainState, batch: dict):
         leaves = tree_leaves(state.params)
         with torch.enable_grad():
-            with record_function("train_step:forward"):
+            with span("train_step:forward"):
                 pred = apply_fn(state.params, batch["lr"])
                 loss = (loss_fn(pred, batch["hr"], lr=batch["lr"])
                         if wants_lr else loss_fn(pred, batch["hr"]))
-            with record_function("train_step:backward"):
+            with span("train_step:backward"):
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         loss = loss.detach()
         if data.size > 1:
-            with record_function("train_step:all_reduce"):
+            with span("train_step:all_reduce"):
                 flat = data.psum(torch.cat([g.reshape(-1) for g in grads]
                                            + [loss.reshape(1)]) / data.size)
             *parts, loss = flat.split([g.numel() for g in grads] + [1])
             grads = [f.view_as(g) for f, g in zip(parts, grads)]
             loss = loss[0]
-        with record_function("train_step:optimizer"):
+        with span("train_step:optimizer"):
             new, opt_state = optimizer.update(grads, state.opt_state, leaves)
         params = tree_unflatten(state.params,
                                 [p.requires_grad_() for p in new])

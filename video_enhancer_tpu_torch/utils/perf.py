@@ -1,19 +1,29 @@
-"""Performance tracking: the tracker of video_enhancer_tpu/utils/perf.py.
+"""Performance tracking: the tracker of video_enhancer_tpu/utils/perf.py,
+and the program's profiler spans.
 
 What the port's server, router and handlers call (the reference's
 performance_monitor.py:178-335, 486-510): ``start_operation`` /
 ``update_operation`` / ``finish_operation``, the per-strategy aggregates
 of ``get_stats`` and the ``@track_enhancement_performance(strategy)``
 decorator of the handlers' file entry points, with the card's memory from
-``torch.cuda`` (none without a card) and a 1 Hz host RSS sampler thread
-where psutil is installed. The JAX tracker's ``profile=True`` (a
-``jax.profiler`` trace), context manager and history have no caller in
-the port.
+``torch.cuda`` (none without a card). The JAX tracker's 1 Hz host RSS
+sampler thread is left out: it wrote a peak RSS into each operation that
+neither ``get_stats`` nor any caller of ``finish_operation`` reads. Its
+``profile=True`` (a ``jax.profiler`` trace), context manager and history
+have no caller in the port.
+
+``span(name)`` marks a stage of the program on the profiler's clock: a
+``torch.profiler.record_function`` range while a profiler runs, else a
+shared no-op context after one flag check, far cheaper than a
+``record_function`` with no profiler to record it. Names are
+``<layer>:<stage>``, one colon, so that a trace tells them from torch's
+``aten::`` operations.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -22,8 +32,19 @@ import uuid
 from typing import Any
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["PerformanceTracker", "get_tracker", "track_enhancement_performance"]
+__all__ = ["PerformanceTracker", "get_tracker", "span",
+           "track_enhancement_performance"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``name`` while a profiler runs, else a no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _device_memory_stats() -> dict:
@@ -41,7 +62,6 @@ class Operation:
     started: float
     meta: dict = dataclasses.field(default_factory=dict)
     frames_done: int = 0
-    peak_host_rss: int = 0
     finished: float | None = None
     success: bool | None = None
     error: str | None = None
@@ -62,36 +82,11 @@ class Operation:
         return d
 
 
-class _HostSampler(threading.Thread):
-    """1 Hz psutil RSS sampler (reference ResourceMonitor,
-    performance_monitor.py:96-176)."""
-
-    def __init__(self, tracker: "PerformanceTracker"):
-        super().__init__(daemon=True)
-        self.tracker = tracker
-        self.stop_evt = threading.Event()
-
-    def run(self):
-        try:
-            import psutil
-            proc = psutil.Process()
-        except ImportError:  # the card's machine may lack it
-            proc = None
-        while not self.stop_evt.wait(1.0):
-            if proc is None:
-                continue
-            rss = proc.memory_info().rss
-            with self.tracker._lock:
-                for op in self.tracker._active.values():
-                    op.peak_host_rss = max(op.peak_host_rss, rss)
-
-
 class PerformanceTracker:
     def __init__(self, history: int = 10_000):
         self._lock = threading.Lock()
         self._active: dict[str, Operation] = {}
         self._history: collections.deque[Operation] = collections.deque(maxlen=history)
-        self._sampler: _HostSampler | None = None
 
     # -- lifecycle ---------------------------------------------------------
     def start_operation(self, name: str, strategy: str = "unknown",
@@ -101,9 +96,6 @@ class PerformanceTracker:
                        started=time.time(), meta=dict(meta))
         with self._lock:
             self._active[op_id] = op
-            if self._sampler is None or not self._sampler.is_alive():
-                self._sampler = _HostSampler(self)
-                self._sampler.start()
         return op_id
 
     def update_operation(self, op_id: str, frames_done: int | None = None,
